@@ -1,0 +1,1 @@
+"""Copies of the JAX package's jax-free core modules (clock, parameters)."""
