@@ -3,22 +3,39 @@
 
     python3 chip_smoke.py              # the whole check, on cuda:0
 
-Phases, each printing its own lines:
+Phases, each printing its own lines and its seconds:
 
 1. build: the card's name and power limit (nvidia-smi), then one nvcc per
    CUDA source of go_libp2p_pubsub_tpu_torch/csrc, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (N=102400, K=32, T=1, M=64) plus a T=3 case and
-   an emit case with budget 5 < M; equality is exact (integer outputs).
-   Times are CUDA-event medians over 20 launches;
+   the main paths' shapes: the fused kernels at N=102400, K=32, T=1, M=64
+   plus a T=3 case and an emit case with budget 5 < M; the gathers at the
+   churn path's N=51200 (the bit-table exchange at the churn path's B=8 and
+   B=4 planes, words gather also at 102400, payload permute with int32 and
+   float32 payloads, flat take at each of its call shapes and an R that is
+   no multiple of 1024). Equality is exact (bit for bit). Times are
+   device times by CUDA events: 20 calls queued back to back behind a spin
+   kernel (so the host's enqueue time is hidden), median of 5 such rounds;
+   ``library_ms`` times the one PyTorch indexing call that computes a
+   gather, on int64 indices, the same way;
 3. main path: ``build_headline(102400)`` and 8 ticks of ``run``, with the
    kernels' launch counts reset just before and read just after;
+3b. churn path: ``scenarios.churn_50k(n_peers=51200)`` (gater, validation
+   queue cap 64, connection churn with PX; the non-fused data path), 8
+   ticks with ``hop_mode="xla"`` under ``edge_gather_mode="pallas"`` and
+   under ``"mxu"``, each twice, in turns, from copies of one initial state
+   and one key, the counts reset before and read after each run; every
+   run's final state must equal the first's in every field;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
+4b. the same for ``churn_50k(n_peers=1024)`` with the validation queue cap
+   cut to 4 (throttle and RED drop live), under both gather formulations;
 5. the ``kernels`` JSON line, then the device JSON line last.
 
-Any failure exits non-zero without the last line. Imports nothing of JAX.
+The two underlays (102400 and 51200 peers; a pure-Python O(N^2) build) are
+made in child processes while the kernels are built and checked. Any
+failure exits non-zero without the last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # TFLOP/s fp32 counts an FMA as two operations on 128 fp32 lanes per SM).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_FULL, K, M = 102400, 32, 64
+N_CHURN = 51200                  # churn_50k at its 128-friendly size
 REPS = 20
 
 # TPU kernel each port replaces (function definition, file:line)
@@ -46,14 +64,27 @@ REPLACES = {
     "iwant_resolve": "go_libp2p_pubsub_tpu/ops/hopkernel.py:255",
     "hop": "go_libp2p_pubsub_tpu/ops/hopkernel.py:363",
     "emit": "go_libp2p_pubsub_tpu/ops/hopkernel.py:174",
+    "gather_words": "go_libp2p_pubsub_tpu/ops/permgather.py:196",
+    "permutation_gather": "go_libp2p_pubsub_tpu/ops/permgather.py:161",
+    "take_words": "go_libp2p_pubsub_tpu/ops/mxutake.py:119",
 }
-LIBRARY_NOTE = ("library_ms is null for every kernel: no single PyTorch call "
-                "computes a bit-table edge exchange, a fused hop, an IWANT "
-                "resolve or a budgeted IHAVE chooser")
+LIBRARY_NOTE = ("library_ms is null for edge_table, hop, iwant_resolve and "
+                "emit: no single PyTorch call computes a bit-table edge "
+                "exchange, a fused hop, an IWANT resolve or a budgeted IHAVE "
+                "chooser")
+# kernels each path must launch (and, for the churn runs, must not)
+PATH_KERNELS = {
+    "headline": ({"edge_table", "hop", "iwant_resolve", "emit"}, set()),
+    "churn[pallas]": ({"edge_table", "gather_words", "permutation_gather"},
+                      {"take_words", "hop", "iwant_resolve", "emit"}),
+    "churn[mxu]": ({"take_words"}, {"edge_table", "gather_words",
+                                    "permutation_gather", "hop",
+                                    "iwant_resolve", "emit"}),
+}
 
 
 def _build_topology(conn, n, k, degree):
-    """Child process: the headline underlay (a pure-Python O(N^2) build)."""
+    """Child process: an underlay (a pure-Python O(N^2) build)."""
     sys.path.insert(0, REPO)
     from go_libp2p_pubsub_tpu_torch.sim import topology
     conn.send(tuple(topology.sparse(n, k, degree=degree)))
@@ -67,25 +98,50 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.n = N_FULL
         self.results = {}
+        self.path_launches = {}
 
     # ---- helpers ---------------------------------------------------------
     def sync(self):
         self.torch.cuda.synchronize()
 
-    def time_ms(self, fn, reps=REPS):
-        """Median milliseconds of ``fn()`` by CUDA events."""
+    def spin_cycles_per_ms(self):
+        """The rate of the card's spin kernel (torch.cuda._sleep), by
+        CUDA events."""
         torch = self.torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        return 10 ** 7 / a.elapsed_time(b)
+
+    def time_ms(self, fn, reps=REPS, rounds=5):
+        """Device milliseconds per call of ``fn()``: ``reps`` calls queued
+        back to back between two CUDA events, behind a spin kernel long
+        enough that the host enqueues them all before the first one runs,
+        so the wrappers' host time is hidden (a call lasting a few
+        microseconds on the card costs tens on the host). Median over
+        ``rounds``."""
+        torch = self.torch
+        if not hasattr(self, "spin_rate"):
+            self.spin_rate = self.spin_cycles_per_ms()
+        t0 = time.perf_counter()
         fn()
         self.sync()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        spin = int(self.spin_rate * (2 * reps * host_ms + 1))
         times = []
-        for _ in range(reps):
+        for _ in range(rounds):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
             a.record()
-            fn()
+            for _ in range(reps):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / reps)
         return statistics.median(times)
 
     def rand_words(self, gen, *shape, density=0.5):
@@ -105,9 +161,11 @@ class Smoke:
 
     # ---- phase 2: each kernel against its plain version -------------------
     def check_kernel(self, name, case, kernel_fn, plain_fn, inputs, nbytes,
-                     ops):
+                     ops, library_fn=None):
         """Run the kernel and its plain version on clones of ``inputs``;
-        exact equality of every output; times; bound."""
+        exact equality of every output (float32 outputs compared as their
+        bits); times; bound. ``library_fn`` is the one PyTorch call that
+        computes the same function, timed beside the kernel."""
         torch = self.torch
 
         def clone():
@@ -125,6 +183,8 @@ class Smoke:
                 raise AssertionError(f"{name}[{case}] output {i}: "
                                      f"{tuple(g.shape)}/{g.dtype} vs "
                                      f"{tuple(w_.shape)}/{w_.dtype}")
+            if g.dtype == torch.float32:
+                g, w_ = g.view(torch.int32), w_.view(torch.int32)
             diff = (g.long() - w_.long()).abs()
             err = int(diff.max()) if diff.numel() else 0
             if err:
@@ -137,15 +197,18 @@ class Smoke:
         fixed = clone()
         ms = self.time_ms(lambda: kernel_fn(*fixed))
         plain_ms = self.time_ms(lambda: plain_fn(*fixed), reps=5)
+        library_ms = None if library_fn is None else self.time_ms(library_fn)
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / INT32_OPS_PER_S * 1e3
         row = dict(case=case, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    bound_ms=max(bound_bytes, bound_ops),
                    bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                    bytes=nbytes, ops=ops)
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"kernel {name} [{case}]: equal to its plain version "
-              f"(max_abs_err {max_err}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"(max_abs_err {max_err}); {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M int ops)",
               flush=True)
         self.results.setdefault(name, []).append(row)
@@ -228,6 +291,78 @@ class Smoke:
                     emit_in, nb(*emit_in) + n * m * 4,
                     n * k * w * (8 + 2 * t) + n * m)
 
+    def phase_gather_kernels(self):
+        """The gathers of the non-fused data path (the bit-table exchange and
+        kernels 5-7) at the churn path's shapes. Each is an index copy: no arithmetic, so the bound is
+        the bytes. The index contract (pre-clipped, not bounds-checked in
+        the kernels) is asserted here, before each launch."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(0)
+        n, k, w = N_CHURN, K, M // 32
+
+        def nb(*xs):
+            return sum(x.numel() * x.element_size() for x in xs)
+
+        def index(hi, *shape):
+            x = torch.randint(0, hi, shape, generator=gen, device=self.dev,
+                              dtype=torch.int32)
+            if not bool(((x >= 0) & (x < hi)).all()):
+                raise AssertionError("index out of range")
+            return x
+
+        # edge_table at the churn path's heartbeat exchanges (T=4): B = 2T =
+        # 8 planes (GRAFT/PRUNE, then gossip/forward) and B = T = 4 (the
+        # refusals), a [N, B*K/32] word table
+        jn, rk = index(n, n, k), index(k, n, k)
+        for b_planes in (8, 4):
+            table = self.rand_words(gen, n, b_planes * k // 32, density=0.2)
+            self.check_kernel(
+                "edge_table", f"B={b_planes},T=4,N={n}", pg.edge_table,
+                pg.edge_table_plain, [table, jn, rk, b_planes],
+                nb(table, jn, rk) + n * k * 4, n * k * b_planes * 6)
+        # gather_words: out[w, k, n] = x_w[w, nbr[n, k]], at the churn
+        # path's [2, 51200] x [51200, 32] and the headline's [2, 102400]
+        for nn in (n, N_FULL):
+            x_w = self.rand_words(gen, w, nn)
+            nbr = index(nn, nn, k)
+            nbr64 = nbr.long()
+            self.check_kernel(
+                "gather_words", f"W={w},N={nn}", pg.gather_words,
+                pg.gather_words_plain, [x_w, nbr],
+                nb(x_w, nbr) + w * k * nn * 4, 0,
+                library_fn=lambda x=x_w, i=nbr64: x[:, i.T])
+        # permutation_gather: out[n, k] = payload[jn[n, k], rk[n, k]], the
+        # churn exchange's packed bit-planes (int32) and a float32 payload
+        jn64, rk64 = jn.long(), rk.long()
+        for dtype in (torch.int32, torch.float32):
+            payload = self.rand_words(gen, n, k).view(dtype)
+            self.check_kernel(
+                "permutation_gather", f"{dtype},N={n}", pg.permutation_gather,
+                pg.permutation_gather_plain, [payload, jn, rk],
+                nb(payload, jn, rk) + n * k * 4, 0,
+                library_fn=lambda p=payload: p[jn64, rk64])
+        # take_words: out[w, r] = x_w[w, idx[r]] at its call shapes under
+        # edge_gather_mode="mxu": the words gather ([2, N], R = N*K), the
+        # bit-table exchanges ([8, N] and [4, N]) and the last one with the
+        # IWANT answer rows ([8 + 2, N]), churn's payload as one [1, N*K]
+        # table; and R = N*K - 7
+        for rows, cols, r, case in ((w, n, n * k, "words"),
+                                    (8, n, n * k, "bit-table B=8"),
+                                    (4, n, n * k, "bit-table B=4"),
+                                    (8 + w, n, n * k, "bit-table+answers"),
+                                    (1, n * k, n * k, "payload"),
+                                    (w, n, n * k - 7, "R=N*K-7")):
+            x_w = self.rand_words(gen, rows, cols)
+            idx = index(cols, r)
+            idx64 = idx.long()
+            self.check_kernel(
+                "take_words", f"{case},[{rows},{cols}],R={r}", mt.take_words,
+                mt.take_words_plain, [x_w, idx], nb(x_w, idx) + rows * r * 4,
+                0, library_fn=lambda x=x_w, i=idx64: x[:, i])
+
     # ---- phase 3: the main path at full size ------------------------------
     def phase_main(self, topo):
         torch = self.torch
@@ -259,29 +394,121 @@ class Smoke:
               f"delivered_total {delivered:.0f}; fault_flags 0x{flags:08x}",
               flush=True)
         print(f"main path launches: {json.dumps(launches)}", flush=True)
-        zero = [name for name, c in launches.items() if c == 0]
-        if zero:
-            raise AssertionError(f"kernels never launched on the main "
-                                 f"path: {zero}")
+        self.check_launches("headline", launches)
         if delivered <= 0:
             raise AssertionError("the main path delivered nothing")
         if flags & VIOLATION_MASK:
             raise AssertionError(f"invariant violations: "
                                  f"{decode_violations(flags)}")
-        self.main_launches = launches
-        self.main_hbs = 8 / secs
 
-    # ---- phase 4: the card's trajectory against the CPU's ------------------
-    def phase_trajectory(self):
+    def check_launches(self, path, launches):
+        """Every kernel of ``path`` launched, and none it must not."""
+        must, must_not = PATH_KERNELS[path]
+        zero = sorted(name for name in must if launches[name] == 0)
+        if zero:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {zero}")
+        stray = sorted(name for name in must_not if launches[name] != 0)
+        if stray:
+            raise AssertionError(f"kernels outside the {path} path "
+                                 f"launched: {stray}")
+        self.path_launches[path] = launches
+
+    # ---- phase 3b: the churn + peer-gater path at 51200 peers -------------
+    def phase_churn(self, topo):
+        import dataclasses
+
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import (delivery_fraction, run,
+                                                    scenarios, state_to_numpy)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            VIOLATION_MASK, decode_violations)
+        cfg, tp, st0 = scenarios.churn_50k(n_peers=N_CHURN, device=self.dev,
+                                           topo=topo)
+        conn0 = int((st0.connected & (st0.neighbors >= 0)).sum())
+        first = None
+        # each formulation runs twice, in turns, so that neither pays the
+        # process's first-call costs alone
+        for gather in ("pallas", "mxu", "mxu", "pallas"):
+            c = dataclasses.replace(cfg, hop_mode="xla",
+                                    edge_gather_mode=gather)
+            st = st0._replace(**{f: getattr(st0, f).clone()
+                                 for f in st0._fields})
+            key = rng.PRNGKey(0, device=self.dev)
+            self.sync()
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            out = run(st, c, tp, key, 8, device=self.dev)
+            self.sync()
+            secs = time.perf_counter() - t0
+            launches = dict(cudalib.LAUNCHES)
+            conn1 = int((out.connected & (out.neighbors >= 0)).sum())
+            flags = int(out.fault_flags) & 0xFFFFFFFF
+            delivered = float(out.delivered_total)
+            path = f"churn[{gather}]"
+            print(f"{path}: churn_50k({N_CHURN}) hop_mode=xla x 8 ticks in "
+                  f"{secs:.3f} s = {8 / secs:.3f} hb/s; delivery_fraction "
+                  f"(age>=2) "
+                  f"{float(delivery_fraction(out, c, min_age_ticks=2)):.6f}; "
+                  f"connected edges {conn0} -> {conn1}; gater_validate sum "
+                  f"{float(out.gater_validate.double().sum()):.4f}, "
+                  f"gater_deliver sum "
+                  f"{float(out.gater_deliver.double().sum()):.4f}, "
+                  f"gater_throttle sum "
+                  f"{float(out.gater_throttle.double().sum()):.4f}; "
+                  f"delivered_total {delivered:.0f}; fault_flags "
+                  f"0x{flags:08x}", flush=True)
+            print(f"{path} launches: {json.dumps(launches)}", flush=True)
+            self.check_launches(path, launches)
+            if delivered <= 0:
+                raise AssertionError(f"the {path} path delivered nothing")
+            if flags & VIOLATION_MASK:
+                raise AssertionError(f"{path}: invariant violations "
+                                     f"{decode_violations(flags)}")
+            if conn1 == conn0:
+                raise AssertionError(f"{path}: no edge changed state")
+            if float(out.gater_validate.sum()) <= 0:
+                raise AssertionError(f"{path}: the gater counted nothing")
+            got = state_to_numpy(out)
+            if first is None:
+                first = got
+                continue
+            differ = [f for f in first if first[f].dtype != got[f].dtype
+                      or not np.array_equal(first[f], got[f])]
+            if differ:
+                raise AssertionError(f"churn path: the {path} run ends in "
+                                     f"another state than the first pallas "
+                                     f"run: {differ}")
+        print("churn path: the pallas, mxu, mxu and pallas runs end in the "
+              "same state, every field equal", flush=True)
+
+    # ---- phase 4 / 4b: the card's trajectory against the CPU's -----------
+    def phase_trajectory(self, what="headline", gather=None):
+        import dataclasses
         import numpy as np
         torch = self.torch
         from go_libp2p_pubsub_tpu_torch import rng
-        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, step,
-                                                    state_to_numpy, topology)
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
+                                                    step, state_to_numpy,
+                                                    topology)
         n = 1024
         topo = topology.sparse(n, K, degree=12)
         devs = (self.dev, torch.device("cpu"))
-        runs = [build_headline(n, device=d, topo=topo) for d in devs]
+        if what == "headline":
+            runs = [build_headline(n, device=d, topo=topo) for d in devs]
+            label = f"{n} peers"
+        else:
+            runs = []
+            for d in devs:
+                cfg, tp, st = scenarios.churn_50k(n_peers=n, device=d,
+                                                  topo=topo)
+                runs.append((dataclasses.replace(
+                    cfg, hop_mode="xla", edge_gather_mode=gather,
+                    validation_queue_cap=4), tp, st))
+            label = (f"churn_50k({n}) cap 4, hop_mode=xla, "
+                     f"edge_gather_mode={gather}")
         keys = [rng.split(rng.PRNGKey(0, device=d), 8) for d in devs]
         states = [r[2] for r in runs]
         for tick in range(8):
@@ -296,29 +523,38 @@ class Smoke:
                     same = np.array_equal(x, y)
                 if not same:
                     raise AssertionError(
-                        f"trajectory: field {f} differs between "
+                        f"trajectory [{label}]: field {f} differs between "
                         f"{devs[0]} and cpu after tick {tick}")
-        print(f"trajectory: {n} peers x 8 ticks on {devs[0]} equal to the CPU "
+        extra = ""
+        if what != "headline":
+            extra = (f"; gater_throttle sum "
+                     f"{float(states[0].gater_throttle.double().sum()):.4f}")
+        print(f"trajectory [{label}]: 8 ticks on {devs[0]} equal to the CPU "
               f"run (integer/bool/packed exact, float32 rtol 1e-6); "
-              f"delivered_total {float(states[0].delivered_total):.0f}",
-              flush=True)
+              f"delivered_total {float(states[0].delivered_total):.0f}"
+              f"{extra}", flush=True)
 
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
-            # the main path's case is the first (T=1, its own B / budget)
+            # the main path's case is the first (T=1, its own B / budget;
+            # the churn path's N=51200 for the gathers)
             main = cases[0]
+            by_path = {p: c[name] for p, c in self.path_launches.items()
+                       if c[name]}
             rows.append(dict(
                 name=name, route="cuda",
                 source=f"go_libp2p_pubsub_tpu_torch/csrc/{name}.cu",
                 replaces=REPLACES[name],
-                launches=self.main_launches.get(name, 0),
+                launches=sum(by_path.values()),
+                launches_by_path=by_path,
                 max_abs_err=max(c["max_abs_err"] for c in cases),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=None,
+                library_ms=main["library_ms"],
                 cases=[{kk: c[kk] for kk in ("case", "ms", "plain_ms",
-                                             "bound_ms", "bound_by")}
+                                             "library_ms", "bound_ms",
+                                             "bound_by")}
                        for c in cases]))
         return json.dumps({"kernels": rows})
 
@@ -341,14 +577,31 @@ def main() -> int:
         return 1
     smoke = Smoke()
 
-    # the main path's underlay builds in a child process while the kernels
-    # are built and checked
+    # the two underlays build in child processes while the kernels are
+    # built and checked
     ctx = mp.get_context("spawn")
-    parent, child = ctx.Pipe(duplex=False)
-    topo_proc = ctx.Process(target=_build_topology,
-                            args=(child, smoke.n, K, 12), daemon=True)
-    topo_proc.start()
-    child.close()
+    topo_jobs = {}
+    for n in (smoke.n, N_CHURN):
+        parent, child = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_build_topology, args=(child, n, K, 12),
+                           daemon=True)
+        proc.start()
+        child.close()
+        topo_jobs[n] = (parent, proc)
+
+    def topology_of(n):
+        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+        parent, proc = topo_jobs[n]
+        topo = Topology(*parent.recv())
+        proc.join()
+        return topo
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
     try:
         t_start = time.perf_counter()
         smi = subprocess.run(
@@ -367,20 +620,25 @@ def main() -> int:
               "in parallel)", flush=True)
         for name, r in sorted(report.items()):
             print(f"build {name}: {r['ptxas']}", flush=True)
-        smoke.phase_kernels()
+        timed("2 (fused kernels)", smoke.phase_kernels)
+        timed("2 (gather kernels)", smoke.phase_gather_kernels)
         print(LIBRARY_NOTE, flush=True)
-        topo = parent.recv()
-        topo_proc.join()
-        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
-        smoke.phase_main(Topology(*topo))
-        smoke.phase_trajectory()
+        timed("3 (main path)", lambda: smoke.phase_main(
+            topology_of(smoke.n)))
+        timed("3b (churn path)", lambda: smoke.phase_churn(
+            topology_of(N_CHURN)))
+        timed("4 (trajectory)", smoke.phase_trajectory)
+        for gather in ("pallas", "mxu"):
+            timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
+                  "churn", gather)
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     finally:
-        if topo_proc.is_alive():
-            topo_proc.terminate()
-            topo_proc.join()
+        for _, proc in topo_jobs.values():
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

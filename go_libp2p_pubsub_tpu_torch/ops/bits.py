@@ -98,6 +98,15 @@ def unpack_words(p: torch.Tensor, m: int) -> torch.Tensor:
     return torch.movedim(flat, 0, -1).bool()
 
 
+def gather_words_rows(x_w: torch.Tensor, nbr: torch.Tensor,
+                      mode: str = "auto") -> torch.Tensor:
+    """out[w, k, n] = x_w[w, nbr[n, k]]: the neighbour gather of packed
+    words (bits.py:80-93), in the formulation ``mode`` resolves to
+    (ops/permgather.resolve_gather_mode). ``nbr`` must be pre-clipped."""
+    from .permgather import gather_words, resolve_gather_mode
+    return gather_words(x_w, nbr, resolve_gather_mode(mode))
+
+
 def reduce_or(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Bitwise-OR reduction along ``axis``."""
     parts = torch.unbind(x, dim=axis)

@@ -37,6 +37,11 @@ KERNELS = {
     "iwant_resolve": ("iwant_resolve.cu", "iwant_resolve_launch",
                       "p" * 14 + "i" * 6 + "p"),
     "emit": ("emit.cu", "emit_launch", "p" * 6 + "i" * 7 + "p"),
+    "gather_words": ("gather_words.cu", "gather_words_launch",
+                     "p" * 3 + "i" * 4 + "p"),
+    "permutation_gather": ("permutation_gather.cu",
+                           "permutation_gather_launch", "p" * 4 + "i" * 3 + "p"),
+    "take_words": ("take_words.cu", "take_words_launch", "p" * 3 + "i" * 3 + "p"),
 }
 
 # launches per kernel, counted only where a wrapper launches its kernel

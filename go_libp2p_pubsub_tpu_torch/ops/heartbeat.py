@@ -21,7 +21,7 @@ from .. import rng
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
 from .bits import I32, pack_bool, prefix_count
-from .permgather import edge_table
+from .permgather import _edge_table_mxu, edge_table, resolve_gather_mode
 from .score_ops import (
     advance_active_latch,
     apply_prune_penalty,
@@ -31,27 +31,58 @@ from .score_ops import (
 from .selection import masked_median, select_random, select_top
 
 
-def edge_gather_packed(masks: list, state: SimState) -> list:
+def edge_gather(x: torch.Tensor, state: SimState, fill=False,
+                mode: str = "auto") -> torch.Tensor:
+    """incoming[j, t, s] = x[neighbors[j,s], t, reverse_slot[j,s]], invalid
+    slots False (heartbeat.py:40-57), for a boolean mask: it rides the
+    packed exchange. The reference's indexed gather of other dtypes and
+    fills has no caller on the ported paths and raises."""
+    if x.dtype != torch.bool or fill is not False:
+        raise NotImplementedError(
+            f"edge_gather of a {x.dtype} plane with fill={fill!r} is not "
+            "ported yet (ROADMAP.md, Queue 1 item 1)")
+    return edge_gather_packed([x], state, mode)[0][0]
+
+
+def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",
+                       extra_words=()):
     """Gather several [N, T, K] boolean edge masks through the reverse-edge
     permutation: ``incoming[j, t, s] = x[neighbors[j,s], t,
-    reverse_slot[j,s]]``, invalid slots False. All B planes x K slots pack
-    into one [N, ceil(B*K/32)] bit-table routed by :func:`edge_table`
-    (the reference's ``pallas`` branch, heartbeat.py:131-147)."""
+    reverse_slot[j,s]]``, invalid slots False (heartbeat.py:60-199). All B
+    planes x K slots pack into one [N, ceil(B*K/32)] bit-table, routed by
+    :func:`edge_table` under ``"auto"``/``"pallas"`` and by
+    ``_edge_table_mxu`` (the flat take) under ``"mxu"``.
+
+    ``extra_words``: [W_i, N] int32 word tables that ride the same take as
+    extra rows under ``"mxu"`` (any other formulation raises), returned as
+    [W_i, K, N] receiver views ``out[w, k, n] = tab[w, neighbors[n, k]]``
+    with invalid slots word-ANDed to 0. Returns ``(masks, extras)``, the
+    extras empty when none were passed."""
     n, t, k = masks[0].shape
+    mode = resolve_gather_mode(mode)
     planes = torch.cat(masks, dim=1)                       # [N, B, K]
     b = planes.shape[1]
     jn = state.neighbors.clamp(0, n - 1)
     rk = state.reverse_slot.clamp(0, k - 1)
     valid = ((state.neighbors >= 0) & (state.reverse_slot >= 0))[:, None, :]
+    if extra_words and mode != "mxu":
+        raise ValueError(f"extra_words requires the mxu formulation "
+                         f"(resolved {mode!r})")
     table = pack_bool(planes.reshape(n, b * k))            # [N, ceil(BK/32)]
-    groups = edge_table(table, jn, rk, b)
+    if mode == "mxu":
+        groups, extras_views = _edge_table_mxu(table, jn, rk, b,
+                                               tuple(extra_words))
+    else:
+        groups, extras_views = edge_table(table, jn, rk, b), []
     parts = []
     for w0, g in zip(range(0, b, 32), groups):
         nb = min(32, b - w0)
         sh = torch.arange(nb, dtype=I32, device=g.device)[None, :, None]
         parts.append(((g[:, None, :] >> sh) & 1).bool())
     flat = torch.cat(parts, dim=1) & valid
-    return [flat[:, i * t:(i + 1) * t, :] for i in range(len(masks))]
+    results = [flat[:, i * t:(i + 1) * t, :] for i in range(len(masks))]
+    vmask = torch.where(valid[:, 0, :].T, -1, 0).to(I32)   # [K, N]
+    return results, [view & vmask[None] for view in extras_views]
 
 
 class HeartbeatOut(NamedTuple):
@@ -60,12 +91,15 @@ class HeartbeatOut(NamedTuple):
     scores_all: torch.Tensor  # [N, K] same cache WITHOUT the connected mask
     inc_gossip: torch.Tensor  # [N, T, K] receiver view of emitGossip edges
     fwd_send: torch.Tensor    # [N, T, K] receiver view of eager-forward edges
-    extra_routed: tuple = ()  # the reference's ride-along views (sort/mxu
-                              # formulations only): always empty here
+    extra_routed: tuple = ()  # receiver views ([W_i, K, N]) of the caller's
+                              # extra_words, routed on the final exchange
+                              # (edge_gather_mode="mxu" only; invalid slots
+                              # read 0); empty when none were passed
 
 
 def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
-              key: torch.Tensor) -> HeartbeatOut:
+              key: torch.Tensor,
+              extra_words: list | None = None) -> HeartbeatOut:
     n, t, k = state.mesh.shape
     tick = state.tick
     ks = rng.split(key, 8)
@@ -151,7 +185,8 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     prunes = prune_neg | prune_over
 
     # --- cross-peer exchange, all against pre-round state ---
-    inc_graft, inc_prune = edge_gather_packed([grafts, prunes], state)
+    (inc_graft, inc_prune), _ = edge_gather_packed([grafts, prunes], state,
+                                                  cfg.edge_gather_mode)
 
     # receiver-side GRAFT vetting (gossipsub.go:741-837), capacity-budgeted
     # lowest-slot-first against the growing mesh (heartbeat.py:345-375)
@@ -176,7 +211,8 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
                                 cfg.behaviour_penalty_decay,
                                 cfg.decay_to_zero) + bp_add
 
-    refused_back, = edge_gather_packed([refuse], state)
+    (refused_back,), _ = edge_gather_packed([refuse], state,
+                                            cfg.edge_gather_mode)
 
     new_mesh = ((mesh5 | accept) & ~inc_prune & ~refused_back) & joined
     pruned_any = prunes | inc_prune | refused_back | (refuse & joined)
@@ -229,7 +265,10 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     # one shared exchange hands forward_tick its receiver views: who gossips
     # to me, and whose eager forwarding reaches me (gossipsub.go:1020-1035)
     send = new_mesh | (new_fanout & ~state.subscribed[:, :, None])
-    inc_gossip, fwd_send = edge_gather_packed([gossip_sel, send], st)
+    (inc_gossip, fwd_send), extras = edge_gather_packed(
+        [gossip_sel, send], st, cfg.edge_gather_mode,
+        extra_words=extra_words or ())
 
     return HeartbeatOut(state=st, scores=scores, scores_all=scores_all,
-                        inc_gossip=inc_gossip, fwd_send=fwd_send)
+                        inc_gossip=inc_gossip, fwd_send=fwd_send,
+                        extra_routed=tuple(extras))

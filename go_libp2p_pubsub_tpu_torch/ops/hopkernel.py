@@ -73,6 +73,32 @@ def _hop_config_ok(cfg) -> bool:
                          or getattr(cfg.fault_plan, "censorships", ()))))
 
 
+_HOP_MODES = ("auto", "xla", "pallas", "pallas-mxu")
+
+
+def resolve_hop_mode(cfg) -> str:
+    """The forwarding hop and IWANT resolve: ``"pallas"`` (the fused
+    kernels) or ``"xla"`` (the non-fused data path of ops/propagate.py).
+    ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused kernels
+    when :func:`_hop_config_ok` holds, else the non-fused path; ``"xla"``
+    always takes the non-fused path (hopkernel.py:112-140 with no shape
+    gate). ``"pallas-mxu"`` differs from ``"pallas"`` in the reference only
+    by the in-kernel gather formulation, so it runs the same kernels."""
+    if cfg.hop_mode not in _HOP_MODES:
+        raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
+    if cfg.hop_mode != "xla" and _hop_config_ok(cfg):
+        return "pallas"
+    return "xla"
+
+
+def resolve_emit_mode(cfg) -> str:
+    """The IHAVE->IWANT chooser: the fused :func:`emit` kernel under every
+    hop_mode but ``"xla"``, whatever the config (hopkernel.py:143-169)."""
+    if cfg.hop_mode not in _HOP_MODES:
+        raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
+    return "xla" if cfg.hop_mode == "xla" else "pallas"
+
+
 def _expand_topic(planes_u8: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
     """[N, T, K] uint8 bool planes + [T, W] topic message sets -> [W, N, K]
     packed words (topic sets are disjoint, so OR == sum)."""

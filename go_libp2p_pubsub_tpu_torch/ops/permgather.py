@@ -1,17 +1,31 @@
-"""The bit-table edge exchange (port of ops/permgather.py's
-``_edge_table_pallas``).
+"""The reverse-edge permutation and neighbour gathers (port of
+ops/permgather.py).
 
-``out[n, k]`` bit ``b % 32`` of group ``b // 32`` is table bit
-``b * K + rk[n, k]`` of row ``jn[n, k]``: B sender-side bool planes over K
-slots, packed b-major / slot-minor into one ``[N, ceil(B*K/32)]`` word table,
-routed through the (sender, slot) -> (receiver, reverse_slot) permutation.
-This carries the heartbeat's three packed exchanges
-(ops/heartbeat.edge_gather_packed).
+Three kernels, each a wrapper that takes its plain PyTorch version for CPU
+tensors and launches its CUDA kernel for CUDA tensors; anything else
+raises:
 
-:func:`edge_table` takes the plain PyTorch version for CPU tensors and
-launches the CUDA kernel (csrc/edge_table.cu) for CUDA tensors; anything
-else raises. The reference's other formulations (scalar, rows, sort, mxu)
-and its VMEM gates are TPU artefacts the port does not carry.
+- :func:`edge_table` (``_edge_table_pallas``, csrc/edge_table.cu): the
+  bit-table edge exchange. ``out[n, k]`` bit ``b % 32`` of group ``b // 32``
+  is table bit ``b * K + rk[n, k]`` of row ``jn[n, k]``: B sender-side bool
+  planes over K slots, packed b-major / slot-minor into one
+  ``[N, ceil(B*K/32)]`` word table, routed through the (sender, slot) ->
+  (receiver, reverse_slot) permutation. It carries the heartbeat's three
+  packed exchanges (ops/heartbeat.edge_gather_packed).
+- :func:`gather_words` (``_gather_words_pallas``, csrc/gather_words.cu):
+  ``out[w, k, n] = x_w[w, nbr[n, k]]``, the non-fused data path's
+  neighbour gather of a packed message table.
+- :func:`permutation_gather` (``_gather_pallas``,
+  csrc/permutation_gather.cu): ``out[n, k] = payload[jn[n, k], rk[n, k]]``
+  for a 4-byte payload, behind churn's symmetric exchanges.
+
+``edge_gather_mode`` picks the formulation (:func:`resolve_gather_mode`):
+``"auto"`` and ``"pallas"`` mean the three kernels above; ``"mxu"`` routes
+every words, bit-table and payload gather through the flat take of
+ops/mxutake.py (the reference's ``take_words_twolevel``), with the bit
+extraction of :func:`_edge_table_mxu` as plain tensor ops. The reference's
+scalar, rows and sort formulations, its sort keys and its VMEM gates are
+not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +35,22 @@ import torch
 from . import cudalib
 from .bits import I32
 
+def resolve_gather_mode(mode: str) -> str:
+    """The port's formulation for ``SimConfig.edge_gather_mode``: ``"auto"``
+    and ``"pallas"`` -> ``"pallas"`` (kernels 4-6), ``"mxu"`` -> ``"mxu"``
+    (the flat take, kernel 7). The reference's other formulations raise."""
+    if mode in ("auto", "pallas"):
+        return "pallas"
+    if mode == "mxu":
+        return "mxu"
+    if mode in ("scalar", "rows", "sort"):
+        raise NotImplementedError(
+            f"edge_gather_mode={mode!r} is not ported yet: the port has the "
+            "pallas and mxu formulations only (ROADMAP.md, Queue 1 item 3)")
+    raise ValueError(f"unknown edge_gather_mode {mode!r}")
+
+
+# --- the bit-table edge exchange (permgather.py:_edge_table_pallas) ---------
 
 def _check(table, jn, rk, b_planes):
     n, wb = table.shape
@@ -37,19 +67,24 @@ def _check(table, jn, rk, b_planes):
     return n, wb, nr, k, (b_planes + 31) // 32
 
 
-def edge_table_plain(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
-                     b_planes: int) -> list[torch.Tensor]:
-    """Plain PyTorch version: one ``[N, K]`` int32 word per 32-plane group."""
-    _, _, nr, k, n_groups = _check(table, jn, rk, b_planes)
-    rows = table[jn.long()]                                # [N, K, WB]
-    accs = [torch.zeros((nr, k), dtype=I32, device=table.device)
+def _extract_bits(rows, rk, b_planes, k, n_groups):
+    """Bit ``b * K + rk`` of each fetched row, packed 32 planes per group
+    (rows: [..., WB] int32 per edge, rk: [...] int32)."""
+    accs = [torch.zeros(rk.shape, dtype=I32, device=rk.device)
             for _ in range(n_groups)]
     for b in range(b_planes):
         pos = (rk + b * k).long()
-        word = torch.gather(rows, 2, (pos // 32)[..., None])[..., 0]
+        word = torch.gather(rows, -1, (pos // 32)[..., None])[..., 0]
         bit = (word >> (pos % 32).to(I32)) & 1
         accs[b // 32] = accs[b // 32] | (bit << (b % 32))
     return accs
+
+
+def edge_table_plain(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
+                     b_planes: int) -> list[torch.Tensor]:
+    """Plain PyTorch version: one ``[N, K]`` int32 word per 32-plane group."""
+    _, _, _, k, n_groups = _check(table, jn, rk, b_planes)
+    return _extract_bits(table[jn.long()], rk, b_planes, k, n_groups)
 
 
 def edge_table(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
@@ -66,3 +101,117 @@ def edge_table(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
     out = torch.empty((n_groups, nr, k), dtype=I32, device=table.device)
     cudalib.launch("edge_table", table, jn, rk, out, nr, k, wb, b_planes)
     return list(out.unbind(0))
+
+
+def _edge_table_mxu(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
+                    b_planes: int, extra_words=()):
+    """The bit-table exchange under ``edge_gather_mode="mxu"``
+    (permgather.py:303-350): every edge's table row, and the rows of the
+    ``extra_words`` tables ([W_i, N] int32) concatenated under it, fetched
+    by ONE :func:`~.mxutake.take_words` at n-major ``idx = jn.reshape(-1)``;
+    the bit extraction is plain tensor ops. Returns ``(groups, extras)``:
+    one [N, K] int32 word per 32-plane group, and each extra table's
+    receiver view ``out[w, k, n] = tab[w, jn[n, k]]`` as a [W_i, K, N]
+    (transposed) view."""
+    from .mxutake import take_words
+
+    _, wb, nr, k, n_groups = _check(table, jn, rk, b_planes)
+    tabs = torch.cat([table.T, *extra_words], dim=0)       # [WB + ΣW_i, N]
+    rows_all = take_words(tabs, jn.reshape(-1))            # [., NR*K]
+    rows = rows_all[:wb].reshape(wb, nr, k).permute(1, 2, 0)   # [NR, K, WB]
+    groups = _extract_bits(rows, rk, b_planes, k, n_groups)
+    extras, ofs = [], wb
+    for tab in extra_words:
+        wt = tab.shape[0]
+        extras.append(rows_all[ofs:ofs + wt].reshape(wt, nr, k)
+                      .permute(0, 2, 1))                    # [W_i, K, N]
+        ofs += wt
+    return groups, extras
+
+
+# --- the words gather (permgather.py:_gather_words_pallas) ------------------
+
+def _check_words(x_w, nbr):
+    for name, x in (("x_w", x_w), ("nbr", nbr)):
+        if x.dtype != I32 or x.dim() != 2:
+            raise TypeError(f"gather_words: {name} must be a 2-D int32 "
+                            f"tensor, got {x.dtype} {tuple(x.shape)}")
+
+
+def gather_words_plain(x_w: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gather_words`."""
+    _check_words(x_w, nbr)
+    return x_w[:, nbr.T.long()]
+
+
+def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
+                 mode: str = "pallas") -> torch.Tensor:
+    """``out[w, k, n] = x_w[w, nbr[n, k]]``: ``x_w`` [W, N_src] int32 packed
+    words, ``nbr`` [N, K] int32 pre-clipped to [0, N_src); returns the
+    k-major receiver view [W, K, N]. ``mode="mxu"`` routes it through the
+    flat take at k-major ``idx = nbr.T.reshape(-1)`` (permgather.py:462-470)."""
+    if mode == "mxu":
+        from .mxutake import take_words
+        _check_words(x_w, nbr)
+        n, k = nbr.shape
+        return take_words(x_w, nbr.T.reshape(-1)).reshape(x_w.shape[0], k, n)
+    if mode != "pallas":
+        raise ValueError(f"gather_words: unknown mode {mode!r}")
+    if not cudalib.use_kernel("gather_words", x_w, nbr):
+        return gather_words_plain(x_w, nbr)
+    _check_words(x_w, nbr)
+    w, n_src = x_w.shape
+    n, k = nbr.shape
+    cudalib.check_args("gather_words", [("x_w", x_w, I32, (w, n_src)),
+                                        ("nbr", nbr, I32, (n, k))])
+    out = torch.empty((w, k, n), dtype=I32, device=x_w.device)
+    cudalib.launch("gather_words", x_w, nbr, out, n_src, n, k, w)
+    return out
+
+
+# --- the payload permute (permgather.py:_gather_pallas) ---------------------
+
+def _check_payload(payload, jn, rk):
+    if payload.dim() != 2 or payload.element_size() != 4 \
+            or payload.dtype.is_complex:
+        raise TypeError(f"permutation_gather: payload must be a 2-D tensor "
+                        f"of a 4-byte dtype, got {payload.dtype} "
+                        f"{tuple(payload.shape)}")
+    if jn.dtype != I32 or rk.dtype != I32 or jn.shape != rk.shape \
+            or jn.dim() != 2:
+        raise TypeError(f"permutation_gather: jn and rk must be [N, K] "
+                        f"int32, got {jn.dtype} {tuple(jn.shape)} and "
+                        f"{rk.dtype} {tuple(rk.shape)}")
+
+
+def permutation_gather_plain(payload: torch.Tensor, jn: torch.Tensor,
+                             rk: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`permutation_gather`."""
+    _check_payload(payload, jn, rk)
+    return payload[jn.long(), rk.long()]
+
+
+def permutation_gather(payload: torch.Tensor, jn: torch.Tensor,
+                       rk: torch.Tensor, mode: str = "pallas") -> torch.Tensor:
+    """``out[n, k] = payload[jn[n, k], rk[n, k]]`` for a [N_src, K_src]
+    payload of any 4-byte dtype; ``jn``/``rk`` [N, K] int32 pre-clipped to
+    valid range (callers mask invalid slots on the result). The kernel moves
+    the payload's bits as int32, so a float32 payload comes back bit for
+    bit. ``mode="mxu"`` takes :func:`~.mxutake.take_payload`."""
+    if mode == "mxu":
+        from .mxutake import take_payload
+        return take_payload(payload, jn, rk)
+    if mode != "pallas":
+        raise ValueError(f"permutation_gather: unknown mode {mode!r}")
+    if not cudalib.use_kernel("permutation_gather", payload, jn, rk):
+        return permutation_gather_plain(payload, jn, rk)
+    _check_payload(payload, jn, rk)
+    n_src, k_src = payload.shape
+    n, k = jn.shape
+    words = payload.view(I32)
+    cudalib.check_args("permutation_gather", [
+        ("payload", words, I32, (n_src, k_src)), ("jn", jn, I32, (n, k)),
+        ("rk", rk, I32, (n, k))])
+    out = torch.empty((n, k), dtype=I32, device=payload.device)
+    cudalib.launch("permutation_gather", words, jn, rk, out, n, k, k_src)
+    return out.view(payload.dtype)

@@ -1,29 +1,57 @@
 """Batched message propagation: publish, eager mesh forwarding, lazy gossip
-(port of ops/propagate.py on the fused-kernel path).
+(port of ops/propagate.py).
 
 The model is the reference's (ops/propagate.py module docstring): the
 message window lives in [W, N] packed words, a tick runs last tick's IWANT
 resolution, up to ``prop_substeps`` forwarding hops that stop early on an
 empty frontier, the P2/P3/P4 counter folds, and the IHAVE->IWANT emit.
-Each of the three fused steps is one kernel (ops/hopkernel.py). The
-reference's non-fused XLA formulations (cap/gater/provenance/flood-publish
-configs) are a later slice of the port.
+
+Two formulations, chosen by ops/hopkernel.resolve_hop_mode and
+resolve_emit_mode exactly where the reference chooses:
+
+- the fused path: the resolve, each hop and the emit are one kernel each
+  (ops/hopkernel.py); it takes configs without gater, queue caps,
+  provenance or flood publish;
+- the non-fused path: the reference's XLA formulation op for op — the
+  per-slot ask sets of ``_slot_bitplanes``, one words gather per hop
+  (``gw``: ops/bits.gather_words_rows, kernel ``gather_words`` or the flat
+  take under ``edge_gather_mode="mxu"``), the validation-queue cap, the
+  peer gater's admission and stats, and the emit through
+  ``_bits_to_slot`` / ``_budgeted_iwant``.
+
+The emit is fused under every hop_mode but ``"xla"``. Edge queue caps,
+flood publish, provenance and the floodsub/randomsub routers are a later
+slice and raise NotImplementedError; so is the fault plane, whose
+link/dup/censor inputs ``forward_tick`` does not take yet.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .. import rng
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
-from .bits import I32, pack_bool, pack_words, popcount_sum, unpack_words
-from .hopkernel import _hop_config_ok, emit, hop, iwant_resolve
+from .bits import (
+    I32,
+    exclusive_prefix_or,
+    gather_words_rows,
+    pack_bool,
+    pack_words,
+    popcount_sum,
+    prefix_count_words,
+    reduce_or,
+    unpack_words,
+)
+from .gater import accept_data
+from .hopkernel import emit, hop, iwant_resolve, resolve_emit_mode, \
+    resolve_hop_mode
 from .score_ops import decayed
 
-_LATER = ("is not ported yet: the port runs the fused-kernel path only; the "
-          "non-fused XLA hop and its config branches are a later slice "
-          "(ROADMAP.md, Queue 1 item 10)")
+U8 = torch.uint8
+_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 1)"
 
 
 def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
@@ -90,33 +118,284 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
                           fanout_lastpub=fanout_lastpub)
 
 
+def _ones(cond: torch.Tensor) -> torch.Tensor:
+    """bool -> int32 word mask: all 32 bits set where ``cond``, else 0."""
+    return -cond.to(I32)
+
+
+def _edge_topic_bits(mask_ntk: torch.Tensor, topic_bits: torch.Tensor,
+                     w: int) -> torch.Tensor:
+    """[N, T, K] edge mask -> [W, K, N] packed per-edge message words:
+    OR over the topics t with mask[n, t, k] of topic_bits[t]
+    (propagate.py:180-192; topic sets are disjoint, so OR == sum)."""
+    n, t, k = mask_ntk.shape
+    acc = torch.zeros((w, k, n), dtype=I32, device=topic_bits.device)
+    zero = torch.zeros((), dtype=I32, device=topic_bits.device)
+    for ti in range(t):
+        acc = acc | torch.where(mask_ntk[:, ti, :].T[None, :, :],
+                                topic_bits[ti][:, None, None], zero)
+    return acc
+
+
+def _slot_bitplanes(pend: torch.Tensor, k: int) -> torch.Tensor:
+    """iwant_pending [N, M] (slot id or -1) -> packed per-slot ask sets
+    [W, K, N], bit m of out[:, s, n] iff pend[n, m] == s, through
+    ceil(log2 K) bit-planes of the slot index (propagate.py:195-212)."""
+    n, m = pend.shape
+    nbits = max(1, (k - 1).bit_length())
+    valid = pack_words(pend >= 0)                              # [W, N]
+    planes = [pack_words((pend > -1) & (((pend >> b) & 1) == 1))
+              for b in range(nbits)]
+    out = valid[:, None, :].expand(valid.shape[0], k, n)
+    kk = torch.arange(k, device=pend.device)
+    for b in range(nbits):
+        kbit = ((kk >> b) & 1).bool()[None, :, None]
+        out = out & torch.where(kbit, planes[b][:, None, :],
+                                ~planes[b][:, None, :])
+    return out
+
+
+def _bits_to_slot(chosen: torch.Tensor, m: int) -> torch.Tensor:
+    """Packed disjoint per-slot sets [W, K, N] -> [N, M] slot id or -1
+    (inverse of :func:`_slot_bitplanes`, propagate.py:215-226)."""
+    w, k, n = chosen.shape
+    nbits = max(1, (k - 1).bit_length())
+    any_bits = reduce_or(chosen, axis=1)                       # [W, N]
+    slot = torch.zeros((n, m), dtype=I32, device=chosen.device)
+    kk = torch.arange(k, device=chosen.device)
+    for b in range(nbits):
+        kbit = ((kk >> b) & 1).bool()[None, :, None]
+        plane = reduce_or(torch.where(kbit, chosen, 0), axis=1)
+        slot = slot + (unpack_words(plane, m).to(I32) << b)
+    return torch.where(unpack_words(any_bits, m), slot, -1)
+
+
+def _budgeted_iwant(offer: torch.Tensor, have_bits: torch.Tensor, m: int,
+                    budget: int) -> torch.Tensor:
+    """[W, K, N] packed offers -> [N, M] chosen slot per message (or -1),
+    asking at most ``budget`` ids from any one slot, slots in order
+    (the iasked counter, propagate.py:856-878)."""
+    _, k, n = offer.shape
+    assigned = have_bits
+    pend = torch.full((n, m), -1, dtype=I32, device=offer.device)
+    for ki in range(k):
+        masked = offer[:, ki] & ~assigned                      # [W, N]
+        rank = prefix_count_words(masked.T, m)
+        take = unpack_words(masked, m) & (rank <= budget)
+        pend = torch.where(take, ki, pend)
+        assigned = assigned | pack_words(take)
+    return pend
+
+
+class _Tables(NamedTuple):
+    """The tick's packed message tables, shared by both formulations."""
+    topic_bits: torch.Tensor      # [T, W] live message sets per topic
+    alive_bits: torch.Tensor      # [W]
+    valid_msg_bits: torch.Tensor  # [W] alive, not invalid, not ignored
+    vm: torch.Tensor              # [W, N] deliverable per receiver
+    inv_n: torch.Tensor           # [W, N] REJECT per receiver (P4)
+    ign_n: torch.Tensor           # [W, N] IGNORE per receiver
+    window_old: torch.Tensor      # [W, N] P3 duplicate-credit window
+    data_ok: torch.Tensor         # [N, K] bool data admission
+    fwd_mask: torch.Tensor        # [N, T, K] bool receiver-view forwarding
+
+
+class _Traffic(NamedTuple):
+    """What the resolve and the hops leave behind."""
+    have: torch.Tensor            # [W, N]
+    dlv: torch.Tensor             # [W, N]
+    behaviour_penalty: torch.Tensor  # [N, K] f32, broken promises added
+    nv: torch.Tensor              # [T, K, N] uint8 first deliveries
+    ni: torch.Tensor              # [T, K, N] uint8 invalid deliveries
+    dup: torch.Tensor             # [T, K, N] uint8 mesh duplicates
+    gater: dict | None            # ig, gdup, validated, throttled
+
+
+def _fused_traffic(state: SimState, cfg: SimConfig, tb: _Tables,
+                   have_bits, dlv_bits, answer_bits, nbr) -> _Traffic:
+    """Resolve and hops through the fused kernels (propagate.py:405-424 and
+    :617-634)."""
+    n, t, k = state.mesh.shape
+    r = iwant_resolve(state.iwant_pending, answer_bits, have_bits, tb.vm,
+                      tb.inv_n, tb.alive_bits[:, None].contiguous(),
+                      tb.data_ok.to(U8), tb.topic_bits, nbr, cfg.msg_window)
+    behaviour_penalty = state.behaviour_penalty + r.broken.float().T
+    have_bits = have_bits | r.got_any
+    dlv_bits = dlv_bits | r.got_valid_any
+    fwd_u8 = tb.fwd_mask.to(U8)
+    mesh_u8 = state.mesh.to(U8)
+    valid_msg = tb.valid_msg_bits[:, None].contiguous()
+    # frontier: messages that entered this peer THIS tick (fresh publishes
+    # and IWANT pulls); a peer forwards a message one hop after it first
+    # receives it, so per-hop counts sum to the tick's event counts
+    frontier = pack_words(state.deliver_tick == state.tick) | r.got_valid_any
+    h_dlv_new = r.got_valid_any.clone()
+    nv, ni = r.nv, r.ni
+    dup = torch.zeros((t, k, n), dtype=U8, device=nbr.device)
+    i = 0
+    # the early exit reads the frontier on the host once per hop (a device
+    # sync in eager mode); a hop with an empty frontier is a no-op
+    while i < cfg.prop_substeps and bool((frontier != 0).any()):
+        h = hop(frontier, have_bits, dlv_bits, h_dlv_new, tb.vm, tb.inv_n,
+                tb.window_old, valid_msg, nbr, fwd_u8, mesh_u8,
+                tb.topic_bits, nv, ni, dup)
+        frontier, have_bits, dlv_bits, h_dlv_new = h.new_valid, h.have, \
+            h.dlv, h.dlv_new
+        nv, ni, dup = h.nv, h.ni, h.dup
+        i += 1
+    return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup, None)
+
+
+def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
+                 dlv_bits, answer_bits, gw, answers_k) -> _Traffic:
+    """Resolve and hops in the non-fused formulation (propagate.py:425-483
+    and :635-725): packed [W, K, N] per-slot sets, one words gather per
+    hop, the validation-queue cap and the gater's stats."""
+    n, t, k = state.mesh.shape
+    w = have_bits.shape[0]
+    cap = cfg.validation_queue_cap
+    gater = cfg.gater_enabled
+
+    def topic_counts(events):
+        """[W, K, N] event words -> [T, K, N] uint8 per-topic counts."""
+        return torch.stack([
+            popcount_sum(events & tb.topic_bits[ti][:, None, None], axis=0,
+                         dtype=U8) for ti in range(t)])
+
+    # -- step 1: last tick's IWANTs (gossipsub.go:698-739); pulled data is
+    # still data, so graylist, gater and the validation budget apply
+    asked_k = _slot_bitplanes(state.iwant_pending, k) \
+        & tb.alive_bits[:, None, None]
+    if answers_k is None:
+        answers_k = gw(answer_bits)                            # [W, K, N]
+    got_k = asked_k & answers_k & ~have_bits[:, None, :] \
+        & _ones(tb.data_ok.T)[None]
+    broken_k = asked_k & ~answers_k
+    throttled = torch.zeros((n,), dtype=I32, device=have_bits.device)
+    if cap > 0:
+        # over-budget pulls are dropped unseen and charged as throttle
+        # events; the sender answered, so no broken promise
+        cnt0 = popcount_sum(reduce_or(got_k, axis=1), axis=0, dtype=I32)
+        fits0 = cnt0 <= cap
+        got_k = got_k & _ones(fits0)[None, None, :]
+        throttled = throttled + torch.where(fits0, 0, cnt0)
+    got_any = reduce_or(got_k, axis=1)                         # [W, N]
+    got_valid = got_k & tb.vm[:, None, :]
+    got_valid_any = reduce_or(got_valid, axis=1)
+    # broken promises: one P7 point per unfulfilled message id
+    behaviour_penalty = state.behaviour_penalty \
+        + popcount_sum(broken_k, axis=0).T
+    have_bits = have_bits | got_any
+    dlv_bits = dlv_bits | got_valid_any
+    arrivals = popcount_sum(got_any, axis=0, dtype=I32)        # [N]
+    validated = arrivals.float()
+
+    # -- step 2: eager forwarding, up to prop_substeps hops
+    allowed = _edge_topic_bits(tb.fwd_mask, tb.topic_bits, w)  # [W, K, N]
+    mesh_eb = _edge_topic_bits(state.mesh, tb.topic_bits, w)   # [W, K, N]
+    frontier = pack_words(state.deliver_tick == state.tick) | got_valid_any
+    dlv_new = got_valid_any
+    nv = topic_counts(got_valid)
+    ni = topic_counts(got_k & tb.inv_n[:, None, :])
+    dup = torch.zeros((t, k, n), dtype=U8, device=have_bits.device)
+    if gater:
+        ig = popcount_sum(got_k & tb.ign_n[:, None, :], axis=0, dtype=U8)
+        gdup = torch.zeros((k, n), dtype=U8, device=have_bits.device)
+    i = 0
+    # the early exit reads the frontier on the host once per hop
+    while i < cfg.prop_substeps and bool((frontier != 0).any()):
+        offered = gw(frontier) & allowed                       # [W, K, N]
+        excl = exclusive_prefix_or(offered, axis=1)
+        new_from_k = offered & ~excl & ~have_bits[:, None, :]
+        new_any = (excl[:, -1] | offered[:, -1]) & ~have_bits  # [W, N]
+        if cap > 0:
+            # validation admission (validation.go:246-260): a receiver
+            # whose budget this hop's arrivals would blow drops them unseen
+            cnt = popcount_sum(new_any, axis=0, dtype=I32)     # [N]
+            fits = (arrivals + cnt) <= cap
+            fit_m = _ones(fits)[None, :]
+            new_any = new_any & fit_m
+            new_from_k = new_from_k & fit_m[:, None, :]
+            arrivals = arrivals + torch.where(fits, cnt, 0)
+            throttled = throttled + torch.where(fits, 0, cnt)
+            validated = validated + torch.where(fits, cnt, 0).float()
+        elif gater:
+            # unbounded queue: every admitted message counts as validated
+            validated = validated + popcount_sum(new_any, axis=0)
+        new_valid = new_any & tb.vm
+        nv = nv + topic_counts(new_from_k & tb.vm[:, None, :])
+        ni = ni + topic_counts(new_from_k & tb.inv_n[:, None, :])
+        # mesh-delivery credit for every mesh sender of a message held
+        # valid within the credit window (score.go:938-981)
+        elig = (tb.window_old | dlv_new | new_valid) \
+            & tb.valid_msg_bits[:, None]
+        dup = dup + topic_counts(offered & mesh_eb & elig[:, None, :])
+        if gater:
+            ig = ig + popcount_sum(new_from_k & tb.ign_n[:, None, :],
+                                   axis=0, dtype=U8)
+            # seen-cache hits: offers of a message already seen or won by
+            # another slot this hop (pubsub.go:1145-1148)
+            gdup = gdup + popcount_sum(
+                offered & ~new_from_k & (have_bits | new_any)[:, None, :],
+                axis=0, dtype=U8)
+        frontier = new_valid
+        have_bits = have_bits | new_any
+        dlv_bits = dlv_bits | new_valid
+        dlv_new = dlv_new | new_valid
+        i += 1
+    stats = dict(ig=ig, gdup=gdup, validated=validated,
+                 throttled=throttled) if gater else None
+    return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup,
+                    stats)
+
+
+def _check_path(cfg: SimConfig) -> None:
+    refusals = [
+        (cfg.router != "gossipsub", f"router={cfg.router!r}"),
+        (cfg.edge_queue_cap > 0, "edge_queue_cap"),
+        (cfg.flood_publish, "flood_publish"),
+        (cfg.record_provenance, "record_provenance"),
+    ]
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"forward_tick with {what} {_LATER}")
+    if cfg.count_dtype != "uint8":
+        raise NotImplementedError(
+            f"count_dtype={cfg.count_dtype!r} is not ported yet (ROADMAP.md, "
+            "Queue 1 item 3)")
+
+
 def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                  inc_gossip: torch.Tensor, scores: torch.Tensor,
-                 key: torch.Tensor, *,
-                 fwd_send: torch.Tensor | None = None) -> SimState:
-    """One tick of data-plane traffic on the fused path: resolve last
-    tick's IWANTs, run up to ``prop_substeps`` forwarding hops, fold the
-    counters, emit this tick's IHAVE/IWANT (propagate.py:229-853).
+                 key: torch.Tensor, *, fwd_send: torch.Tensor,
+                 answers_k: torch.Tensor | None = None) -> SimState:
+    """One tick of data-plane traffic: resolve last tick's IWANTs, run up
+    to ``prop_substeps`` forwarding hops, fold the counters, emit this
+    tick's IHAVE/IWANT (propagate.py:229-853).
 
     ``scores`` is the heartbeat's [N, K] score cache; ``inc_gossip`` and
-    ``fwd_send`` are its receiver views (HeartbeatOut). ``key`` is unused on
-    this path (the reference splits it for the randomsub and gater draws)."""
-    if cfg.router != "gossipsub":
-        raise NotImplementedError(f"router={cfg.router!r} {_LATER}")
-    if fwd_send is None:
-        raise NotImplementedError(f"forward_tick without fwd_send {_LATER}")
-    if not _hop_config_ok(cfg):
-        raise NotImplementedError(f"a config outside the fused hop {_LATER}")
+    ``fwd_send`` are its receiver views (HeartbeatOut). ``answers_k`` is
+    the IWANT answer table's receiver view when the heartbeat routed it
+    (engine._iwant_answer_extras). ``key`` feeds the gater's admission
+    draw. The fault plane's link/dup/censor inputs are not ported."""
+    _check_path(cfg)
     n, t, k = state.mesh.shape
     m = cfg.msg_window
     if m > 255:
         raise ValueError(f"msg_window={m} > 255 would wrap the uint8 "
                          "hop-count accumulators")
+    w = (m + 31) // 32
+    _, k_gate = rng.split(key, 2)
     dev = state.mesh.device
     tick = state.tick
     nbr = state.neighbors.clamp(0, n - 1)                  # [N, K]
     mal = state.malicious
     zero = torch.zeros((), dtype=I32, device=dev)
+
+    def gw(table):
+        """The tick's words gather (kernel ``gather_words``, or the flat
+        take under edge_gather_mode="mxu")."""
+        return gather_words_rows(table, nbr, cfg.edge_gather_mode)
 
     # --- per-tick packed masks ---
     age_pub = tick - state.msg_publish_tick
@@ -134,6 +413,7 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     vm = torch.where(mal[None, :], alive_bits[:, None],
                      valid_msg_bits[:, None])                           # [W,N]
     inv_n = torch.where(mal[None, :], zero, invalid_bits[:, None])      # [W,N]
+    ign_n = torch.where(mal[None, :], zero, ignored_bits[:, None])      # [W,N]
 
     have_bits = state.have.T.contiguous()                               # [W,N]
     dlv_bits = pack_words(state.deliver_tick < NEVER)                   # [W,N]
@@ -146,52 +426,35 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     else:
         accept_ok = torch.ones((n, k), dtype=torch.bool, device=dev)
         gossip_ok = accept_ok
-    data_ok = accept_ok
-
-    # -- step 1: resolve pending IWANTs from last tick (gossipsub.go:698-739).
-    # Malicious sources never answer; honest sources answer from their
-    # mcache, which rejected/ignored messages never enter.
-    answer_bits = torch.where(mal[None, :], zero, dlv_bits)            # [W,N]
-    r = iwant_resolve(state.iwant_pending, answer_bits, have_bits, vm, inv_n,
-                      alive_bits[:, None].contiguous(),
-                      data_ok.to(torch.uint8), topic_bits, nbr, m)
-    behaviour_penalty = state.behaviour_penalty + r.broken.float().T
-    have_bits = have_bits | r.got_any
-    dlv_bits = dlv_bits | r.got_valid_any
-
-    # -- step 2: eager forwarding, up to prop_substeps hops --
-    fwd_u8 = (fwd_send & data_ok[:, None, :]).to(torch.uint8)
-    mesh_u8 = state.mesh.to(torch.uint8)
+    # gater RED admission for DATA (control still flows); malicious
+    # receivers run no gater of their own
+    if cfg.gater_enabled:
+        data_ok = accept_ok & (accept_data(state, cfg, k_gate) | mal[:, None])
+    else:
+        data_ok = accept_ok
     # P3 duplicate-credit window (score.go:949-981)
     age_dlv = tick - state.deliver_tick
     window_old = pack_words((age_dlv >= 0)
                             & (age_dlv <= cfg.mesh_message_deliveries_window_ticks))
-    valid_msg = valid_msg_bits[:, None].contiguous()
-    # frontier: messages that entered this peer THIS tick (fresh publishes
-    # and IWANT pulls); a peer forwards a message one hop after it first
-    # receives it, so per-hop counts sum to the tick's event counts
-    frontier = pack_words(state.deliver_tick == tick) | r.got_valid_any
-    h_have, h_dlv = have_bits, dlv_bits
-    h_dlv_new = r.got_valid_any.clone()
-    nv, ni = r.nv, r.ni
-    dup = torch.zeros((t, k, n), dtype=torch.uint8, device=dev)
-    i = 0
-    # the early exit reads the frontier on the host once per hop (a device
-    # sync in eager mode); a hop with an empty frontier is a no-op
-    while i < cfg.prop_substeps and bool((frontier != 0).any()):
-        h = hop(frontier, h_have, h_dlv, h_dlv_new, vm, inv_n, window_old,
-                valid_msg, nbr, fwd_u8, mesh_u8, topic_bits, nv, ni, dup)
-        frontier, h_have, h_dlv, h_dlv_new = h.new_valid, h.have, h.dlv, \
-            h.dlv_new
-        nv, ni, dup = h.nv, h.ni, h.dup
-        i += 1
-    have_bits, dlv_bits = h_have, h_dlv
+    tb = _Tables(topic_bits, alive_bits, valid_msg_bits, vm, inv_n, ign_n,
+                 window_old, data_ok, fwd_send & data_ok[:, None, :])
+
+    # malicious sources never answer IWANTs; honest sources answer from
+    # their mcache, which rejected/ignored messages never enter
+    answer_bits = torch.where(mal[None, :], zero, dlv_bits)            # [W,N]
+    if resolve_hop_mode(cfg) == "pallas":
+        tr = _fused_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
+                            nbr)
+    else:
+        tr = _xla_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
+                          gw, answers_k)
+    have_bits, dlv_bits = tr.have, tr.dlv
 
     # [T,K,N] counts -> [N,T,K] f32 counter increments, folded with this
     # tick's decay: min(zclamp(counter * decay) + arrivals, cap)
-    fmd_add = nv.permute(2, 0, 1).float()
-    imd_add = ni.permute(2, 0, 1).float()
-    mmd_add = dup.permute(2, 0, 1).float()
+    fmd_add = tr.nv.permute(2, 0, 1).float()
+    imd_add = tr.ni.permute(2, 0, 1).float()
+    mmd_add = tr.dup.permute(2, 0, 1).float()
 
     def t2(x):
         return x[None, :, None]
@@ -216,8 +479,26 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
         first_message_deliveries=fmd,
         mesh_message_deliveries=mmd,
         invalid_message_deliveries=imd,
-        behaviour_penalty=behaviour_penalty,
+        behaviour_penalty=tr.behaviour_penalty,
         delivered_total=state.delivered_total + delivered)
+
+    if tr.gater is not None:
+        # gater stats where the reference's RawTracer hooks fire
+        # (peer_gater.go:366-453); per-topic counts sum over T
+        g = tr.gater
+
+        def sum_t(c):
+            return c.float().sum(0).T
+
+        state = state._replace(
+            gater_deliver=state.gater_deliver + sum_t(tr.nv),
+            gater_duplicate=state.gater_duplicate + g["gdup"].float().T,
+            gater_ignore=state.gater_ignore + g["ig"].float().T,
+            gater_reject=state.gater_reject + sum_t(tr.ni),
+            gater_validate=state.gater_validate + g["validated"],
+            gater_throttle=state.gater_throttle + g["throttled"].float(),
+            gater_last_throttle=torch.where(g["throttled"] > 0, tick,
+                                            state.gater_last_throttle))
 
     # -- step 3: IHAVE/IWANT for next tick (gossipsub.go:1711-1775) --
     valid_slots = ((state.neighbors >= 0)
@@ -229,7 +510,18 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     window_bits = pack_words((age >= 0) & (age < cfg.history_gossip)) \
         & alive_bits[:, None]
     window_bits = torch.where(mal[None, :], alive_bits[:, None], window_bits)
-    iwant_pending = emit(window_bits, have_bits, inc_gossip.to(torch.uint8),
-                         topic_bits, nbr, m,
-                         budget=min(cfg.max_iwant_per_tick, m))
+    if resolve_emit_mode(cfg) == "pallas":
+        iwant_pending = emit(window_bits, have_bits, inc_gossip.to(U8),
+                             topic_bits, nbr, m,
+                             budget=min(cfg.max_iwant_per_tick, m))
+    else:
+        offer = gw(window_bits) & _edge_topic_bits(inc_gossip, topic_bits, w)
+        if cfg.max_iwant_per_tick >= m:
+            # the budget cannot bind: the lowest offering slot per message
+            excl = exclusive_prefix_or(offer, axis=1)
+            iwant_pending = _bits_to_slot(
+                offer & ~excl & ~have_bits[:, None, :], m)
+        else:
+            iwant_pending = _budgeted_iwant(offer, have_bits, m,
+                                            cfg.max_iwant_per_tick)
     return state._replace(iwant_pending=iwant_pending)

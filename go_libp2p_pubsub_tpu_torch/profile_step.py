@@ -1,19 +1,25 @@
-"""Where one step of the headline network spends its time on the card.
+"""Where one step of a network spends its time on the card.
 
     python -m go_libp2p_pubsub_tpu_torch.profile_step [--n 102400] [--ticks 4]
         [--out profile_step.json]
+    python -m go_libp2p_pubsub_tpu_torch.profile_step --scenario churn_50k \
+        [--gather pallas|mxu] [--n 51200]
 
-Builds ``build_headline(n)`` on cuda, warms up two ticks, then
+Builds the headline network (``build_headline(n)``, n=102400 by default)
+or the churn + peer-gater scenario (``scenarios.churn_50k(n)``, n=51200 by
+default, run with ``hop_mode="xla"`` and ``edge_gather_mode=--gather``) on
+cuda, warms up two ticks, then
 
-1. times each stage of ``engine.step`` (publishers + publish, heartbeat,
-   forward_tick, invariant flags) on the host clock with a device sync
-   after each stage, over ``--ticks`` ticks;
+1. times each stage of ``engine.step`` (publishers + publish, the gater's
+   decay, heartbeat, forward_tick, connection churn, invariant flags) on
+   the host clock with a device sync after each stage, over ``--ticks``
+   ticks;
 2. keeps a copy of the state and runs ``--ticks`` more ticks of ``step``
    as a user would (no added syncs), timed by CUDA events around the
    window and on the host clock;
 3. runs the same ticks again from the copy, with the same keys, under
    ``torch.profiler``, checks that they end in the same state, and prints
-   the device time by kernel name (the port's four CUDA kernels and the
+   the device time by kernel name (the port's CUDA kernels and the
    rest) and the count of host reads of device values
    (``aten::_local_scalar_dense``: each one a sync).
 
@@ -34,7 +40,8 @@ import time
 from collections import defaultdict
 
 OWN_KERNELS = ("edge_table_kernel", "hop_kernel", "iwant_resolve_kernel",
-               "emit_kernel")
+               "emit_kernel", "gather_words_kernel",
+               "permutation_gather_kernel", "take_words_kernel")
 
 
 def _device_us(evt) -> float:
@@ -47,7 +54,12 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=102400)
+    ap.add_argument("--scenario", choices=("headline", "churn_50k"),
+                    default="headline")
+    ap.add_argument("--gather", choices=("pallas", "mxu"), default="pallas",
+                    help="edge_gather_mode of the churn_50k run")
+    ap.add_argument("--n", type=int, default=None,
+                    help="peers (102400 headline, 51200 churn_50k)")
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -55,22 +67,35 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device is available", file=sys.stderr)
         return 1
+    import dataclasses
+
     from . import rng
+    from .ops.churn import churn_edges
+    from .ops.gater import gater_decay
     from .ops.heartbeat import heartbeat
     from .ops.propagate import forward_tick, publish
-    from .sim import build_headline, topology
-    from .sim.engine import choose_publishers, step
+    from .sim import build_headline, scenarios, topology
+    from .sim.engine import _iwant_answer_extras, choose_publishers, step
     from .sim.invariants import record_flags
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    churn = args.scenario == "churn_50k"
+    n = args.n or (51200 if churn else 102400)
     t0 = time.perf_counter()
-    topo = topology.sparse(args.n, 32, degree=12)
-    print(f"topology.sparse({args.n}, 32, degree=12): "
+    topo = topology.sparse(n, 32, degree=12)
+    print(f"topology.sparse({n}, 32, degree=12): "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
-    cfg, tp, st = build_headline(args.n, device="cuda", topo=topo)
+    if churn:
+        cfg, tp, st = scenarios.churn_50k(n_peers=n, device="cuda", topo=topo)
+        cfg = dataclasses.replace(cfg, hop_mode="xla",
+                                  edge_gather_mode=args.gather)
+    else:
+        cfg, tp, st = build_headline(n, device="cuda", topo=topo)
+    print(f"{args.scenario}({n}), hop_mode={cfg.hop_mode}, "
+          f"edge_gather_mode={cfg.edge_gather_mode}", flush=True)
     warm = 2
     keys = rng.split(rng.PRNGKey(0, device="cuda"), warm + 2 * args.ticks)
     for i in range(warm):
@@ -90,13 +115,21 @@ def main(argv=None) -> int:
 
     for i in range(warm, warm + args.ticks):
         t_tick = time.perf_counter()
-        k_pub, k_hb, k_fwd, _, k_ign, _ = rng.split(keys[i], 6)
+        # engine.step's stages, in its order
+        k_pub, k_hb, k_fwd, k_churn, k_ign, _ = rng.split(keys[i], 6)
         st = timed("publish", lambda: publish(
             st, cfg, *choose_publishers(st, cfg, k_pub), k_ign))
-        hb = timed("heartbeat", lambda: heartbeat(st, cfg, tp, k_hb))
+        if cfg.gater_enabled:
+            st = timed("gater_decay", lambda: gater_decay(st, cfg))
+        hb = timed("heartbeat", lambda: heartbeat(
+            st, cfg, tp, k_hb, extra_words=_iwant_answer_extras(st, cfg)))
         st = timed("forward_tick", lambda: forward_tick(
             hb.state, cfg, tp, hb.inc_gossip, hb.scores, k_fwd,
-            fwd_send=hb.fwd_send))
+            fwd_send=hb.fwd_send,
+            answers_k=hb.extra_routed[0] if hb.extra_routed else None))
+        if cfg.churn_disconnect_prob > 0.0:
+            st = timed("churn_edges", lambda: churn_edges(
+                st, cfg, tp, k_churn, scores_all=hb.scores_all))
         st = timed("record_flags", lambda: record_flags(st, cfg))
         st = st._replace(tick=st.tick + 1)
         tick_s.append(time.perf_counter() - t_tick)
@@ -164,7 +197,9 @@ def main(argv=None) -> int:
         f"{k} {v:.3f}" for k, v in own_ms.items()), flush=True)
     for name, us in top:
         print(f"  {us / 1e3:9.3f} ms  {calls[name]:6d} x  {name[:110]}")
-    result = dict(n=args.n, ticks=args.ticks, device=smi,
+    result = dict(scenario=args.scenario, n=n,
+                  edge_gather_mode=cfg.edge_gather_mode, ticks=args.ticks,
+                  device=smi,
                   tick_ms=[1e3 * s for s in tick_s], stage_ms=stage_ms,
                   window_wall_ms=wall_ms, window_host_ms=host_ms,
                   device_kernel_ms=device_ms,

@@ -4,7 +4,7 @@ headline network builder (``__graft_entry__._build``)."""
 
 from __future__ import annotations
 
-from . import topology  # noqa: F401
+from . import scenarios, topology  # noqa: F401
 from .config import SimConfig, TopicParams, with_score_weights  # noqa: F401
 from .state import (  # noqa: F401
     SimState,

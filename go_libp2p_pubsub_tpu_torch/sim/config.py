@@ -4,9 +4,27 @@
 ``sim/config.SimConfig``, so a reference config converts with
 ``SimConfig(**dataclasses.asdict(ref_cfg))``. Its comments are the
 reference's own; the port runs the subset of knobs its engine implements
-(sim/engine.step raises NotImplementedError for the rest). In the port,
-``hop_mode``/``edge_gather_mode`` ``"auto"`` and ``"pallas"`` both mean the
-fused CUDA kernels, the only formulation it has.
+(sim/engine.step raises NotImplementedError for the rest).
+
+How the port resolves the two formulation knobs (ops/hopkernel.
+resolve_hop_mode / resolve_emit_mode, ops/permgather.resolve_gather_mode;
+the reference's explicit-mode rules with no TPU shape gate):
+
+- ``hop_mode``: ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused
+  hop and IWANT-resolve kernels when ``_hop_config_ok(cfg)`` holds (no
+  gater, queue caps, provenance, flood publish or fault inputs) and the
+  non-fused data path of ops/propagate.py otherwise; the IHAVE emit is the
+  fused kernel under all three, whatever the config. ``"xla"`` takes the
+  non-fused resolve, hops and emit. ``"pallas-mxu"`` differs from
+  ``"pallas"`` in the reference only by its in-kernel gather, so on Hopper
+  it runs the same kernels.
+- ``edge_gather_mode``: ``"auto"`` and ``"pallas"`` route the bit-table
+  exchanges, the words gathers and the payload permute through the kernels
+  ``edge_table``, ``gather_words`` and ``permutation_gather``; ``"mxu"``
+  routes every one of them through the flat take ``take_words``, with the
+  IWANT answer table riding the heartbeat's last exchange when the resolve
+  is non-fused. ``"scalar"``, ``"rows"`` and ``"sort"`` raise
+  NotImplementedError.
 
 ``TopicParams`` holds the per-topic score parameters as [T]-shaped float32
 tensors on the run's device (score_params.go:117-170 vectorized over topics).

@@ -1,16 +1,18 @@
-"""The simulation engine: one step = publish + heartbeat + traffic (port of
-sim/engine.py on the slice's path).
+"""The simulation engine: one step = publish + heartbeat + traffic + churn
+(port of sim/engine.py on the ported paths).
 
     step: (state, key) -> state
       1. publish            P scenario-chosen messages enter the network
-      2. heartbeat          mesh maintenance + GRAFT/PRUNE exchange + gossip
+      2. gater_decay        (gater configs) the peer gater's stats decay
+      3. heartbeat          mesh maintenance + GRAFT/PRUNE exchange + gossip
                             peer selection (score decay applies inline)
-      3. forward_tick       IWANT resolution, mesh forwarding hops, IHAVE emit
-      4. record_flags       the invariant sentinel closes the tick
+      4. forward_tick       IWANT resolution, mesh forwarding hops, IHAVE emit
+      5. churn_edges        (churn configs) edges go down and come back
+      6. record_flags       the invariant sentinel closes the tick
 
 ``run`` splits ONE master key into per-tick keys on the host, as the
-reference's ``key_schedule="host"``, and steps eagerly. Every branch of the
-reference's ``step`` outside this slice raises NotImplementedError.
+reference's ``key_schedule="host"``, and steps eagerly. Every config
+outside the ported paths raises NotImplementedError (:func:`check_slice`).
 """
 
 from __future__ import annotations
@@ -19,45 +21,50 @@ import torch
 
 from .. import rng
 from ..device import check_on
+from ..ops.bits import pack_words
+from ..ops.churn import churn_edges
+from ..ops.gater import gater_decay
 from ..ops.heartbeat import heartbeat
+from ..ops.hopkernel import resolve_hop_mode
+from ..ops.permgather import resolve_gather_mode
 from ..ops.propagate import forward_tick, publish
 from .config import SimConfig, TopicParams
 from .invariants import record_flags
-from .state import SimState, unpack_have
+from .state import NEVER, SimState, unpack_have
 
-_SLICE = "is a later slice of the port (ROADMAP.md, Queue 1)"
+
+def _later(item: int) -> str:
+    return f"is not ported yet (ROADMAP.md, Queue 1 item {item})"
 
 
 def check_slice(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for any config outside the slice: the
-    fused-kernel gossipsub step with scoring, recorded invariants and the
-    host key schedule."""
+    """Raise NotImplementedError for any config outside the ported paths:
+    the gossipsub step with scoring, the peer gater, the validation-queue
+    cap and connection churn with PX, on the fused kernels or the non-fused
+    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in the
+    ``pallas`` or ``mxu`` gather formulation, with recorded invariants and
+    the host key schedule. Each refusal names the queue item that lifts it."""
     refusals = [
-        (cfg.fault_plan is not None, "fault_plan"),
-        (cfg.gater_enabled, "gater_enabled"),
-        (cfg.churn_disconnect_prob > 0.0 or cfg.churn_reconnect_prob > 0.0,
-         "connection churn"),
+        (cfg.fault_plan is not None, "fault_plan", 1),
         (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
-         "subscription churn"),
-        (cfg.router != "gossipsub", f"router={cfg.router!r}"),
-        (cfg.flood_publish, "flood_publish"),
-        (cfg.record_provenance, "record_provenance"),
-        (cfg.edge_queue_cap > 0 or cfg.validation_queue_cap > 0,
-         "queue caps"),
+         "subscription churn", 2),
+        (cfg.router != "gossipsub", f"router={cfg.router!r}", 1),
+        (cfg.flood_publish, "flood_publish", 1),
+        (cfg.record_provenance, "record_provenance", 1),
+        (cfg.edge_queue_cap > 0, "edge_queue_cap", 1),
         (cfg.invariant_mode != "record",
-         f"invariant_mode={cfg.invariant_mode!r}"),
-        (cfg.key_schedule != "host", f"key_schedule={cfg.key_schedule!r}"),
-        (cfg.hop_mode not in ("auto", "pallas"), f"hop_mode={cfg.hop_mode!r}"),
-        (cfg.edge_gather_mode not in ("auto", "pallas"),
-         f"edge_gather_mode={cfg.edge_gather_mode!r}"),
-        (cfg.count_dtype != "uint8", f"count_dtype={cfg.count_dtype!r}"),
+         f"invariant_mode={cfg.invariant_mode!r}", 2),
+        (cfg.key_schedule != "host", f"key_schedule={cfg.key_schedule!r}", 2),
+        (cfg.count_dtype != "uint8", f"count_dtype={cfg.count_dtype!r}", 3),
         (cfg.state_precision != "f32",
-         f"state_precision={cfg.state_precision!r}"),
-        (cfg.degree_buckets is not None, "degree_buckets"),
+         f"state_precision={cfg.state_precision!r}", 5),
+        (cfg.degree_buckets is not None, "degree_buckets", 8),
     ]
-    for refused, what in refusals:
+    for refused, what, item in refusals:
         if refused:
-            raise NotImplementedError(f"{what} {_SLICE}")
+            raise NotImplementedError(f"{what} {_later(item)}")
+    resolve_hop_mode(cfg)
+    resolve_gather_mode(cfg.edge_gather_mode)
 
 
 def choose_publishers(state: SimState, cfg: SimConfig, key: torch.Tensor
@@ -74,18 +81,43 @@ def choose_publishers(state: SimState, cfg: SimConfig, key: torch.Tensor
     return peers, topics
 
 
+def _iwant_answer_extras(state: SimState, cfg: SimConfig) -> list | None:
+    """The IWANT answer table, to ride the heartbeat's final exchange as
+    extra word rows (engine.py:64-100): it reads only deliver_tick and
+    malicious, which the heartbeat never writes. In the port the carrier
+    is the flat take of ``edge_gather_mode="mxu"``, for the non-fused
+    resolve only (the fused resolve kernel gathers the table itself);
+    otherwise None."""
+    if resolve_hop_mode(cfg) == "pallas" \
+            or resolve_gather_mode(cfg.edge_gather_mode) != "mxu":
+        return None
+    zero = torch.zeros((), dtype=torch.int32, device=state.tick.device)
+    return [torch.where(state.malicious[None, :], zero,
+                        pack_words(state.deliver_tick < NEVER))]
+
+
 def step(state: SimState, cfg: SimConfig, tp: TopicParams,
          key: torch.Tensor, device=None) -> SimState:
     """Advance the network one heartbeat on ``device`` (cuda unless the
     caller passes ``device="cpu"``; the state must lie there)."""
     check_on(state.tick.device, device)
     check_slice(cfg)
-    k_pub, k_hb, k_fwd, _k_churn, k_ign, _k_sub = rng.split(key, 6)
+    k_pub, k_hb, k_fwd, k_churn, k_ign, _k_sub = rng.split(key, 6)
     peers, topics = choose_publishers(state, cfg, k_pub)
     state = publish(state, cfg, peers, topics, k_ign)
-    hb = heartbeat(state, cfg, tp, k_hb)
+    if cfg.gater_enabled:
+        state = gater_decay(state, cfg)
+    hb = heartbeat(state, cfg, tp, k_hb,
+                   extra_words=_iwant_answer_extras(state, cfg))
     state = forward_tick(hb.state, cfg, tp, hb.inc_gossip, hb.scores, k_fwd,
-                         fwd_send=hb.fwd_send)
+                         fwd_send=hb.fwd_send,
+                         answers_k=hb.extra_routed[0] if hb.extra_routed
+                         else None)
+    if cfg.churn_disconnect_prob > 0.0:
+        # connection churn closes the tick, reusing the heartbeat's
+        # unmasked score cache for the PX reconnect gate
+        state = churn_edges(state, cfg, tp, k_churn,
+                            scores_all=hb.scores_all)
     state = record_flags(state, cfg)
     return state._replace(tick=state.tick + 1)
 

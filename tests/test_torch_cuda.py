@@ -12,6 +12,7 @@ import torch
 
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
+from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
 from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
 from go_libp2p_pubsub_tpu_torch.ops.bits import pack_bool
 
@@ -103,6 +104,72 @@ def test_edge_table_kernel_equals_plain(b_planes):
     assert len(got) == (b_planes + 31) // 32
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# the last case: K * N no multiple of the block, a source wider than N
+@pytest.mark.parametrize("w,n_src,n,k", [(1, N, N, K), (2, N, N, K),
+                                         (3, N, N, K), (2, 1500, 1000, 7)])
+def test_gather_words_kernel_equals_plain(w, n_src, n, k):
+    _need_card()
+    g = torch.Generator().manual_seed(40 + w)
+    d = dict(x=pack_bool(torch.rand(w, n_src, 32, generator=g) < 0.5)[..., 0],
+             nbr=torch.randint(0, n_src, (n, k), generator=g,
+                               dtype=torch.int32))
+    got, want = _both(pg.gather_words, d, ["x", "nbr"])
+    assert got[0].shape == (w, k, n) and torch.equal(got[0], want[0])
+    got, want = _both(pg.gather_words_plain, d, ["x", "nbr"])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_permutation_gather_kernel_equals_plain(dtype):
+    _need_card()
+    g = torch.Generator().manual_seed(50)
+    payload = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, K), generator=g,
+                            dtype=torch.int32).view(dtype)
+    d = dict(payload=payload,
+             jn=torch.randint(0, N, (N, K), generator=g, dtype=torch.int32),
+             rk=torch.randint(0, K, (N, K), generator=g, dtype=torch.int32))
+    got, want = _both(pg.permutation_gather, d, ["payload", "jn", "rk"])
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("w,r", [(2, N * K), (10, N * K), (1, N * K - 7),
+                                 (3, 1000), (2, 0)])
+def test_take_words_kernel_equals_plain(w, r):
+    _need_card()
+    g = torch.Generator().manual_seed(60 + w)
+    d = dict(x=pack_bool(torch.rand(w, N, 32, generator=g) < 0.5)[..., 0],
+             idx=torch.randint(0, N, (r,), generator=g, dtype=torch.int32))
+    got, want = _both(mt.take_words, d, ["x", "idx"])
+    assert got[0].shape == (w, r) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("gather", ["pallas", "mxu"])
+def test_churn_trajectory_cuda_equals_cpu(gather):
+    """4 ticks of churn_50k at 512 peers with the validation cap cut to 4
+    (throttle and RED drop live), hop_mode="xla": the card's state equals
+    the CPU's (float32 within rtol 1e-6)."""
+    _need_card()
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import run, scenarios, state_to_numpy
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        cfg, tp, st = scenarios.churn_50k(512, device=dev, topo=topo)
+        cfg = dataclasses.replace(cfg, hop_mode="xla", edge_gather_mode=gather,
+                                  validation_queue_cap=4)
+        outs.append(state_to_numpy(run(st, cfg, tp,
+                                       rng.PRNGKey(0, device=dev), 4,
+                                       device=dev)))
+    for f, a in outs[0].items():
+        b = outs[1][f]
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f)
 
 
 def test_trajectory_cuda_equals_cpu():

@@ -1,0 +1,176 @@
+"""Parity of the port's gather kernels' plain versions against the JAX
+package's Pallas kernels in interpret mode, exactly: the words gather
+(kernel 5, ``_gather_words_pallas``), the payload permute (kernel 6,
+``_gather_pallas``) and the two-level take (kernel 7,
+``take_words_twolevel``), plus the formulations built on them
+(``take_payload_onehot``, ``_edge_table_mxu`` with a ride-along table,
+``bits.gather_words_rows`` under both gather modes). The kernels
+themselves are held to these plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from go_libp2p_pubsub_tpu.ops.bits import gather_words_rows as jgather_words_rows
+from go_libp2p_pubsub_tpu.ops.mxutake import (take_payload_onehot,
+                                              take_words_twolevel)
+from go_libp2p_pubsub_tpu.ops.permgather import (_edge_table_mxu as jtable_mxu,
+                                                 _gather_pallas,
+                                                 _gather_words_pallas)
+from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
+from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+from go_libp2p_pubsub_tpu_torch.ops.bits import gather_words_rows
+
+
+def _words(rng, *shape, density=0.5):
+    bits = rng.random(shape + (32,)) < density
+    w = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+    w = w.astype(np.uint32)
+    w.flat[0] |= np.uint32(0x80000000)                     # bit 31 set
+    return w
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))
+
+
+def _same(jax_out, torch_out, what):
+    a = np.asarray(jax_out)
+    b = torch_out.numpy()
+    if a.dtype == np.uint32:
+        b = b.view(np.uint32)
+    assert a.dtype == b.dtype, (what, a.dtype, b.dtype)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    np.testing.assert_array_equal(a.view(np.uint32) if a.dtype == np.float32
+                                  else a,
+                                  b.view(np.uint32) if b.dtype == np.float32
+                                  else b, err_msg=what)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("n,k", [(256, 16), (1024, 32)])
+def test_gather_words_plain_equals_pallas(w, n, k):
+    rng = np.random.default_rng(w * 100 + k)
+    x_w = _words(rng, w, n)
+    nbr = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    want = _gather_words_pallas(jnp.asarray(x_w), jnp.asarray(nbr),
+                                interpret=True)
+    got = pg.gather_words(_t(x_w), _t(nbr))
+    assert got.shape == (w, k, n)
+    _same(want, got, "gather_words")
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32])
+@pytest.mark.parametrize("n,k", [(256, 16), (1024, 32)])
+def test_permutation_gather_plain_equals_pallas(dtype, n, k):
+    rng = np.random.default_rng(n + k)
+    if dtype == np.uint32:
+        payload = _words(rng, n, k)
+    else:
+        payload = rng.standard_normal((n, k)).astype(np.float32)
+        payload.flat[:3] = [np.nan, -0.0, np.inf]
+    jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
+    want = _gather_pallas(jnp.asarray(payload), jnp.asarray(jn),
+                          jnp.asarray(rk), interpret=True)
+    got = pg.permutation_gather(_t(payload), _t(jn), _t(rk))
+    _same(want, got, "permutation_gather")
+    # the flat take formulation (edge_gather_mode="mxu") is the same function
+    _same(want, pg.permutation_gather(_t(payload), _t(jn), _t(rk), "mxu"),
+          "permutation_gather[mxu]")
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("r,block_g", [(2500, 1024), (1000, 256), (777, 1024),
+                                       (0, 1024)])
+def test_take_words_plain_equals_twolevel(w, r, block_g):
+    n = 1000                                   # not a multiple of 128
+    rng = np.random.default_rng(w * 10 + r)
+    x_w = _words(rng, w, n)
+    idx = rng.integers(0, n, size=(r,), dtype=np.int32)
+    want = take_words_twolevel(jnp.asarray(x_w), jnp.asarray(idx),
+                               block_g=block_g, interpret=True)
+    got = mt.take_words(_t(x_w), _t(idx))
+    assert got.shape == (w, r)
+    _same(want, got, "take_words")
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32])
+def test_take_payload_equals_onehot(dtype):
+    n, k = 384, 16
+    rng = np.random.default_rng(7)
+    payload = _words(rng, n, k) if dtype == np.uint32 else \
+        rng.standard_normal((n, k)).astype(np.float32)
+    jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
+    want = take_payload_onehot(jnp.asarray(payload), jnp.asarray(jn),
+                               jnp.asarray(rk), interpret=True)
+    _same(want, mt.take_payload(_t(payload), _t(jn), _t(rk)), "take_payload")
+
+
+@pytest.mark.parametrize("b_planes", [2, 8])
+def test_edge_table_mxu_with_extra_table(b_planes):
+    n, k = 256, 32
+    rng = np.random.default_rng(b_planes)
+    wb = (b_planes * k + 31) // 32
+    table = _words(rng, n, wb, density=0.3)
+    extra = _words(rng, 2, n)
+    jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
+    want_g, want_x = jtable_mxu(jnp.asarray(table), jnp.asarray(jn),
+                                jnp.asarray(rk), b_planes,
+                                extra_words=(jnp.asarray(extra),),
+                                interpret=True)
+    got_g, got_x = pg._edge_table_mxu(_t(table), _t(jn), _t(rk), b_planes,
+                                      (_t(extra),))
+    assert len(got_g) == len(want_g) and len(got_x) == len(want_x) == 1
+    for a, b in zip(want_g, got_g):
+        _same(a, b, "_edge_table_mxu groups")
+    _same(want_x[0], got_x[0], "_edge_table_mxu extras")   # [W, K, N]
+    # the groups equal the bit-table kernel's; the extras equal the words
+    # gather's k-major receiver view
+    for a, b in zip(pg.edge_table(_t(table), _t(jn), _t(rk), b_planes),
+                    got_g):
+        assert torch.equal(a, b)
+    assert torch.equal(got_x[0], pg.gather_words(_t(extra), _t(jn)))
+
+
+@pytest.mark.parametrize("mode", ["pallas", "mxu"])
+def test_gather_words_rows_equals_reference(mode):
+    n, k, m = 256, 16, 64
+    rng = np.random.default_rng(3)
+    x_w = _words(rng, 2, n)
+    nbr = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    want = jgather_words_rows(jnp.asarray(x_w), jnp.asarray(nbr), m, mode)
+    _same(want, gather_words_rows(_t(x_w), _t(nbr), mode), f"gw[{mode}]")
+
+
+def test_gather_modes_resolve_and_refuse():
+    assert pg.resolve_gather_mode("auto") == "pallas"
+    assert pg.resolve_gather_mode("pallas") == "pallas"
+    assert pg.resolve_gather_mode("mxu") == "mxu"
+    for mode in ("scalar", "rows", "sort"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            pg.resolve_gather_mode(mode)
+    with pytest.raises(ValueError):
+        pg.resolve_gather_mode("bogus")
+
+
+def test_gather_wrappers_refuse_other_devices_and_types():
+    meta = torch.zeros((4, 4), dtype=torch.int32, device="meta")
+    cpu = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pg.gather_words(meta, meta)
+    with pytest.raises(ValueError):
+        pg.permutation_gather(cpu, meta, meta)
+    with pytest.raises(ValueError):
+        mt.take_words(meta, torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(TypeError):
+        pg.permutation_gather(cpu.to(torch.int64), cpu, cpu)
+    with pytest.raises(TypeError):
+        mt.take_words(cpu, torch.zeros(4, dtype=torch.int64))

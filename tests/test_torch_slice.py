@@ -147,6 +147,13 @@ def test_port_imports_no_jax():
         "cfg, tp, st = build_headline(64, k_slots=8, degree=4, device='cpu')\n"
         "out = run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, device='cpu')\n"
         "assert int(out.tick) == 2\n"
+        "import dataclasses\n"
+        "from go_libp2p_pubsub_tpu_torch.sim import scenarios\n"
+        "cfg, tp, st = scenarios.churn_50k(64, k_slots=8, degree=4, device='cpu')\n"
+        "for g in ('pallas', 'mxu'):\n"
+        "    c = dataclasses.replace(cfg, hop_mode='xla', edge_gather_mode=g)\n"
+        "    out = run(st, c, tp, rng.PRNGKey(0, device='cpu'), 2, device='cpu')\n"
+        "    assert int(out.tick) == 2\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'go_libp2p_pubsub_tpu.'))"
         " or n == 'go_libp2p_pubsub_tpu' for n in sys.modules if sys.modules[n])\n"
         "print('ok')\n") % REPO
@@ -187,13 +194,13 @@ def test_step_refuses_configs_outside_the_slice():
 
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
-    for over in (dict(gater_enabled=True), dict(router="floodsub"),
+    for over in (dict(sub_leave_prob=0.1), dict(router="floodsub"),
                  dict(flood_publish=True), dict(record_provenance=True),
                  dict(edge_queue_cap=4), dict(invariant_mode="raise"),
-                 dict(key_schedule="fold_in"), dict(hop_mode="xla"),
+                 dict(key_schedule="fold_in"), dict(count_dtype="int32"),
                  dict(edge_gather_mode="sort"),
-                 dict(churn_disconnect_prob=0.1)):
-        with pytest.raises(NotImplementedError):
+                 dict(edge_gather_mode="scalar")):
+        with pytest.raises(NotImplementedError, match=r"Queue 1 item \d"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
 
 
