@@ -12,18 +12,24 @@ Phases, each printing its own lines and its seconds:
    plus a T=3 case and an emit case with budget 5 < M; the gathers at the
    churn path's N=51200 (the bit-table exchange at the churn path's B=8 and
    B=4 planes, words gather also at 102400, payload permute with int32 and
-   float32 payloads, flat take at each of its call shapes and an R that is
-   no multiple of 1024). Equality is exact (bit for bit). Times are
-   device times by CUDA events: 20 calls queued back to back behind a spin
-   kernel (so the host's enqueue time is hidden), median of 5 such rounds;
-   ``library_ms`` times the one PyTorch indexing call that computes a
-   gather, on int64 indices, the same way;
+   float32 payloads, flat take at each of its call shapes, at W = 1 and 3
+   and at an R that is no multiple of 1024). Beside each words gather and
+   take, on its print line only: the 32-byte L2 sectors that one lookup's
+   table row spans, computed from the indices and the row width (not
+   measured), and that sector traffic over the measured time. Equality is
+   exact (bit for bit). Times are device times by CUDA events: 20 calls
+   queued back to back behind a spin kernel (so the host's enqueue time is
+   hidden), median of 5 such rounds; ``library_ms`` times the one PyTorch
+   indexing call that computes a gather, on int64 indices, the same way
+   (the faster of two such calls where there are two);
 3. main path: ``build_headline(102400)`` and 8 ticks of ``run``, with the
    kernels' launch counts reset just before and read just after;
 3b. churn path: ``scenarios.churn_50k(n_peers=51200)`` (gater, validation
-   queue cap 64, connection churn with PX; the non-fused data path), 8
-   ticks with ``hop_mode="xla"`` under ``edge_gather_mode="pallas"`` and
-   under ``"mxu"``, each twice, in turns, from copies of one initial state
+   queue cap 64, connection churn with PX; the non-fused data path): first
+   the words gather and the take checked and timed as in phase 2 on the
+   built state's own neighbour indices, then 8 ticks with
+   ``hop_mode="xla"`` under ``edge_gather_mode="pallas"`` and under
+   ``"mxu"``, each twice, in turns, from copies of one initial state
    and one key, the counts reset before and read after each run; every
    run's final state must equal the first's in every field;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
@@ -54,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # INT32 lanes x 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67
 # TFLOP/s fp32 counts an FMA as two operations on 128 fp32 lanes per SM).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SECTOR = 32                      # bytes of an L2 sector
 N_FULL, K, M = 102400, 32, 64
 N_CHURN = 51200                  # churn_50k at its 128-friendly size
 REPS = 20
@@ -81,6 +88,15 @@ PATH_KERNELS = {
                                     "permutation_gather", "hop",
                                     "iwant_resolve", "emit"}),
 }
+
+
+def row_sectors(idx, w):
+    """Mean 32-byte L2 sectors spanned by the n-major table row of W words
+    that each index in ``idx`` reads: computed from the rows' byte offsets,
+    not a measured count (a warp whose lanes read one row asks once)."""
+    first = idx.long() * (4 * w) // SECTOR
+    last = (idx.long() * (4 * w) + 4 * w - 1) // SECTOR
+    return float((last - first + 1).double().mean()) if idx.numel() else 0.0
 
 
 def _build_topology(conn, n, k, degree):
@@ -161,11 +177,15 @@ class Smoke:
 
     # ---- phase 2: each kernel against its plain version -------------------
     def check_kernel(self, name, case, kernel_fn, plain_fn, inputs, nbytes,
-                     ops, library_fn=None):
+                     ops, library_fn=None, lookups=0, sectors=0.0):
         """Run the kernel and its plain version on clones of ``inputs``;
         exact equality of every output (float32 outputs compared as their
         bits); times; bound. ``library_fn`` is the one PyTorch call that
-        computes the same function, timed beside the kernel."""
+        computes the same function, timed beside the kernel, or a dict of
+        such calls by label, of which the fastest is kept. ``lookups``
+        table reads of ``sectors`` L2 sectors each (computed, not measured)
+        give the sector traffic, printed with its rate over the kernel's
+        time and not kept in the results."""
         torch = self.torch
 
         def clone():
@@ -197,7 +217,10 @@ class Smoke:
         fixed = clone()
         ms = self.time_ms(lambda: kernel_fn(*fixed))
         plain_ms = self.time_ms(lambda: plain_fn(*fixed), reps=5)
-        library_ms = None if library_fn is None else self.time_ms(library_fn)
+        libs = {} if library_fn is None else (
+            library_fn if isinstance(library_fn, dict) else {"": library_fn})
+        lib_ms = {label: self.time_ms(fn) for label, fn in libs.items()}
+        library_ms = min(lib_ms.values()) if lib_ms else None
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / INT32_OPS_PER_S * 1e3
         row = dict(case=case, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -205,11 +228,18 @@ class Smoke:
                    bound_ms=max(bound_bytes, bound_ops),
                    bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                    bytes=nbytes, ops=ops)
-        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        lib = "".join(f", library{' ' + label if label else ''} {t:.4f} ms"
+                      for label, t in lib_ms.items())
+        sec = ""
+        if lookups:
+            traffic = lookups * sectors * SECTOR
+            sec = (f"; {sectors:.3f} table sectors per lookup (computed from "
+                   f"the indices, not measured), {traffic / 1e6:.1f} MB of "
+                   f"sectors at {traffic / (ms * 1e-3) / 1e12:.2f} TB/s")
         print(f"kernel {name} [{case}]: equal to its plain version "
               f"(max_abs_err {max_err}); {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M int ops)",
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M int ops){sec}",
               flush=True)
         self.results.setdefault(name, []).append(row)
 
@@ -328,12 +358,12 @@ class Smoke:
         for nn in (n, N_FULL):
             x_w = self.rand_words(gen, w, nn)
             nbr = index(nn, nn, k)
-            nbr64 = nbr.long()
-            self.check_kernel(
-                "gather_words", f"W={w},N={nn}", pg.gather_words,
-                pg.gather_words_plain, [x_w, nbr],
-                nb(x_w, nbr) + w * k * nn * 4, 0,
-                library_fn=lambda x=x_w, i=nbr64: x[:, i.T])
+            self.check_gather_words(f"W={w},N={nn}", x_w, nbr)
+            print(f"interleave of the [{w}, {nn}] table into rows "
+                  f"(x_w.T.contiguous(), inside the gather_words and "
+                  f"take_words wrappers): "
+                  f"{self.time_ms(lambda x=x_w: x.T.contiguous()):.4f} ms",
+                  flush=True)
         # permutation_gather: out[n, k] = payload[jn[n, k], rk[n, k]], the
         # churn exchange's packed bit-planes (int32) and a float32 payload
         jn64, rk64 = jn.long(), rk.long()
@@ -345,23 +375,88 @@ class Smoke:
                 nb(payload, jn, rk) + n * k * 4, 0,
                 library_fn=lambda p=payload: p[jn64, rk64])
         # take_words: out[w, r] = x_w[w, idx[r]] at its call shapes under
-        # edge_gather_mode="mxu": the words gather ([2, N], R = N*K), the
-        # bit-table exchanges ([8, N] and [4, N]) and the last one with the
-        # IWANT answer rows ([8 + 2, N]), churn's payload as one [1, N*K]
-        # table; and R = N*K - 7
+        # edge_gather_mode="mxu": the words gather ([2, N], R = N*K, the
+        # wrapper interleaving the table into rows), the bit-table
+        # exchanges as n-major rows ([N, 8] and [N, 4]) and the last one
+        # with the IWANT answer rows ([N, 8 + 2]), churn's payload as one
+        # [N*K, 1] table; then W = 1, W = 3 and R = N*K - 7.
         for rows, cols, r, case in ((w, n, n * k, "words"),
                                     (8, n, n * k, "bit-table B=8"),
                                     (4, n, n * k, "bit-table B=4"),
                                     (8 + w, n, n * k, "bit-table+answers"),
                                     (1, n * k, n * k, "payload"),
+                                    (1, n, n * k, "W=1"),
+                                    (3, n, n * k, "W=3"),
                                     (w, n, n * k - 7, "R=N*K-7")):
-            x_w = self.rand_words(gen, rows, cols)
             idx = index(cols, r)
-            idx64 = idx.long()
-            self.check_kernel(
-                "take_words", f"{case},[{rows},{cols}],R={r}", mt.take_words,
-                mt.take_words_plain, [x_w, idx], nb(x_w, idx) + rows * r * 4,
-                0, library_fn=lambda x=x_w, i=idx64: x[:, i])
+            if case.startswith(("bit-table", "payload")):
+                self.check_take_rows(f"{case},[{cols},{rows}] rows,R={r}",
+                                     self.rand_words(gen, cols, rows), idx)
+                continue
+            self.check_take_words(f"{case},[{rows},{cols}],R={r}",
+                                  self.rand_words(gen, rows, cols), idx)
+
+    def check_gather_words(self, case, x_w, nbr):
+        """``gather_words`` (the wrapper: interleave, then the kernel)
+        against its plain version; library ``x_w[:, nbr.T]``."""
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        w = x_w.shape[0]
+        n, k = nbr.shape
+        self.check_kernel(
+            "gather_words", case, pg.gather_words, pg.gather_words_plain,
+            [x_w, nbr], (x_w.numel() + nbr.numel() + w * k * n) * 4, 0,
+            library_fn=lambda x=x_w, i=nbr.long(): x[:, i.T],
+            lookups=n * k, sectors=row_sectors(nbr, w))
+
+    def check_take_words(self, case, x_w, idx):
+        """``take_words`` (the wrapper: interleave, then the kernel, out
+        word-major) against its plain version; library ``x_w[:, idx]``."""
+        from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
+        w = x_w.shape[0]
+        r = idx.shape[0]
+        self.check_kernel(
+            "take_words", case, mt.take_words, mt.take_words_plain,
+            [x_w, idx], (x_w.numel() + r + w * r) * 4, 0,
+            library_fn=lambda x=x_w, i=idx.long(): x[:, i],
+            lookups=r, sectors=row_sectors(idx, w))
+
+    def check_take_rows(self, case, tab, idx):
+        """``take_rows`` (the take kernel on an n-major table, rows out)
+        against its plain version. Library: the faster of
+        ``tab.index_select(0, idx)`` and the column index ``x_w[:, idx]`` of
+        the same table word-major (transposed beforehand, not timed)."""
+        from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
+        w, r = tab.shape[1], idx.shape[0]
+        idx64, x_w = idx.long(), tab.T.contiguous()
+        self.check_kernel(
+            "take_words", case, mt.take_rows, mt.take_rows_plain,
+            [tab, idx], (tab.numel() + r + w * r) * 4, 0,
+            library_fn={"index_select": lambda: tab.index_select(0, idx64),
+                        "x_w[:, idx]": lambda: x_w[:, idx64]},
+            lookups=r, sectors=row_sectors(idx, w))
+
+    def real_index_kernels(self, st):
+        """The words gather and the take on the churn state's own
+        neighbour indices (clipped as the path clips them), beside phase
+        2's uniform random ones: the words gather and the words take at
+        [2, N], the bit-table+answers take at [N, 10]."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(1)
+        n, k = st.neighbors.shape
+        w = M // 32
+        empty = float((st.neighbors < 0).double().mean())
+        print(f"churn state's neighbour slots: {100 * empty:.2f}% empty "
+              f"(clipped to row 0 below)", flush=True)
+        nbr = st.neighbors.clamp(0, n - 1)
+        self.check_gather_words(f"W={w},N={n},real nbr",
+                                self.rand_words(gen, w, n), nbr)
+        self.check_take_words(f"words,[{w},{n}],R={n * k},real nbr",
+                              self.rand_words(gen, w, n),
+                              nbr.T.reshape(-1).contiguous())
+        self.check_take_rows(f"bit-table+answers,[{n},{8 + w}] rows,"
+                             f"R={n * k},real jn",
+                             self.rand_words(gen, n, 8 + w), nbr.reshape(-1))
 
     # ---- phase 3: the main path at full size ------------------------------
     def phase_main(self, topo):
@@ -427,6 +522,7 @@ class Smoke:
             VIOLATION_MASK, decode_violations)
         cfg, tp, st0 = scenarios.churn_50k(n_peers=N_CHURN, device=self.dev,
                                            topo=topo)
+        self.real_index_kernels(st0)
         conn0 = int((st0.connected & (st0.neighbors >= 0)).sum())
         first = None
         # each formulation runs twice, in turns, so that neither pays the

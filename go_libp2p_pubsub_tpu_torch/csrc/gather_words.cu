@@ -4,50 +4,130 @@
 // non-fused data path's words gather (ops/bits.gather_words_rows: the IWANT
 // answer table, every forwarding hop's frontier, the IHAVE offer table).
 //
-// out[w][k][n] = x[w][nbr[n][k]]: x is [W, N_src] uint32 (word-major,
-// peer-minor), nbr [N, K] int32 pre-clipped to [0, N_src), out [W, K, N]
-// (k-major receiver view). Indices are not bounds-checked.
+// out[w][k][n] = x[nbr[n][k]][w]: x is the table n-major, [N_src, W]
+// uint32 rows (the wrapper interleaves the caller's word-major [W, N_src]
+// into it), nbr [N, K] int32 pre-clipped to [0, N_src) (not bounds-checked),
+// out [W, K, N] (k-major receiver view). There is no arithmetic beyond
+// addressing, so the tensor cores have no part in it.
 //
 // Bound on an H100 (3.35 TB/s HBM): bytes. At N=51200, K=32, W=2 one call
 // reads nbr (6.6 MB) and the table (0.4 MB) and writes the [W, K, N] words
-// (13.1 MB): ~20 MB, ~6 us. There is no arithmetic beyond addressing.
+// (13.1 MB): ~20 MB, ~6 us. The wall is not those bytes but the L2's rate
+// for random 32-byte sectors (~4.1 TB/s of sectors on an H100 80GB HBM3 at
+// 700 W for the earlier one-thread-per-(k, n) kernel): the table fits the
+// 50 MB L2, a word-major table made each lookup touch W sectors, and
+// reading nbr[n][k] with a stride of K across a warp touched one more.
 //
-// Design: one thread per (k, n), n fastest. A warp's 32 lanes write 32
-// consecutive n of out[w][k], a coalesced 128-byte store per word row. The
-// nbr[n][k] reads are strided by K across the warp (each lane reads its own
-// 128-byte row; the 32 slots of a row are read by 32 different warps, which
-// mostly find the row in L2). The table is read through the read-only cache
-// and is small enough to stay in the 50 MB L2. Nothing is allocated here;
-// the launcher runs on the caller's stream and returns cudaGetLastError().
+// Design: a block owns BN = 32 receivers. It stages their nbr rows, one
+// contiguous [BN, K] run, into shared memory with 4-byte cp.async copies,
+// a warp per row (whole 128-byte rows at K = 32), padded to K + 1 words a
+// row so that the transposed read below is free of bank conflicts. Each
+// source row is read as W / VW vectors of VW = 4, 2 or 1 words (the widest
+// that W and the table's address allow), one lane per vector: the block is
+// (bx, BN, bz) threads with bx = min(W / VW, 8) and bz = min(512 / (32 *
+// bx), ceil(K / ILP)), so that every z has slots to take. A warp reads
+// whole rows, one sector request per row while 4*W <= 32, and writes each
+// out[w][k] as a run of consecutive n (at W = 2 one lane reads its
+// source's row as one 8-byte load and a warp stores two 128-byte runs).
+// Thread z takes ILP slots at a time, issuing their loads before any
+// store. The staged tile is 32 * (K + 1) * 4 bytes of dynamic shared
+// memory, so K is at most 383 (48 KB); the launcher refuses a larger K
+// with cudaErrorInvalidValue. Nothing is allocated here; the launcher runs
+// on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather_rows.cuh"
 
+constexpr int BN = 32;        // receivers per block
+constexpr int ILP = 4;        // slots in flight per thread
+constexpr int THREADS = 512;  // per block, at most
+constexpr size_t SMEM_MAX = 48 * 1024;  // dynamic shared memory, no opt-in
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+template <int VW>
 __global__ void gather_words_kernel(const uint32_t* __restrict__ x,
                                     const int32_t* __restrict__ nbr,
-                                    uint32_t* __restrict__ out,
-                                    long long n_src, long long n, int k,
+                                    uint32_t* __restrict__ out, int n, int k,
                                     int w) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)k * n) return;
-  const long long s = e / n;  // slot k
-  const long long i = e - s * n;  // receiver n
-  const long long j = nbr[i * k + s];
-  for (int wi = 0; wi < w; ++wi) {
-    out[wi * k * n + e] = __ldg(x + wi * n_src + j);
+  typedef typename Vec<VW>::T V;
+  extern __shared__ int32_t tile[];  // [BN][k + 1]
+  const int ld = k + 1;
+  const int n0 = blockIdx.x * BN;
+  const int rows = min(BN, n - n0);
+  const int tid =
+      threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+  const int lane = tid & 31;
+  const int nwarps = blockDim.x * blockDim.y * blockDim.z / 32;
+  for (int row = tid >> 5; row < rows; row += nwarps) {
+    for (int c = lane; c < k; c += 32) {
+      cp_async4(tile + row * ld + c, nbr + (long long)(n0 + row) * k + c);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int i = threadIdx.y;
+  if (i >= rows) return;
+  const int nvec = w / VW;
+  const long long plane = (long long)k * n;
+  for (int s0 = threadIdx.z * ILP; s0 < k; s0 += blockDim.z * ILP) {
+    long long j[ILP];
+#pragma unroll
+    for (int u = 0; u < ILP; ++u) {
+      j[u] = s0 + u < k ? (long long)tile[i * ld + s0 + u] : -1;
+    }
+    for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
+      const int w0 = q * VW;
+      V v[ILP];
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) {
+        if (j[u] >= 0) {
+          v[u] = __ldg(reinterpret_cast<const V*>(x + j[u] * w + w0));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) {
+        if (j[u] < 0) continue;
+        const uint32_t* c = reinterpret_cast<const uint32_t*>(&v[u]);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          out[(w0 + e) * plane + (long long)(s0 + u) * n + n0 + i] = c[e];
+        }
+      }
+    }
   }
 }
 
+template <int VW>
+static void launch(const void* x, const void* nbr, void* out, int n, int k,
+                   int w, size_t smem, cudaStream_t stream) {
+  const int nvec = w / VW;
+  const int bx = nvec < 8 ? nvec : 8;
+  const int slots = (k + ILP - 1) / ILP;
+  int bz = THREADS / (BN * bx);
+  bz = bz < slots ? bz : slots;
+  const dim3 block(bx, BN, bz > 0 ? bz : 1);
+  const unsigned blocks = (unsigned)((n + BN - 1) / BN);
+  gather_words_kernel<VW><<<blocks, block, smem, stream>>>(
+      (const uint32_t*)x, (const int32_t*)nbr, (uint32_t*)out, n, k, w);
+}
+
 extern "C" int gather_words_launch(const void* x, const void* nbr, void* out,
-                                   int n_src, int n, int k, int w,
-                                   void* stream) {
+                                   int n, int k, int w, void* stream) {
   if (n > 0 && k > 0 && w > 0) {
-    const int threads = 256;
-    const unsigned blocks =
-        (unsigned)(((long long)n * k + threads - 1) / threads);
-    gather_words_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const int32_t*)nbr, (uint32_t*)out, n_src, n, k,
-        w);
+    const size_t smem = (size_t)BN * (k + 1) * sizeof(int32_t);
+    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (vector_words(x, w)) {
+      case 4: launch<4>(x, nbr, out, n, k, w, smem, s); break;
+      case 2: launch<2>(x, nbr, out, n, k, w, smem, s); break;
+      default: launch<1>(x, nbr, out, n, k, w, smem, s);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled by
+Each ``csrc/<name>.cu`` exports a plain C launcher (and may include the
+shared headers ``csrc/*.cuh``) and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into its own shared library, loaded with ``ctypes``. Every source gets its
 own ``nvcc`` process and all of them start together. Libraries land in
-``go_libp2p_pubsub_tpu_torch/_build/`` under a name carrying the source's
-content hash, so an edited source rebuilds and an unchanged one loads as is.
+``go_libp2p_pubsub_tpu_torch/_build/`` under a name carrying the content
+hash of the source and the headers, so an edited source or header rebuilds
+and an unchanged one loads as is.
 The build happens at first use (or through :func:`build_all`), never at
 import: the CPU tests import every module on a machine with no ``nvcc``.
 
@@ -38,10 +40,10 @@ KERNELS = {
                       "p" * 14 + "i" * 6 + "p"),
     "emit": ("emit.cu", "emit_launch", "p" * 6 + "i" * 7 + "p"),
     "gather_words": ("gather_words.cu", "gather_words_launch",
-                     "p" * 3 + "i" * 4 + "p"),
+                     "p" * 3 + "i" * 3 + "p"),
     "permutation_gather": ("permutation_gather.cu",
                            "permutation_gather_launch", "p" * 4 + "i" * 3 + "p"),
-    "take_words": ("take_words.cu", "take_words_launch", "p" * 3 + "i" * 3 + "p"),
+    "take_words": ("take_words.cu", "take_words_launch", "p" * 3 + "i" * 4 + "p"),
 }
 
 # launches per kernel, counted only where a wrapper launches its kernel
@@ -67,10 +69,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by the hash of its source and of every
+    shared header in csrc/ (``*.cuh``), which a source may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [KERNELS[name][0], *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=None) -> dict:

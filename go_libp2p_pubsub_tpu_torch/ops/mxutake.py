@@ -1,9 +1,13 @@
 """The flat take behind ``edge_gather_mode="mxu"`` (port of ops/mxutake.py).
 
 :func:`take_words` computes ``out[w, r] = x_w[w, idx[r]]``, the contract of
-the reference's ``take_words_twolevel``: the plain PyTorch version for CPU
-tensors, the CUDA kernel csrc/take_words.cu for CUDA tensors; anything else
-raises.
+the reference's ``take_words_twolevel``, and :func:`take_rows` the same
+take over an n-major table, ``out[r, w] = tab[idx[r], w]``: the plain
+PyTorch versions for CPU tensors, the CUDA kernel csrc/take_words.cu for
+CUDA tensors; anything else raises. On the card the kernel reads the
+table n-major, a lookup's W words in one row (one 32-byte L2 sector while
+W <= 8), so :func:`take_words` first interleaves its word-major table
+into rows (``x_w.T.contiguous()``, 0.4 MB at [2, 51200]).
 
 On the TPU that contract is a one-hot bf16 matrix product: the table split
 into u8 chunk planes, a [block_g, NB] one-hot block select on the MXU and a
@@ -14,7 +18,7 @@ Hopper gathers directly.
 
 :func:`take_payload` is the port of ``take_payload_onehot``
 (``out[i, s] = payload[jn[i, s], rk[i, s]]``, mxutake.py:184-220) by its
-contract: ONE :func:`take_words` over the payload seen as a ``[1, N*K]``
+contract: ONE :func:`take_rows` over the payload seen as a ``[N*K, 1]``
 word table at ``idx = jn*K + rk``. The reference instead routes the K slot
 columns as K word planes in ``payload_w_tile`` tiles and picks the slot
 with a K-wide one-hot select, because the whole [N*K] table would not fit
@@ -29,19 +33,29 @@ from . import cudalib
 from .bits import I32
 
 
-def _check(x_w, idx):
-    if x_w.dtype != I32 or x_w.dim() != 2:
-        raise TypeError(f"take_words: x_w must be a [W, N] int32 tensor, got "
-                        f"{x_w.dtype} {tuple(x_w.shape)}")
+def _check(what, tab, idx):
+    if tab.dtype != I32 or tab.dim() != 2:
+        raise TypeError(f"{what}: the table must be a 2-D int32 tensor, got "
+                        f"{tab.dtype} {tuple(tab.shape)}")
     if idx.dtype != I32 or idx.dim() != 1:
-        raise TypeError(f"take_words: idx must be an [R] int32 tensor, got "
+        raise TypeError(f"{what}: idx must be an [R] int32 tensor, got "
                         f"{idx.dtype} {tuple(idx.shape)}")
+
+
+def _take(tab, idx, out_shape, os_r, os_w):
+    """Launch the take kernel on an n-major [N, W] table: ``out[r*os_r +
+    w*os_w] = tab[idx[r], w]`` (element strides) into a new ``out_shape``
+    int32 tensor."""
+    out = torch.empty(out_shape, dtype=I32, device=tab.device)
+    cudalib.launch("take_words", tab, idx, out, idx.shape[0], tab.shape[1],
+                   os_r, os_w)
+    return out
 
 
 def take_words_plain(x_w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`take_words` (the reference's
     ``take_words_twolevel_ref``, mxutake.py:282)."""
-    _check(x_w, idx)
+    _check("take_words", x_w, idx)
     return x_w[:, idx.long()]
 
 
@@ -50,14 +64,34 @@ def take_words(x_w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     [R] int32 pre-clipped to [0, N) (any R, 0 included) -> [W, R] int32."""
     if not cudalib.use_kernel("take_words", x_w, idx):
         return take_words_plain(x_w, idx)
-    _check(x_w, idx)
+    _check("take_words", x_w, idx)
     w, n = x_w.shape
     (r,) = idx.shape
     cudalib.check_args("take_words", [("x_w", x_w, I32, (w, n)),
                                       ("idx", idx, I32, (r,))])
-    out = torch.empty((w, r), dtype=I32, device=x_w.device)
-    cudalib.launch("take_words", x_w, idx, out, n, r, w)
-    return out
+    rows = x_w.T.contiguous()                             # [N, W]
+    return _take(rows, idx, (w, r), 1, r)
+
+
+def take_rows_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`take_rows`."""
+    _check("take_rows", tab, idx)
+    return tab[idx.long()]
+
+
+def take_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[r, w] = tab[idx[r], w]``: ``tab`` [N, W] int32 rows, ``idx``
+    [R] int32 pre-clipped to [0, N) (any R, 0 included) -> [R, W] int32.
+    The kernel of :func:`take_words` on an n-major table, with n-major
+    output."""
+    if not cudalib.use_kernel("take_words", tab, idx):
+        return take_rows_plain(tab, idx)
+    _check("take_rows", tab, idx)
+    n, w = tab.shape
+    (r,) = idx.shape
+    cudalib.check_args("take_rows", [("tab", tab, I32, (n, w)),
+                                     ("idx", idx, I32, (r,))])
+    return _take(tab, idx, (r, w), w, 1)
 
 
 def take_payload(payload: torch.Tensor, jn: torch.Tensor,
@@ -71,6 +105,6 @@ def take_payload(payload: torch.Tensor, jn: torch.Tensor,
                         f"4-byte dtype, got {payload.dtype} "
                         f"{tuple(payload.shape)}")
     n, k = payload.shape
-    words = payload.contiguous().view(I32).reshape(1, n * k)
+    words = payload.contiguous().view(I32).reshape(n * k, 1)
     idx = (jn * k + rk).reshape(-1)
-    return take_words(words, idx).reshape(jn.shape).view(payload.dtype)
+    return take_rows(words, idx).reshape(jn.shape).view(payload.dtype)

@@ -106,30 +106,34 @@ def edge_table(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
 def _edge_table_mxu(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
                     b_planes: int, extra_words=()):
     """The bit-table exchange under ``edge_gather_mode="mxu"``
-    (permgather.py:303-350): every edge's table row, and the rows of the
-    ``extra_words`` tables ([W_i, N] int32) concatenated under it, fetched
-    by ONE :func:`~.mxutake.take_words` at n-major ``idx = jn.reshape(-1)``;
+    (permgather.py:303-350): every edge's table row, with the rows of the
+    ``extra_words`` tables ([W_i, N] int32) concatenated beside it, fetched
+    by ONE :func:`~.mxutake.take_rows` at n-major ``idx = jn.reshape(-1)``
+    (the reference concatenates word-major and takes ``[WB + ΣW_i, N]``);
     the bit extraction is plain tensor ops. Returns ``(groups, extras)``:
     one [N, K] int32 word per 32-plane group, and each extra table's
     receiver view ``out[w, k, n] = tab[w, jn[n, k]]`` as a [W_i, K, N]
     (transposed) view."""
-    from .mxutake import take_words
+    from .mxutake import take_rows
 
     _, wb, nr, k, n_groups = _check(table, jn, rk, b_planes)
-    tabs = torch.cat([table.T, *extra_words], dim=0)       # [WB + ΣW_i, N]
-    rows_all = take_words(tabs, jn.reshape(-1))            # [., NR*K]
-    rows = rows_all[:wb].reshape(wb, nr, k).permute(1, 2, 0)   # [NR, K, WB]
-    groups = _extract_bits(rows, rk, b_planes, k, n_groups)
+    tabs = torch.cat([table, *(e.T for e in extra_words)], dim=1)
+    rows_all = take_rows(tabs, jn.reshape(-1)).reshape(nr, k, tabs.shape[1])
+    groups = _extract_bits(rows_all[..., :wb], rk, b_planes, k, n_groups)
     extras, ofs = [], wb
     for tab in extra_words:
         wt = tab.shape[0]
-        extras.append(rows_all[ofs:ofs + wt].reshape(wt, nr, k)
-                      .permute(0, 2, 1))                    # [W_i, K, N]
-        ofs += wt
+        extras.append(rows_all[..., ofs:ofs + wt].permute(2, 1, 0))
+        ofs += wt                                           # [W_i, K, N]
     return groups, extras
 
 
 # --- the words gather (permgather.py:_gather_words_pallas) ------------------
+
+# csrc/gather_words.cu stages a [32, K + 1] int32 tile of nbr in 48 KB of
+# dynamic shared memory
+GATHER_WORDS_MAX_K = 48 * 1024 // (32 * 4) - 1
+
 
 def _check_words(x_w, nbr):
     for name, x in (("x_w", x_w), ("nbr", nbr)):
@@ -148,8 +152,11 @@ def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
                  mode: str = "pallas") -> torch.Tensor:
     """``out[w, k, n] = x_w[w, nbr[n, k]]``: ``x_w`` [W, N_src] int32 packed
     words, ``nbr`` [N, K] int32 pre-clipped to [0, N_src); returns the
-    k-major receiver view [W, K, N]. ``mode="mxu"`` routes it through the
-    flat take at k-major ``idx = nbr.T.reshape(-1)`` (permgather.py:462-470)."""
+    k-major receiver view [W, K, N]. On the card the kernel reads the table
+    interleaved into n-major rows (``x_w.T.contiguous()``, 0.4 MB at [2,
+    51200]), a source's W words in one 32-byte L2 sector. ``mode="mxu"``
+    routes it through the flat take at k-major ``idx = nbr.T.reshape(-1)``
+    (permgather.py:462-470)."""
     if mode == "mxu":
         from .mxutake import take_words
         _check_words(x_w, nbr)
@@ -164,8 +171,13 @@ def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
     n, k = nbr.shape
     cudalib.check_args("gather_words", [("x_w", x_w, I32, (w, n_src)),
                                         ("nbr", nbr, I32, (n, k))])
+    if k > GATHER_WORDS_MAX_K:
+        raise ValueError(f"gather_words: K={k} slots exceed the kernel's "
+                         f"{GATHER_WORDS_MAX_K}: its staged [32, K + 1] int32 "
+                         "nbr tile must fit 48 KB of shared memory")
+    rows = x_w.T.contiguous()                              # [N_src, W]
     out = torch.empty((w, k, n), dtype=I32, device=x_w.device)
-    cudalib.launch("gather_words", x_w, nbr, out, n_src, n, k, w)
+    cudalib.launch("gather_words", rows, nbr, out, n, k, w)
     return out
 
 

@@ -106,15 +106,20 @@ def test_edge_table_kernel_equals_plain(b_planes):
         assert torch.equal(a, b)
 
 
-# the last case: K * N no multiple of the block, a source wider than N
+# K * N no multiple of the block and N no multiple of the kernel's
+# 32-receiver tile, a source wider than N; sources 0 and N_src - 1 among
+# the indices
 @pytest.mark.parametrize("w,n_src,n,k", [(1, N, N, K), (2, N, N, K),
-                                         (3, N, N, K), (2, 1500, 1000, 7)])
+                                         (3, N, N, K), (2, 1500, 1000, 7),
+                                         (4, N, N, K), (8, N, N, K),
+                                         (10, N, N, K), (10, 1500, 1000, 7)])
 def test_gather_words_kernel_equals_plain(w, n_src, n, k):
     _need_card()
     g = torch.Generator().manual_seed(40 + w)
     d = dict(x=pack_bool(torch.rand(w, n_src, 32, generator=g) < 0.5)[..., 0],
              nbr=torch.randint(0, n_src, (n, k), generator=g,
                                dtype=torch.int32))
+    d["nbr"][0, 0], d["nbr"][-1, -1] = 0, n_src - 1
     got, want = _both(pg.gather_words, d, ["x", "nbr"])
     assert got[0].shape == (w, k, n) and torch.equal(got[0], want[0])
     got, want = _both(pg.gather_words_plain, d, ["x", "nbr"])
@@ -135,15 +140,39 @@ def test_permutation_gather_kernel_equals_plain(dtype):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
+# W from 1 to 10, R = 0 and R = N*K - 7 (no multiple of a block's rows);
+# rows 0 and N - 1 among the indices
 @pytest.mark.parametrize("w,r", [(2, N * K), (10, N * K), (1, N * K - 7),
-                                 (3, 1000), (2, 0)])
+                                 (3, 1000), (2, 0), (4, N * K), (8, N * K),
+                                 (3, N * K - 7), (10, N * K - 7), (1, 0),
+                                 (8, 0)])
 def test_take_words_kernel_equals_plain(w, r):
     _need_card()
     g = torch.Generator().manual_seed(60 + w)
     d = dict(x=pack_bool(torch.rand(w, N, 32, generator=g) < 0.5)[..., 0],
              idx=torch.randint(0, N, (r,), generator=g, dtype=torch.int32))
+    d["idx"][:2] = torch.tensor([0, N - 1], dtype=torch.int32)[:r]
     got, want = _both(mt.take_words, d, ["x", "idx"])
     assert got[0].shape == (w, r) and torch.equal(got[0], want[0])
+    # the n-major take over the interleaved table
+    d["tab"] = d["x"].T.contiguous()
+    got, rows = _both(mt.take_rows, d, ["tab", "idx"])
+    assert got[0].shape == (r, w) and torch.equal(got[0], rows[0])
+    assert torch.equal(rows[0].T, want[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_take_payload_kernel_equals_plain(dtype):
+    _need_card()
+    g = torch.Generator().manual_seed(70)
+    payload = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, K), generator=g,
+                            dtype=torch.int32).view(dtype)
+    d = dict(payload=payload,
+             jn=torch.randint(0, N, (N, K), generator=g, dtype=torch.int32),
+             rk=torch.randint(0, K, (N, K), generator=g, dtype=torch.int32))
+    got, want = _both(mt.take_payload, d, ["payload", "jn", "rk"])
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 @pytest.mark.parametrize("gather", ["pallas", "mxu"])

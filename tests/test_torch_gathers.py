@@ -3,8 +3,10 @@ package's Pallas kernels in interpret mode, exactly: the words gather
 (kernel 5, ``_gather_words_pallas``), the payload permute (kernel 6,
 ``_gather_pallas``) and the two-level take (kernel 7,
 ``take_words_twolevel``), plus the formulations built on them
-(``take_payload_onehot``, ``_edge_table_mxu`` with a ride-along table,
-``bits.gather_words_rows`` under both gather modes). The kernels
+(the n-major ``take_rows``, ``take_payload_onehot``, ``_edge_table_mxu``
+with ride-along tables, ``bits.gather_words_rows`` under both gather
+modes), at widths W from 1 to 10 and at row and index counts that are no
+multiple of a vector width. The kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
@@ -52,7 +54,7 @@ def _same(jax_out, torch_out, what):
                                   else b, err_msg=what)
 
 
-@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 10])
 @pytest.mark.parametrize("n,k", [(256, 16), (1024, 32)])
 def test_gather_words_plain_equals_pallas(w, n, k):
     rng = np.random.default_rng(w * 100 + k)
@@ -85,7 +87,7 @@ def test_permutation_gather_plain_equals_pallas(dtype, n, k):
           "permutation_gather[mxu]")
 
 
-@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 10])
 @pytest.mark.parametrize("r,block_g", [(2500, 1024), (1000, 256), (777, 1024),
                                        (0, 1024)])
 def test_take_words_plain_equals_twolevel(w, r, block_g):
@@ -98,6 +100,27 @@ def test_take_words_plain_equals_twolevel(w, r, block_g):
     got = mt.take_words(_t(x_w), _t(idx))
     assert got.shape == (w, r)
     _same(want, got, "take_words")
+    # the same take over the n-major table, with n-major rows out
+    rows = mt.take_rows(_t(x_w).T.contiguous(), _t(idx))
+    assert rows.shape == (r, w)
+    _same(want, rows.T, "take_rows")
+
+
+# a table whose row count is no multiple of 4, an R no multiple of 4, the
+# first and last rows among the indices
+@pytest.mark.parametrize("w", [1, 3, 8, 10])
+@pytest.mark.parametrize("n,r", [(1001, 777), (61, 4099), (1001, 0)])
+def test_take_rows_plain_equals_twolevel(w, n, r):
+    rng = np.random.default_rng(w * 1000 + n + r)
+    x_w = _words(rng, w, n)
+    idx = rng.integers(0, n, size=(r,), dtype=np.int32)
+    idx[:2] = [0, n - 1][:r]
+    want = take_words_twolevel(jnp.asarray(x_w), jnp.asarray(idx),
+                               interpret=True)
+    tab = _t(np.ascontiguousarray(x_w.T))                   # [N, W]
+    got = mt.take_rows(tab, _t(idx))
+    assert got.shape == (r, w)
+    _same(np.asarray(want).T, got, "take_rows")
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.float32])
@@ -113,31 +136,49 @@ def test_take_payload_equals_onehot(dtype):
     _same(want, mt.take_payload(_t(payload), _t(jn), _t(rk)), "take_payload")
 
 
-@pytest.mark.parametrize("b_planes", [2, 8])
-def test_edge_table_mxu_with_extra_table(b_planes):
-    n, k = 256, 32
-    rng = np.random.default_rng(b_planes)
+def _edge_table_mxu_case(n, k, b_planes, extra_ws, seed):
+    rng = np.random.default_rng(seed)
     wb = (b_planes * k + 31) // 32
     table = _words(rng, n, wb, density=0.3)
-    extra = _words(rng, 2, n)
+    extras = [_words(rng, w, n) for w in extra_ws]
     jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    jn.flat[:2] = [0, n - 1]
     rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
     want_g, want_x = jtable_mxu(jnp.asarray(table), jnp.asarray(jn),
                                 jnp.asarray(rk), b_planes,
-                                extra_words=(jnp.asarray(extra),),
+                                extra_words=tuple(jnp.asarray(e)
+                                                  for e in extras),
                                 interpret=True)
     got_g, got_x = pg._edge_table_mxu(_t(table), _t(jn), _t(rk), b_planes,
-                                      (_t(extra),))
-    assert len(got_g) == len(want_g) and len(got_x) == len(want_x) == 1
+                                      tuple(_t(e) for e in extras))
+    assert len(got_g) == len(want_g)
+    assert len(got_x) == len(want_x) == len(extras)
     for a, b in zip(want_g, got_g):
         _same(a, b, "_edge_table_mxu groups")
-    _same(want_x[0], got_x[0], "_edge_table_mxu extras")   # [W, K, N]
+    for a, b in zip(want_x, got_x):
+        _same(a, b, "_edge_table_mxu extras")                # [W, K, N]
     # the groups equal the bit-table kernel's; the extras equal the words
     # gather's k-major receiver view
     for a, b in zip(pg.edge_table(_t(table), _t(jn), _t(rk), b_planes),
                     got_g):
         assert torch.equal(a, b)
-    assert torch.equal(got_x[0], pg.gather_words(_t(extra), _t(jn)))
+    for e, b in zip(extras, got_x):
+        assert torch.equal(b, pg.gather_words(_t(e), _t(jn)))
+
+
+# bit-table widths W = B*K/32 of 2, 8, 1, 3 and 10 words, each with a
+# two-word ride-along table
+@pytest.mark.parametrize("b_planes", [2, 8, 1, 3, 10])
+def test_edge_table_mxu_with_extra_table(b_planes):
+    _edge_table_mxu_case(256, 32, b_planes, (2,), b_planes)
+
+
+# peer counts and R = N*K no multiple of 4, several or no ride-along tables
+@pytest.mark.parametrize("n,k,b_planes,extra_ws", [(250, 7, 3, (1, 3)),
+                                                   (1001, 5, 40, (2,)),
+                                                   (61, 3, 1, ())])
+def test_edge_table_mxu_ragged_shapes(n, k, b_planes, extra_ws):
+    _edge_table_mxu_case(n, k, b_planes, extra_ws, n + k)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "mxu"])
@@ -174,3 +215,89 @@ def test_gather_wrappers_refuse_other_devices_and_types():
         pg.permutation_gather(cpu.to(torch.int64), cpu, cpu)
     with pytest.raises(TypeError):
         mt.take_words(cpu, torch.zeros(4, dtype=torch.int64))
+
+
+def _emulated_launch(name, *args):
+    """The two gather kernels' documented addressing, in PyTorch: what
+    csrc/take_words.cu and csrc/gather_words.cu write from the n-major
+    [N_src, W] table and the output strides a wrapper passes them."""
+    if name == "take_words":
+        tab, idx, out, r, w, os_r, os_w = args
+        assert tab.shape[1] == w and tab.is_contiguous()
+        rr = torch.arange(r)[:, None]
+        ww = torch.arange(w)[None, :]
+        src = idx.long()[:, None] * w + ww
+        out.view(-1)[(rr * os_r + ww * os_w).reshape(-1)] = \
+            tab.reshape(-1)[src.reshape(-1)]
+    elif name == "gather_words":
+        tab, nbr, out, n, k, w = args
+        assert tab.shape[1] == w and tab.is_contiguous()
+        src = nbr.long().T[None] * w + torch.arange(w)[:, None, None]
+        out.copy_(tab.reshape(-1)[src])                    # [W, K, N]
+    else:
+        raise AssertionError(f"unexpected kernel {name}")
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 10])
+def test_wrapper_layouts_equal_reference(w, monkeypatch):
+    """The wrappers' layout logic on the kernel route (the interleave into
+    rows, the strides, the n-major concatenation and the output views)
+    with the kernels' addressing emulated, against the JAX package."""
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    monkeypatch.setattr(cudalib, "use_kernel", lambda name, *t: True)
+    monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
+    monkeypatch.setattr(cudalib, "launch", _emulated_launch)
+    n, k, r = 1001, 7, 777
+    rng = np.random.default_rng(90 + w)
+    x_w = _words(rng, w, n)
+    nbr = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    idx = rng.integers(0, n, size=(r,), dtype=np.int32)
+    want = _gather_words_pallas(jnp.asarray(x_w), jnp.asarray(nbr),
+                                interpret=True)
+    _same(want, pg.gather_words(_t(x_w), _t(nbr)), "gather_words")
+    _same(want, pg.gather_words(_t(x_w), _t(nbr), "mxu"), "gather_words[mxu]")
+    want = take_words_twolevel(jnp.asarray(x_w), jnp.asarray(idx),
+                               interpret=True)
+    _same(want, mt.take_words(_t(x_w), _t(idx)), "take_words")
+    _same(np.asarray(want).T, mt.take_rows(_t(x_w).T.contiguous(), _t(idx)),
+          "take_rows")
+    # the bit-table exchange with ride-along tables, and the payload take
+    table = _words(rng, n, w, density=0.3)
+    extra = _words(rng, 2, n)
+    jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
+    b_planes = w * 32 // k
+    want_g, want_x = jtable_mxu(jnp.asarray(table), jnp.asarray(jn),
+                                jnp.asarray(rk), b_planes,
+                                extra_words=(jnp.asarray(extra),),
+                                interpret=True)
+    got_g, got_x = pg._edge_table_mxu(_t(table), _t(jn), _t(rk), b_planes,
+                                      (_t(extra),))
+    for a, b in zip(want_g, got_g):
+        _same(a, b, "_edge_table_mxu groups")
+    _same(want_x[0], got_x[0], "_edge_table_mxu extras")
+    payload = _words(rng, n, k)
+    want = take_payload_onehot(jnp.asarray(payload), jnp.asarray(jn),
+                               jnp.asarray(rk), interpret=True)
+    _same(want, mt.take_payload(_t(payload), _t(jn), _t(rk)), "take_payload")
+
+
+def test_gather_words_refuses_k_beyond_its_tile(monkeypatch):
+    """On the kernel route a K whose staged nbr tile exceeds 48 KB of shared
+    memory is refused with a clear error before any launch; the largest K
+    that fits goes through."""
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    monkeypatch.setattr(cudalib, "use_kernel", lambda name, *t: True)
+    monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
+    monkeypatch.setattr(cudalib, "launch", _emulated_launch)
+    k_max = pg.GATHER_WORDS_MAX_K
+    assert 32 * (k_max + 1) * 4 <= 48 * 1024 < 32 * (k_max + 2) * 4
+    n = 40
+    rng = np.random.default_rng(7)
+    x_w = _t(_words(rng, 2, n))
+    nbr = _t(rng.integers(0, n, size=(n, k_max), dtype=np.int32))
+    assert torch.equal(pg.gather_words(x_w, nbr),
+                       pg.gather_words_plain(x_w, nbr))
+    nbr = _t(rng.integers(0, n, size=(n, k_max + 1), dtype=np.int32))
+    with pytest.raises(ValueError, match="shared memory"):
+        pg.gather_words(x_w, nbr)
