@@ -23,7 +23,12 @@ Phases, each printing its own lines and its seconds:
    indexing call that computes a gather, on int64 indices, the same way
    (the faster of two such calls where there are two);
 3. main path: ``build_headline(102400)`` and 8 ticks of ``run``, with the
-   kernels' launch counts reset just before and read just after;
+   kernels' launch counts reset just before and read just after; then one
+   more tick whose hop and emit calls are recorded, and the two kernels
+   checked and timed as in phase 2 on that tick's real inputs (the
+   network's own neighbours, forward, mesh and gossip planes; the hop
+   whose frontier holds the most bits), with the share of slots whose
+   plane allows a topic (the lookups the kernels make) printed beside;
 3b. churn path: ``scenarios.churn_50k(n_peers=51200)`` (gater, validation
    queue cap 64, connection churn with PX; the non-fused data path): first
    the words gather and the take checked and timed as in phase 2 on the
@@ -495,6 +500,71 @@ class Smoke:
         if flags & VIOLATION_MASK:
             raise AssertionError(f"invariant violations: "
                                  f"{decode_violations(flags)}")
+        self.real_fused_kernels(out, cfg, tp)
+
+    def real_fused_kernels(self, st, cfg, tp):
+        """One more tick of the headline from ``st`` with its hop and emit
+        calls recorded (inputs cloned before the call, which updates some
+        in place); the two kernels checked and timed on those inputs as in
+        phase 2, beside the random-input cases."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
+        from go_libp2p_pubsub_tpu_torch.ops import propagate
+        from go_libp2p_pubsub_tpu_torch.ops.bits import popcount
+        from go_libp2p_pubsub_tpu_torch.sim import step
+        calls = {"hop": [], "emit": []}
+        orig = {"hop": propagate.hop, "emit": propagate.emit}
+
+        def recorder(name):
+            def call(*args, **kwargs):
+                calls[name].append(([a.clone() if isinstance(a, torch.Tensor)
+                                     else a for a in args], dict(kwargs)))
+                return orig[name](*args, **kwargs)
+            return call
+
+        propagate.hop, propagate.emit = recorder("hop"), recorder("emit")
+        try:
+            step(st, cfg, tp, rng.PRNGKey(1, device=self.dev),
+                 device=self.dev)
+        finally:
+            propagate.hop, propagate.emit = orig["hop"], orig["emit"]
+        self.sync()
+        if not calls["hop"] or len(calls["emit"]) != 1:
+            raise AssertionError(f"the recorded tick made {len(calls['hop'])} "
+                                 f"hops and {len(calls['emit'])} emits")
+
+        def nb(*xs):
+            return sum(x.numel() * x.element_size() for x in xs
+                       if isinstance(x, torch.Tensor))
+
+        def live_slots(plane):
+            return float((plane != 0).any(1).double().mean())
+
+        bits = [int(popcount(a[0]).sum()) for a, _ in calls["hop"]]
+        hop_in = calls["hop"][bits.index(max(bits))][0]
+        w, n = hop_in[1].shape
+        k, t = hop_in[8].shape[1], hop_in[11].shape[0]
+        print(f"real headline tick: {len(bits)} hops, frontier bits per hop "
+              f"{bits}; slots whose fwd plane allows a topic "
+              f"{100 * live_slots(hop_in[9]):.2f}% (hop loads those rows "
+              f"only)", flush=True)
+        self.check_kernel("hop", f"T={t},real tick, busiest hop", hk.hop,
+                          hk.hop_plain, hop_in,
+                          nb(*hop_in) + 4 * w * n * 4 + nb(*hop_in[12:]),
+                          n * k * w * (16 + 8 * t))
+        args, kwargs = calls["emit"][0]
+        emit_in, m = args[:5], args[5]
+        budget = kwargs.get("budget", args[6] if len(args) > 6 else None)
+        print(f"real headline tick: emit budget {budget}, M {m}; slots whose "
+              f"gossip plane allows a topic "
+              f"{100 * live_slots(emit_in[2]):.2f}% (emit loads those rows "
+              f"only)", flush=True)
+        self.check_kernel(
+            "emit", f"T={t},budget={budget},real tick",
+            lambda *a: hk.emit(*a, m, budget),
+            lambda *a: hk.emit_plain(*a, m, budget), emit_in,
+            nb(*emit_in) + n * m * 4, n * k * w * (8 + 2 * t) + n * m)
 
     def check_launches(self, path, launches):
         """Every kernel of ``path`` launched, and none it must not."""

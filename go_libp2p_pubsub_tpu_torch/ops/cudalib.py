@@ -35,7 +35,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> (source file, C launcher, argument kinds: p=pointer, i=int)
 KERNELS = {
     "edge_table": ("edge_table.cu", "edge_table_launch", "p" * 4 + "i" * 4 + "p"),
-    "hop": ("hop.cu", "hop_launch", "p" * 16 + "i" * 5 + "p"),
+    "hop": ("hop.cu", "hop_launch", "p" * 16 + "i" * 4 + "p"),
     "iwant_resolve": ("iwant_resolve.cu", "iwant_resolve_launch",
                       "p" * 14 + "i" * 6 + "p"),
     "emit": ("emit.cu", "emit_launch", "p" * 6 + "i" * 7 + "p"),

@@ -32,6 +32,12 @@ _MAXW = 8          # csrc/*.cu MAXW: packed words per row held in registers
 _MAXK_RESOLVE = 128  # csrc/iwant_resolve.cu slot-index bit planes
 
 
+def emit_slot_bytes(k: int) -> int:
+    """Bytes of a slot in csrc/emit.cu's shared-memory choice tile: the
+    narrowest signed type that holds K - 1 (int8, int16, int32)."""
+    return 1 if k <= 128 else 2 if k <= 1 << 15 else 4
+
+
 class HopOut(NamedTuple):
     new_valid: torch.Tensor   # [W, N] next frontier (validated new arrivals)
     have: torch.Tensor        # [W, N] updated seen set
@@ -180,9 +186,10 @@ def hop(frontier, have, dlv, dlv_new, vm, inv_n, window_old, valid_msg,
         ("topic_bits", topic_bits, I32, (t, w)), ("nv", nv, U8, tkn),
         ("ni", ni, U8, tkn), ("dup", dup, U8, tkn)])
     new_valid = torch.empty_like(have)
-    cudalib.launch("hop", frontier, have, dlv, dlv_new, vm, inv_n, window_old,
-                   valid_msg, nbr, fwd_u8, mesh_u8, topic_bits, nv, ni, dup,
-                   new_valid, n_src, n, k, t, w)
+    # the kernel reads the frontier n-major: one row per lookup
+    cudalib.launch("hop", frontier.T.contiguous(), have, dlv, dlv_new, vm,
+                   inv_n, window_old, valid_msg, nbr, fwd_u8, mesh_u8,
+                   topic_bits, nv, ni, dup, new_valid, n, k, t, w)
     return HopOut(new_valid, have, dlv, dlv_new, nv, ni, dup)
 
 
@@ -300,6 +307,8 @@ def emit(window, have, gossip_u8, topic_bits, nbr, m, budget) -> torch.Tensor:
         ("gossip_u8", gossip_u8, U8, (n, t, k)),
         ("topic_bits", topic_bits, I32, (t, w)), ("nbr", nbr, I32, (n, k))])
     out = torch.empty((n, m), dtype=I32, device=window.device)
-    cudalib.launch("emit", window, have, gossip_u8, topic_bits, nbr, out,
-                   n_src, n, k, t, w, m, int(budget))
+    # the kernel reads the window n-major: one row per lookup
+    cudalib.launch("emit", window.T.contiguous(), have, gossip_u8,
+                   topic_bits, nbr, out, n, k, t, w, m, int(budget),
+                   emit_slot_bytes(k))
     return out

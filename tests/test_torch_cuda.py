@@ -28,8 +28,9 @@ def _need_card():
                     "the card")
 
 
-def _inputs(seed, t):
+def _inputs(seed, t, n=N, k=K, w=W):
     g = torch.Generator().manual_seed(seed)
+    m = 32 * w
 
     def words(*shape, p=0.5):
         return pack_bool(torch.rand(*shape, 32, generator=g) < p)[..., 0]
@@ -37,22 +38,22 @@ def _inputs(seed, t):
     def u8(*shape, p=0.3):
         return (torch.rand(*shape, generator=g) < p).to(torch.uint8)
 
-    topic = torch.randint(-1, t, (W * 32,), generator=g)
+    topic = torch.randint(-1, t, (w * 32,), generator=g)
     return dict(
-        nbr=torch.randint(0, N, (N, K), generator=g, dtype=torch.int32),
+        nbr=torch.randint(0, n, (n, k), generator=g, dtype=torch.int32),
         tb=pack_bool(topic[None, :] == torch.arange(t)[:, None]),
-        frontier=words(W, N, p=0.1), have=words(W, N, p=0.3),
-        dlv=words(W, N, p=0.3), dlv_new=words(W, N, p=0.1),
-        vm=words(W, N, p=0.9), inv_n=words(W, N, p=0.05),
-        window_old=words(W, N, p=0.2), valid_msg=words(W, 1, p=0.9),
-        fwd=u8(N, t, K), mesh=u8(N, t, K),
-        nv=torch.randint(0, 256, (t, K, N), generator=g).to(torch.uint8),
-        ni=torch.randint(0, 256, (t, K, N), generator=g).to(torch.uint8),
-        dup=torch.randint(0, 256, (t, K, N), generator=g).to(torch.uint8),
-        pend=torch.randint(-1, K, (N, M), generator=g, dtype=torch.int32),
-        answers=words(W, N), alive=words(W, 1, p=0.9),
-        data_ok=u8(N, K, p=0.9), window=words(W, N, p=0.3),
-        gossip=u8(N, t, K, p=0.2))
+        frontier=words(w, n, p=0.1), have=words(w, n, p=0.3),
+        dlv=words(w, n, p=0.3), dlv_new=words(w, n, p=0.1),
+        vm=words(w, n, p=0.9), inv_n=words(w, n, p=0.05),
+        window_old=words(w, n, p=0.2), valid_msg=words(w, 1, p=0.9),
+        fwd=u8(n, t, k), mesh=u8(n, t, k),
+        nv=torch.randint(0, 256, (t, k, n), generator=g).to(torch.uint8),
+        ni=torch.randint(0, 256, (t, k, n), generator=g).to(torch.uint8),
+        dup=torch.randint(0, 256, (t, k, n), generator=g).to(torch.uint8),
+        pend=torch.randint(-1, k, (n, m), generator=g, dtype=torch.int32),
+        answers=words(w, n), alive=words(w, 1, p=0.9),
+        data_ok=u8(n, k, p=0.9), window=words(w, n, p=0.3),
+        gossip=u8(n, t, k, p=0.2))
 
 
 def _both(fn, d, names, *extra):
@@ -75,6 +76,22 @@ def test_hop_kernel_equals_plain(t):
         assert torch.equal(a, b)
 
 
+# the slot-parallel hop at K below, above and at twice one warp of slots,
+# N = 1001 (no multiple of any block of receivers), W = 1 to 3, T = 1 (the
+# kernel's single-topic instance), 3 and 8
+@pytest.mark.parametrize("k,t,w", [(8, 1, 1), (8, 3, 3), (40, 1, 3),
+                                   (40, 3, 1), (64, 1, 1), (64, 3, 3),
+                                   (64, 8, 2)])
+def test_hop_kernel_slot_chunks_equal_plain(k, t, w):
+    _need_card()
+    names = ["frontier", "have", "dlv", "dlv_new", "vm", "inv_n",
+             "window_old", "valid_msg", "nbr", "fwd", "mesh", "tb", "nv",
+             "ni", "dup"]
+    d = _inputs(100 + k + t + w, t, n=1001, k=k, w=w)
+    for a, b in zip(*_both(hk.hop, d, names)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("t", [1, 3])
 def test_iwant_resolve_kernel_equals_plain(t):
     _need_card()
@@ -89,6 +106,20 @@ def test_emit_kernel_equals_plain(t, budget):
     _need_card()
     names = ["window", "have", "gossip", "tb", "nbr"]
     got, want = _both(hk.emit, _inputs(20 + t, t), names, M, budget)
+    assert torch.equal(got[0], want[0])
+
+
+# the slot-parallel emit: budget 1 and 5 (the serial scan) and M (the
+# prefix-OR), K up to 64 and K = 130 (int16 slot tile), N = 1001
+@pytest.mark.parametrize("k,t,w,budget", [(8, 1, 1, 1), (8, 3, 3, 5),
+                                          (40, 1, 3, 96), (40, 3, 1, 5),
+                                          (64, 1, 1, 32), (64, 3, 3, 1),
+                                          (130, 1, 2, 5), (130, 3, 2, 64)])
+def test_emit_kernel_slot_chunks_equal_plain(k, t, w, budget):
+    _need_card()
+    names = ["window", "have", "gossip", "tb", "nbr"]
+    d = _inputs(200 + k + t + w + budget, t, n=1001, k=k, w=w)
+    got, want = _both(hk.emit, d, names, 32 * w, budget)
     assert torch.equal(got[0], want[0])
 
 
