@@ -9,11 +9,12 @@ Phases, each printing its own lines and its seconds:
    CUDA source of go_libp2p_pubsub_tpu_torch/csrc, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: the fused kernels at N=102400, K=32, T=1, M=64
-   plus a T=3 case and an emit case with budget 5 < M; the gathers at the
-   churn path's N=51200 (the bit-table exchange at the churn path's B=8 and
-   B=4 planes, words gather also at 102400, payload permute with int32 and
-   float32 payloads, flat take at each of its call shapes, at W = 1 and 3
-   and at an R that is no multiple of 1024). Beside each words gather and
+   plus a T=3 case, an emit case with budget 5 < M and a resolve case with
+   nothing pending; the gathers at the churn path's N=51200 (the bit-table
+   exchange at the churn path's B=8 and B=4 planes, words gather also at
+   102400, payload permute with int32 and float32 payloads, flat take at
+   each of its call shapes, at W = 1 and 3 and at an R that is no multiple
+   of 1024). Beside each words gather and
    take, on its print line only: the 32-byte L2 sectors that one lookup's
    table row spans, computed from the indices and the row width (not
    measured), and that sector traffic over the measured time. Equality is
@@ -24,15 +25,20 @@ Phases, each printing its own lines and its seconds:
    (the faster of two such calls where there are two);
 3. main path: ``build_headline(102400)`` and 8 ticks of ``run``, with the
    kernels' launch counts reset just before and read just after; then one
-   more tick whose hop and emit calls are recorded, and the two kernels
+   more tick whose heartbeat edge_table calls (B = 2, 1, 2) and whose
+   iwant_resolve, hop and emit calls are recorded, and the four kernels
    checked and timed as in phase 2 on that tick's real inputs (the
-   network's own neighbours, forward, mesh and gossip planes; the hop
+   network's own neighbours, reverse slots, planes and pend rows; the hop
    whose frontier holds the most bits), with the share of slots whose
-   plane allows a topic (the lookups the kernels make) printed beside;
+   plane allows a topic (the lookups the kernels make) and the share of
+   pend rows holding a pending message printed beside; then the pull
+   path: two ticks with ``prop_substeps=1`` from that state, the second
+   one's iwant_resolve checked and timed on its real inputs;
 3b. churn path: ``scenarios.churn_50k(n_peers=51200)`` (gater, validation
    queue cap 64, connection churn with PX; the non-fused data path): first
-   the words gather and the take checked and timed as in phase 2 on the
-   built state's own neighbour indices, then 8 ticks with
+   the words gather, the take and the bit-table exchange (B = 8 and 4)
+   checked and timed as in phase 2 on the built state's own neighbour
+   indices and reverse slots, then 8 ticks with
    ``hop_mode="xla"`` under ``edge_gather_mode="pallas"`` and under
    ``"mxu"``, each twice, in turns, from copies of one initial state
    and one key, the counts reset before and read after each run; every
@@ -276,12 +282,7 @@ class Smoke:
             jn = nbr_tab()
             rk = torch.randint(0, k, (n, k), generator=gen, device=self.dev,
                                dtype=torch.int32)
-            groups = (b_planes + 31) // 32
-            self.check_kernel(
-                "edge_table", case, pg.edge_table, pg.edge_table_plain,
-                [table, jn, rk, b_planes],
-                nb(table, jn, rk) + groups * n * k * 4,
-                n * k * b_planes * 6)
+            self.check_edge_table(case, table, jn, rk, b_planes)
 
         for t in (1, 3):
             tb = self.topic_bits(gen, t, w)
@@ -299,7 +300,7 @@ class Smoke:
             hop_bytes = nb(*hop_in) + nb(*tabs[:4]) + nb(*cnt)
             self.check_kernel("hop", f"T={t}", hk.hop, hk.hop_plain, hop_in,
                               hop_bytes, n * k * w * (16 + 8 * t))
-            # iwant_resolve
+            # iwant_resolve; at T = 1 also with nothing pending
             pend = torch.randint(-1, k, (n, m), generator=gen, device=self.dev,
                                  dtype=torch.int32)
             rtabs = [self.rand_words(gen, w, n, density=d)
@@ -307,12 +308,11 @@ class Smoke:
             alive = self.rand_words(gen, w, 1, density=0.9)
             data_ok = bool_u8(n, k, p=0.9)
             res_in = [pend] + rtabs + [alive, data_ok, tb, nbr]
-            res_bytes = nb(*res_in) + 2 * w * n * 4 + (2 * t + 1) * k * n
-            self.check_kernel("iwant_resolve", f"T={t}",
-                              lambda *a: hk.iwant_resolve(*a, m),
-                              lambda *a: hk.iwant_resolve_plain(*a, m),
-                              res_in, res_bytes,
-                              n * m * 8 + n * k * w * (20 + 6 * t))
+            self.check_resolve(f"T={t}", res_in, m)
+            if t == 1:
+                self.check_resolve("T=1,empty pend",
+                                   [torch.full_like(pend, -1)] + res_in[1:],
+                                   m)
             # emit, unbudgeted (budget = M) and budgeted (5 < M)
             window = self.rand_words(gen, w, n, density=0.3)
             have = self.rand_words(gen, w, n, density=0.5)
@@ -354,10 +354,8 @@ class Smoke:
         jn, rk = index(n, n, k), index(k, n, k)
         for b_planes in (8, 4):
             table = self.rand_words(gen, n, b_planes * k // 32, density=0.2)
-            self.check_kernel(
-                "edge_table", f"B={b_planes},T=4,N={n}", pg.edge_table,
-                pg.edge_table_plain, [table, jn, rk, b_planes],
-                nb(table, jn, rk) + n * k * 4, n * k * b_planes * 6)
+            self.check_edge_table(f"B={b_planes},T=4,N={n}", table, jn, rk,
+                                  b_planes)
         # gather_words: out[w, k, n] = x_w[w, nbr[n, k]], at the churn
         # path's [2, 51200] x [51200, 32] and the headline's [2, 102400]
         for nn in (n, N_FULL):
@@ -440,6 +438,77 @@ class Smoke:
                         "x_w[:, idx]": lambda: x_w[:, idx64]},
             lookups=r, sectors=row_sectors(idx, w))
 
+    def check_edge_table(self, case, table, jn, rk, b_planes):
+        """``edge_table`` against its plain version; the bound counts the
+        caller's table, jn, rk and the output words."""
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        nr, k = jn.shape
+        nbytes = (table.numel() + jn.numel() + rk.numel()
+                  + (b_planes + 31) // 32 * nr * k) * 4
+        self.check_kernel("edge_table", case, pg.edge_table,
+                          pg.edge_table_plain, [table, jn, rk, b_planes],
+                          nbytes, nr * k * b_planes * 6)
+
+    def check_resolve(self, case, res_in, m):
+        """``iwant_resolve`` against its plain version. The bound counts
+        what these inputs need: the pend rows, alive, the topic words and
+        every output always; a receiver's nbr and data_ok rows and its
+        have/vm/inv_n words only where some alive message is pending from
+        a slot (the kernel skips the others), and the answer table once
+        where any slot is asked. Prints the share of pend rows with a
+        message pending and the answer-row lookups the inputs need."""
+        from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
+        from go_libp2p_pubsub_tpu_torch.ops.bits import unpack_words
+        torch = self.torch
+        pend, answers, have, vm, inv_n, alive, data_ok, tb, nbr = res_in
+        n, k = nbr.shape
+        w, t = answers.shape[0], tb.shape[0]
+        al = unpack_words(alive, m)[0]                     # [M] bool
+        asked = (pend >= 0) & (pend < k) & al[None, :]     # [N, M]
+        live = int(asked.any(1).sum())
+        slots = torch.zeros((n, k + 1), dtype=torch.bool, device=pend.device)
+        slots.scatter_(1, torch.where(asked, pend, k).long(), True)
+        lookups = int(slots[:, :k].sum())
+        nonempty = float((pend >= 0).any(1).double().mean())
+        print(f"iwant_resolve [{case}]: {100 * nonempty:.2f}% of pend rows "
+              f"hold a pending message, {live} receivers with an alive ask, "
+              f"{lookups} answer-row lookups", flush=True)
+        nbytes = ((pend.numel() + alive.numel() + tb.numel()) * 4
+                  + 2 * w * n * 4 + (2 * t + 1) * k * n
+                  + live * (k * 4 + k + 3 * w * 4)
+                  + (answers.numel() * 4 if lookups else 0))
+        ops = n * m * 8 + live * k * w * (20 + 6 * t)
+        self.check_kernel("iwant_resolve", case,
+                          lambda *a: hk.iwant_resolve(*a, m),
+                          lambda *a: hk.iwant_resolve_plain(*a, m),
+                          res_in, nbytes, ops)
+
+    def record_calls(self, targets, fn):
+        """Run ``fn()`` with each ``(module, name)`` of ``targets`` wrapped
+        so that its calls are recorded (tensor arguments cloned before the
+        call, which may update some in place). Returns name -> [(args,
+        kwargs)]."""
+        torch = self.torch
+        calls = {name: [] for _, name in targets}
+        orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+        def recorder(name, fn_):
+            def call(*args, **kwargs):
+                calls[name].append(([a.clone() if isinstance(a, torch.Tensor)
+                                     else a for a in args], dict(kwargs)))
+                return fn_(*args, **kwargs)
+            return call
+
+        for mod, name, fn_ in orig:
+            setattr(mod, name, recorder(name, fn_))
+        try:
+            fn()
+        finally:
+            for mod, name, fn_ in orig:
+                setattr(mod, name, fn_)
+        self.sync()
+        return calls
+
     def real_index_kernels(self, st):
         """The words gather and the take on the churn state's own
         neighbour indices (clipped as the path clips them), beside phase
@@ -462,6 +531,14 @@ class Smoke:
         self.check_take_rows(f"bit-table+answers,[{n},{8 + w}] rows,"
                              f"R={n * k},real jn",
                              self.rand_words(gen, n, 8 + w), nbr.reshape(-1))
+        # the bit-table exchange on the state's own jn and rk (empty slots
+        # clipped to row 0 and slot 0, as the heartbeat clips them)
+        rk = st.reverse_slot.clamp(0, k - 1)
+        for b_planes in (8, 4):
+            self.check_edge_table(f"B={b_planes},T=4,N={n},real jn/rk",
+                                  self.rand_words(gen, n, b_planes * k // 32,
+                                                  density=0.2),
+                                  nbr, rk, b_planes)
 
     # ---- phase 3: the main path at full size ------------------------------
     def phase_main(self, topo):
@@ -503,36 +580,33 @@ class Smoke:
         self.real_fused_kernels(out, cfg, tp)
 
     def real_fused_kernels(self, st, cfg, tp):
-        """One more tick of the headline from ``st`` with its hop and emit
-        calls recorded (inputs cloned before the call, which updates some
-        in place); the two kernels checked and timed on those inputs as in
-        phase 2, beside the random-input cases."""
+        """One more tick of the headline from ``st`` with its heartbeat's
+        edge_table calls and its iwant_resolve, hop and emit calls
+        recorded; the four kernels checked and timed on those inputs as in
+        phase 2, beside the random-input cases. Then the pull path: two
+        ticks with ``prop_substeps=1`` (the configuration
+        tests/test_torch_slice.py uses to exercise pulls), the second one's
+        iwant_resolve recorded, checked and timed."""
+        import dataclasses
         torch = self.torch
         from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import heartbeat as hb
         from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
         from go_libp2p_pubsub_tpu_torch.ops import propagate
         from go_libp2p_pubsub_tpu_torch.ops.bits import popcount
         from go_libp2p_pubsub_tpu_torch.sim import step
-        calls = {"hop": [], "emit": []}
-        orig = {"hop": propagate.hop, "emit": propagate.emit}
-
-        def recorder(name):
-            def call(*args, **kwargs):
-                calls[name].append(([a.clone() if isinstance(a, torch.Tensor)
-                                     else a for a in args], dict(kwargs)))
-                return orig[name](*args, **kwargs)
-            return call
-
-        propagate.hop, propagate.emit = recorder("hop"), recorder("emit")
-        try:
-            step(st, cfg, tp, rng.PRNGKey(1, device=self.dev),
-                 device=self.dev)
-        finally:
-            propagate.hop, propagate.emit = orig["hop"], orig["emit"]
-        self.sync()
-        if not calls["hop"] or len(calls["emit"]) != 1:
-            raise AssertionError(f"the recorded tick made {len(calls['hop'])} "
-                                 f"hops and {len(calls['emit'])} emits")
+        targets = [(hb, "edge_table"), (propagate, "iwant_resolve"),
+                   (propagate, "hop"), (propagate, "emit")]
+        calls = self.record_calls(targets, lambda: step(
+            st, cfg, tp, rng.PRNGKey(1, device=self.dev), device=self.dev))
+        if (not calls["hop"] or len(calls["emit"]) != 1
+                or len(calls["iwant_resolve"]) != 1
+                or [a[3] for a, _ in calls["edge_table"]] != [2, 1, 2]):
+            raise AssertionError(
+                f"the recorded tick made {len(calls['hop'])} hops, "
+                f"{len(calls['emit'])} emits, "
+                f"{len(calls['iwant_resolve'])} resolves and edge_table "
+                f"calls at B={[a[3] for a, _ in calls['edge_table']]}")
 
         def nb(*xs):
             return sum(x.numel() * x.element_size() for x in xs
@@ -541,6 +615,11 @@ class Smoke:
         def live_slots(plane):
             return float((plane != 0).any(1).double().mean())
 
+        for i, (args, _) in enumerate(calls["edge_table"]):
+            self.check_edge_table(f"B={args[3]},real tick,call {i + 1}",
+                                  *args[:4])
+        args, _ = calls["iwant_resolve"][0]
+        self.check_resolve("T=1,real tick", args[:9], args[9])
         bits = [int(popcount(a[0]).sum()) for a, _ in calls["hop"]]
         hop_in = calls["hop"][bits.index(max(bits))][0]
         w, n = hop_in[1].shape
@@ -565,6 +644,20 @@ class Smoke:
             lambda *a: hk.emit(*a, m, budget),
             lambda *a: hk.emit_plain(*a, m, budget), emit_in,
             nb(*emit_in) + n * m * 4, n * k * w * (8 + 2 * t) + n * m)
+
+        # the pull path: a tick with one forwarding hop leaves IWANTs
+        # pending, which the next tick's resolve answers
+        cfg1 = dataclasses.replace(cfg, prop_substeps=1)
+        st1 = step(st, cfg1, tp, rng.PRNGKey(2, device=self.dev),
+                   device=self.dev)
+        calls = self.record_calls([(propagate, "iwant_resolve")], lambda: step(
+            st1, cfg1, tp, rng.PRNGKey(3, device=self.dev), device=self.dev))
+        args, _ = calls["iwant_resolve"][0]
+        if not bool((args[0] >= 0).any()):
+            raise AssertionError("the prop_substeps=1 tick left no IWANT "
+                                 "pending")
+        self.check_resolve("T=1,pull tick (prop_substeps=1)", args[:9],
+                           args[9])
 
     def check_launches(self, path, launches):
         """Every kernel of ``path`` launched, and none it must not."""

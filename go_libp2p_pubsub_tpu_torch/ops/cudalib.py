@@ -37,7 +37,7 @@ KERNELS = {
     "edge_table": ("edge_table.cu", "edge_table_launch", "p" * 4 + "i" * 4 + "p"),
     "hop": ("hop.cu", "hop_launch", "p" * 16 + "i" * 4 + "p"),
     "iwant_resolve": ("iwant_resolve.cu", "iwant_resolve_launch",
-                      "p" * 14 + "i" * 6 + "p"),
+                      "p" * 14 + "i" * 5 + "p"),
     "emit": ("emit.cu", "emit_launch", "p" * 6 + "i" * 7 + "p"),
     "gather_words": ("gather_words.cu", "gather_words_launch",
                      "p" * 3 + "i" * 3 + "p"),

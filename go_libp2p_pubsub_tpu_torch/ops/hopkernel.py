@@ -29,7 +29,6 @@ from .bits import I32, exclusive_prefix_or, pack_words, popcount, \
 
 U8 = torch.uint8
 _MAXW = 8          # csrc/*.cu MAXW: packed words per row held in registers
-_MAXK_RESOLVE = 128  # csrc/iwant_resolve.cu slot-index bit planes
 
 
 def emit_slot_bytes(k: int) -> int:
@@ -236,7 +235,9 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     pend: [N, M] int32 pending-pull slot per message (-1 none); answers:
     [W, N] sender answer table (malicious columns zeroed); have/vm/inv_n:
     [W, N] receiver tables; alive: [W, 1]; data_ok_u8: [N, K] uint8
-    graylist admission; topic_bits: [T, W]; nbr pre-clipped."""
+    graylist admission; topic_bits: [T, W]; nbr pre-clipped. The kernel
+    takes any K up to its tile of counts, (2T+1) * K <= 32768; W > 8 and
+    M > 32 W are refused here."""
     args = (pend, answers, have, vm, inv_n, alive, data_ok_u8, topic_bits,
             nbr)
     if not cudalib.use_kernel("iwant_resolve", *args):
@@ -244,9 +245,9 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     w, n_src = answers.shape
     n, k = nbr.shape
     t = topic_bits.shape[0]
-    if w > _MAXW or k > _MAXK_RESOLVE or m > 32 * w:
-        raise ValueError(f"iwant_resolve: W={w}, K={k}, M={m} outside the "
-                         f"kernel's W<={_MAXW}, K<={_MAXK_RESOLVE}, M<=32W")
+    if w > _MAXW or m > 32 * w:
+        raise ValueError(f"iwant_resolve: W={w}, M={m} outside the kernel's "
+                         f"W<={_MAXW}, M<=32W")
     wn = (w, n)
     cudalib.check_args("iwant_resolve", [
         ("pend", pend, I32, (n, m)), ("answers", answers, I32, (w, n_src)),
@@ -260,9 +261,10 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     nv = torch.empty((t, k, n), dtype=U8, device=dev)
     ni = torch.empty((t, k, n), dtype=U8, device=dev)
     broken = torch.empty((k, n), dtype=U8, device=dev)
-    cudalib.launch("iwant_resolve", pend, answers, have, vm, inv_n, alive,
-                   data_ok_u8, topic_bits, nbr, got_any, got_valid_any, nv,
-                   ni, broken, n_src, n, k, t, w, m)
+    # the kernel reads the answer table n-major: one row per lookup
+    cudalib.launch("iwant_resolve", pend, answers.T.contiguous(), have, vm,
+                   inv_n, alive, data_ok_u8, topic_bits, nbr, got_any,
+                   got_valid_any, nv, ni, broken, n, k, t, w, m)
     return ResolveOut(got_any, got_valid_any, nv, ni, broken)
 
 

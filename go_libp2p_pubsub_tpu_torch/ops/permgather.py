@@ -87,19 +87,34 @@ def edge_table_plain(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
     return _extract_bits(table[jn.long()], rk, b_planes, k, n_groups)
 
 
+def edge_table_row_words(wb: int) -> int:
+    """The row width csrc/edge_table.cu reads a [N, WB] table at: WB for
+    WB <= 2, else WB rounded up to a multiple of 4 words, so that a row is
+    aligned to its vector width and spans no more 32-byte sectors than its
+    bytes need."""
+    return wb if wb <= 2 else -(-wb // 4) * 4
+
+
 def edge_table(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
                b_planes: int) -> list[torch.Tensor]:
     """Bit-table edge exchange: ``table`` [N, WB] int32 (uint32 bits), ``jn``
     and ``rk`` [N, K] int32 pre-clipped to valid range. Returns
-    ``ceil(b_planes/32)`` tensors of [N, K] int32."""
+    ``ceil(b_planes/32)`` tensors of [N, K] int32. On the card a table
+    whose rows are not :func:`edge_table_row_words` wide is padded here,
+    and one at an address that is no multiple of 16 bytes is copied."""
     if not cudalib.use_kernel("edge_table", table, jn, rk):
         return edge_table_plain(table, jn, rk, b_planes)
     n, wb, nr, k, n_groups = _check(table, jn, rk, b_planes)
     cudalib.check_args("edge_table", [("table", table, I32, (n, wb)),
                                       ("jn", jn, I32, (nr, k)),
                                       ("rk", rk, I32, (nr, k))])
+    pw = edge_table_row_words(wb)
+    if pw != wb:
+        table = torch.nn.functional.pad(table, (0, pw - wb))
+    elif table.data_ptr() % 16:
+        table = table.clone()           # the kernel reads 16-byte aligned
     out = torch.empty((n_groups, nr, k), dtype=I32, device=table.device)
-    cudalib.launch("edge_table", table, jn, rk, out, nr, k, wb, b_planes)
+    cudalib.launch("edge_table", table, jn, rk, out, nr, k, pw, b_planes)
     return list(out.unbind(0))
 
 

@@ -101,6 +101,25 @@ def test_iwant_resolve_kernel_equals_plain(t):
         assert torch.equal(a, b)
 
 
+# the slot-parallel resolve at K below, above and past four warps of slots
+# (K = 130, beyond the earlier kernel's 128), N = 1001 (no multiple of a
+# block), W = 1 to 3, with random and with empty pend rows
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("k,t,w", [(8, 1, 1), (8, 3, 3), (40, 1, 3),
+                                   (40, 3, 2), (130, 1, 2), (130, 3, 1)])
+def test_iwant_resolve_kernel_slot_chunks_equal_plain(k, t, w, empty):
+    _need_card()
+    names = ["pend", "answers", "have", "vm", "inv_n", "alive", "data_ok",
+             "tb", "nbr"]
+    d = _inputs(300 + k + t + w, t, n=1001, k=k, w=w)
+    if empty:
+        d["pend"].fill_(-1)
+    got, want = _both(hk.iwant_resolve, d, names, 32 * w)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert empty or want[4].any()
+
+
 @pytest.mark.parametrize("t,budget", [(1, M), (1, 5), (3, M), (3, 1)])
 def test_emit_kernel_equals_plain(t, budget):
     _need_card()
@@ -131,6 +150,27 @@ def test_edge_table_kernel_equals_plain(b_planes):
     d = dict(table=pack_bool(torch.rand(N, wb, 32, generator=g) < 0.3)[..., 0],
              jn=torch.randint(0, N, (N, K), generator=g, dtype=torch.int32),
              rk=torch.randint(0, K, (N, K), generator=g, dtype=torch.int32))
+    got, want = _both(pg.edge_table, d, ["table", "jn", "rk"], b_planes)
+    assert len(got) == (b_planes + 31) // 32
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# N = 1001: B 1, 8 and 40 (a row wider than 8 words) at K = 32, K = 40, 8
+# and 7 (bits selected in registers; at K = 7 an odd edge count, edges one
+# at a time), B = 6 (a row padded to 8 words) and B = 12 at K = 8 (3 words
+# padded to 4)
+@pytest.mark.parametrize("b_planes,k", [(1, 32), (8, 32), (40, 32), (8, 40),
+                                        (2, 8), (6, 32), (3, 7), (12, 8)])
+def test_edge_table_kernel_shapes_equal_plain(b_planes, k):
+    _need_card()
+    n = 1001
+    g = torch.Generator().manual_seed(80 + b_planes + k)
+    wb = (b_planes * k + 31) // 32
+    d = dict(table=pack_bool(torch.rand(n, wb, 32, generator=g) < 0.3)[..., 0],
+             jn=torch.randint(0, n, (n, k), generator=g, dtype=torch.int32),
+             rk=torch.randint(0, k, (n, k), generator=g, dtype=torch.int32))
+    d["jn"][0, 0], d["jn"][-1, -1] = 0, n - 1
     got, want = _both(pg.edge_table, d, ["table", "jn", "rk"], b_planes)
     assert len(got) == (b_planes + 31) // 32
     for a, b in zip(got, want):
