@@ -13,8 +13,10 @@ peer-minor); bool planes arrive as uint8; per-(topic, slot) counters are
 [N, K] int32 neighbour table pre-clipped to [0, N).
 
 The TPU-only eligibility gate ``_hop_shape_ok`` (VMEM and lane alignment)
-has no Hopper meaning and is not ported: the fused and XLA hops are
-bit-identical in the reference, so dropping it changes no result.
+has no Hopper meaning and is not ported. Its place is taken by
+:func:`_fused_shape_ok`, the shapes the Hopper kernels take: the fused and
+XLA hops are bit-identical in the reference, so routing a shape to either
+changes no result.
 """
 
 from __future__ import annotations
@@ -29,6 +31,16 @@ from .bits import I32, exclusive_prefix_or, pack_words, popcount, \
 
 U8 = torch.uint8
 _MAXW = 8          # csrc/*.cu MAXW: packed words per row held in registers
+# csrc/iwant_resolve.cu TILE_MAX: the bytes of a block's count tile, which
+# holds (2T+1) * K uint8 counts per receiver, at least one receiver's
+_RESOLVE_TILE_MAX = 32 * 1024
+
+
+def _fused_shape_ok(w: int, t: int, k: int) -> bool:
+    """The shapes the fused hop and IWANT-resolve kernels take: W packed
+    words per row in registers, and one receiver's (2T+1) * K counts in the
+    resolve's tile. The wrappers refuse the rest from the same constants."""
+    return w <= _MAXW and (2 * t + 1) * k <= _RESOLVE_TILE_MAX
 
 
 def emit_slot_bytes(k: int) -> int:
@@ -81,27 +93,46 @@ def _hop_config_ok(cfg) -> bool:
 _HOP_MODES = ("auto", "xla", "pallas", "pallas-mxu")
 
 
+def _words(cfg) -> int:
+    return (cfg.msg_window + 31) // 32
+
+
 def resolve_hop_mode(cfg) -> str:
     """The forwarding hop and IWANT resolve: ``"pallas"`` (the fused
     kernels) or ``"xla"`` (the non-fused data path of ops/propagate.py).
     ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused kernels
-    when :func:`_hop_config_ok` holds, else the non-fused path; ``"xla"``
-    always takes the non-fused path (hopkernel.py:112-140 with no shape
-    gate). ``"pallas-mxu"`` differs from ``"pallas"`` in the reference only
-    by the in-kernel gather formulation, so it runs the same kernels."""
+    when :func:`_hop_config_ok` holds and the config's shapes fit them
+    (:func:`_fused_shape_ok` of W = ceil(msg_window / 32), n_topics and
+    k_slots), else the non-fused path; ``"xla"`` always takes the
+    non-fused path. The choice reads the config alone, never the device,
+    so the CPU runs the formulation the card runs.
+
+    The reference sends ``"auto"`` to its dispatch table, which ships
+    ``"xla"`` (hopkernel.py:112-140); the port's ``"auto"`` takes the
+    fused kernels where they fit. The two paths are bit-identical
+    (hopkernel.py:15-17), so the trajectories agree. ``"pallas-mxu"``
+    differs from ``"pallas"`` in the reference only by the in-kernel
+    gather formulation, so it runs the same kernels."""
     if cfg.hop_mode not in _HOP_MODES:
         raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
-    if cfg.hop_mode != "xla" and _hop_config_ok(cfg):
+    if cfg.hop_mode != "xla" and _hop_config_ok(cfg) \
+            and _fused_shape_ok(_words(cfg), cfg.n_topics, cfg.k_slots):
         return "pallas"
     return "xla"
 
 
 def resolve_emit_mode(cfg) -> str:
     """The IHAVE->IWANT chooser: the fused :func:`emit` kernel under every
-    hop_mode but ``"xla"``, whatever the config (hopkernel.py:143-169)."""
+    hop_mode but ``"xla"`` where W = ceil(msg_window / 32) fits its
+    registers (M <= 32 W always holds), whatever the rest of the config;
+    else the non-fused emit (hopkernel.py:143-169). As for the hop, the
+    choice reads the config alone, and the port's ``"auto"`` takes the
+    kernel where the reference's dispatch table ships ``"xla"``."""
     if cfg.hop_mode not in _HOP_MODES:
         raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
-    return "xla" if cfg.hop_mode == "xla" else "pallas"
+    if cfg.hop_mode == "xla" or _words(cfg) > _MAXW:
+        return "xla"
+    return "pallas"
 
 
 def _expand_topic(planes_u8: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
@@ -236,8 +267,9 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     [W, N] sender answer table (malicious columns zeroed); have/vm/inv_n:
     [W, N] receiver tables; alive: [W, 1]; data_ok_u8: [N, K] uint8
     graylist admission; topic_bits: [T, W]; nbr pre-clipped. The kernel
-    takes any K up to its tile of counts, (2T+1) * K <= 32768; W > 8 and
-    M > 32 W are refused here."""
+    takes W <= 8 and any K up to its tile of counts, (2T+1) * K <= 32768
+    (:func:`_fused_shape_ok`); other shapes and M > 32 W are refused here,
+    before any launch."""
     args = (pend, answers, have, vm, inv_n, alive, data_ok_u8, topic_bits,
             nbr)
     if not cudalib.use_kernel("iwant_resolve", *args):
@@ -245,9 +277,10 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     w, n_src = answers.shape
     n, k = nbr.shape
     t = topic_bits.shape[0]
-    if w > _MAXW or m > 32 * w:
-        raise ValueError(f"iwant_resolve: W={w}, M={m} outside the kernel's "
-                         f"W<={_MAXW}, M<=32W")
+    if not _fused_shape_ok(w, t, k) or m > 32 * w:
+        raise ValueError(f"iwant_resolve: W={w}, M={m}, T={t}, K={k} outside "
+                         f"the kernel's W<={_MAXW}, M<=32W, (2T+1)K<="
+                         f"{_RESOLVE_TILE_MAX}")
     wn = (w, n)
     cudalib.check_args("iwant_resolve", [
         ("pend", pend, I32, (n, m)), ("answers", answers, I32, (w, n_src)),

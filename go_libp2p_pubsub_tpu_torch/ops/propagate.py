@@ -11,7 +11,7 @@ resolve_emit_mode exactly where the reference chooses:
 
 - the fused path: the resolve, each hop and the emit are one kernel each
   (ops/hopkernel.py); it takes configs without gater, queue caps,
-  provenance or flood publish;
+  provenance or flood publish, at W = ceil(msg_window / 32) <= 8 words;
 - the non-fused path: the reference's XLA formulation op for op — the
   per-slot ask sets of ``_slot_bitplanes``, one words gather per hop
   (``gw``: ops/bits.gather_words_rows, kernel ``gather_words`` or the flat
@@ -19,7 +19,7 @@ resolve_emit_mode exactly where the reference chooses:
   peer gater's admission and stats, and the emit through
   ``_bits_to_slot`` / ``_budgeted_iwant``.
 
-The emit is fused under every hop_mode but ``"xla"``. Edge queue caps,
+The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8. Edge queue caps,
 flood publish, provenance and the floodsub/randomsub routers are a later
 slice and raise NotImplementedError; so is the fault plane, whose
 link/dup/censor inputs ``forward_tick`` does not take yet.
@@ -51,6 +51,8 @@ from .hopkernel import emit, hop, iwant_resolve, resolve_emit_mode, \
 from .score_ops import decayed
 
 U8 = torch.uint8
+# the per-(topic, slot, receiver) hop-count accumulators (propagate.py:361-372)
+_COUNT_DTYPES = {"uint8": U8, "int32": I32}
 _LATER = "is not ported yet (ROADMAP.md, Queue 1 item 1)"
 
 
@@ -205,9 +207,9 @@ class _Traffic(NamedTuple):
     have: torch.Tensor            # [W, N]
     dlv: torch.Tensor             # [W, N]
     behaviour_penalty: torch.Tensor  # [N, K] f32, broken promises added
-    nv: torch.Tensor              # [T, K, N] uint8 first deliveries
-    ni: torch.Tensor              # [T, K, N] uint8 invalid deliveries
-    dup: torch.Tensor             # [T, K, N] uint8 mesh duplicates
+    nv: torch.Tensor              # [T, K, N] first deliveries (count dtype)
+    ni: torch.Tensor              # [T, K, N] invalid deliveries
+    dup: torch.Tensor             # [T, K, N] mesh duplicates
     gater: dict | None            # ig, gdup, validated, throttled
 
 
@@ -250,17 +252,19 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
                  dlv_bits, answer_bits, gw, answers_k) -> _Traffic:
     """Resolve and hops in the non-fused formulation (propagate.py:425-483
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
-    hop, the validation-queue cap and the gater's stats."""
+    hop, the validation-queue cap and the gater's stats. Counts are kept in
+    ``cfg.count_dtype`` (uint8 wraps as the reference's uint8 adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
+    cdt = _COUNT_DTYPES[cfg.count_dtype]
     cap = cfg.validation_queue_cap
     gater = cfg.gater_enabled
 
     def topic_counts(events):
-        """[W, K, N] event words -> [T, K, N] uint8 per-topic counts."""
+        """[W, K, N] event words -> [T, K, N] per-topic counts."""
         return torch.stack([
             popcount_sum(events & tb.topic_bits[ti][:, None, None], axis=0,
-                         dtype=U8) for ti in range(t)])
+                         dtype=cdt) for ti in range(t)])
 
     # -- step 1: last tick's IWANTs (gossipsub.go:698-739); pulled data is
     # still data, so graylist, gater and the validation budget apply
@@ -297,10 +301,10 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     dlv_new = got_valid_any
     nv = topic_counts(got_valid)
     ni = topic_counts(got_k & tb.inv_n[:, None, :])
-    dup = torch.zeros((t, k, n), dtype=U8, device=have_bits.device)
+    dup = torch.zeros((t, k, n), dtype=cdt, device=have_bits.device)
     if gater:
-        ig = popcount_sum(got_k & tb.ign_n[:, None, :], axis=0, dtype=U8)
-        gdup = torch.zeros((k, n), dtype=U8, device=have_bits.device)
+        ig = popcount_sum(got_k & tb.ign_n[:, None, :], axis=0, dtype=cdt)
+        gdup = torch.zeros((k, n), dtype=cdt, device=have_bits.device)
     i = 0
     # the early exit reads the frontier on the host once per hop
     while i < cfg.prop_substeps and bool((frontier != 0).any()):
@@ -332,12 +336,12 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
         dup = dup + topic_counts(offered & mesh_eb & elig[:, None, :])
         if gater:
             ig = ig + popcount_sum(new_from_k & tb.ign_n[:, None, :],
-                                   axis=0, dtype=U8)
+                                   axis=0, dtype=cdt)
             # seen-cache hits: offers of a message already seen or won by
             # another slot this hop (pubsub.go:1145-1148)
             gdup = gdup + popcount_sum(
                 offered & ~new_from_k & (have_bits | new_any)[:, None, :],
-                axis=0, dtype=U8)
+                axis=0, dtype=cdt)
         frontier = new_valid
         have_bits = have_bits | new_any
         dlv_bits = dlv_bits | new_valid
@@ -359,10 +363,6 @@ def _check_path(cfg: SimConfig) -> None:
     for refused, what in refusals:
         if refused:
             raise NotImplementedError(f"forward_tick with {what} {_LATER}")
-    if cfg.count_dtype != "uint8":
-        raise NotImplementedError(
-            f"count_dtype={cfg.count_dtype!r} is not ported yet (ROADMAP.md, "
-            "Queue 1 item 3)")
 
 
 def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
@@ -381,9 +381,14 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     _check_path(cfg)
     n, t, k = state.mesh.shape
     m = cfg.msg_window
-    if m > 255:
-        raise ValueError(f"msg_window={m} > 255 would wrap the uint8 "
-                         "hop-count accumulators")
+    cdt = _COUNT_DTYPES.get(cfg.count_dtype)
+    if cdt is None:
+        raise ValueError(f"count_dtype={cfg.count_dtype!r}: only 'uint8' and "
+                         "'int32' are supported")
+    if m > torch.iinfo(cdt).max:
+        raise ValueError(f"msg_window={m} > {torch.iinfo(cdt).max} would wrap "
+                         f"the {cfg.count_dtype} hop-count accumulators; "
+                         "shrink the window or widen count_dtype")
     w = (m + 31) // 32
     _, k_gate = rng.split(key, 2)
     dev = state.mesh.device

@@ -13,9 +13,12 @@ the reference's explicit-mode rules with no TPU shape gate):
 - ``hop_mode``: ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused
   hop and IWANT-resolve kernels when ``_hop_config_ok(cfg)`` holds (no
   gater, queue caps, provenance, flood publish or fault inputs) and the
-  non-fused data path of ops/propagate.py otherwise; the IHAVE emit is the
-  fused kernel under all three, whatever the config. ``"xla"`` takes the
-  non-fused resolve, hops and emit. ``"pallas-mxu"`` differs from
+  shapes fit the kernels (``_fused_shape_ok``: W = ceil(msg_window / 32)
+  <= 8 and (2 n_topics + 1) k_slots <= 32768), and the non-fused data path
+  of ops/propagate.py otherwise; the IHAVE emit is the fused kernel under
+  all three wherever W <= 8, whatever the rest of the config. ``"xla"``
+  takes the non-fused resolve, hops and emit. The choice reads the config
+  alone, never the device. ``"pallas-mxu"`` differs from
   ``"pallas"`` in the reference only by its in-kernel gather, so on Hopper
   it runs the same kernels.
 - ``edge_gather_mode``: ``"auto"`` and ``"pallas"`` route the bit-table

@@ -42,8 +42,9 @@ def check_slice(cfg: SimConfig) -> None:
     the gossipsub step with scoring, the peer gater, the validation-queue
     cap and connection churn with PX, on the fused kernels or the non-fused
     data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in the
-    ``pallas`` or ``mxu`` gather formulation, with recorded invariants and
-    the host key schedule. Each refusal names the queue item that lifts it."""
+    ``pallas`` or ``mxu`` gather formulation, uint8 or int32 hop counts
+    (int32 on the non-fused path), with recorded invariants and the host
+    key schedule. Each refusal names the queue item that lifts it."""
     refusals = [
         (cfg.fault_plan is not None, "fault_plan", 1),
         (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
@@ -55,7 +56,6 @@ def check_slice(cfg: SimConfig) -> None:
         (cfg.invariant_mode != "record",
          f"invariant_mode={cfg.invariant_mode!r}", 2),
         (cfg.key_schedule != "host", f"key_schedule={cfg.key_schedule!r}", 2),
-        (cfg.count_dtype != "uint8", f"count_dtype={cfg.count_dtype!r}", 3),
         (cfg.state_precision != "f32",
          f"state_precision={cfg.state_precision!r}", 5),
         (cfg.degree_buckets is not None, "degree_buckets", 8),

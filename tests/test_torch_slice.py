@@ -197,7 +197,7 @@ def test_step_refuses_configs_outside_the_slice():
     for over in (dict(sub_leave_prob=0.1), dict(router="floodsub"),
                  dict(flood_publish=True), dict(record_provenance=True),
                  dict(edge_queue_cap=4), dict(invariant_mode="raise"),
-                 dict(key_schedule="fold_in"), dict(count_dtype="int32"),
+                 dict(key_schedule="fold_in"),
                  dict(edge_gather_mode="sort"),
                  dict(edge_gather_mode="scalar")):
         with pytest.raises(NotImplementedError, match=r"Queue 1 item \d"):
