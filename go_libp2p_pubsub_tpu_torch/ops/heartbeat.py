@@ -40,7 +40,7 @@ def edge_gather(x: torch.Tensor, state: SimState, fill=False,
     if x.dtype != torch.bool or fill is not False:
         raise NotImplementedError(
             f"edge_gather of a {x.dtype} plane with fill={fill!r} is not "
-            "ported yet (ROADMAP.md, Queue 1 item 1)")
+            "ported yet (ROADMAP.md, Queue 1 item 2)")
     return edge_gather_packed([x], state, mode)[0][0]
 
 

@@ -79,7 +79,8 @@ def record_flags(state: SimState, cfg: SimConfig) -> SimState:
     if cfg.invariant_mode != "record":
         raise NotImplementedError(
             f"invariant_mode={cfg.invariant_mode!r}: the port records flags "
-            "only; 'raise' and 'off' are a later slice")
+            "only; 'raise' and 'off' are not ported yet (ROADMAP.md, "
+            "Queue 1 item 2)")
     return state._replace(
         fault_flags=state.fault_flags | violation_flags(state, cfg))
 

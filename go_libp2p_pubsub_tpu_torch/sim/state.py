@@ -120,7 +120,8 @@ def init_state(cfg: SimConfig, topo: Topology,
     if cfg.state_precision != "f32":
         raise NotImplementedError(
             f"state_precision={cfg.state_precision!r}: the port carries the "
-            "f32 layout only (the compact codecs are a later slice)")
+            "f32 layout only (the compact codecs: ROADMAP.md, Queue 1 "
+            "item 5)")
     dev = resolve_device(device)
     n, k, t, m = cfg.n_peers, cfg.k_slots, cfg.n_topics, cfg.msg_window
     if subscribed is None:

@@ -255,7 +255,7 @@ def test_edge_gather_equal(mid, gather):
     for i, (a, b) in enumerate(zip(want, got)):
         _same(a, b, f"packed mask {i}")
     vals = rng_np.standard_normal(shape).astype(np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         edge_gather(torch.from_numpy(vals), st, fill=-1.0, mode=gather)
 
 
