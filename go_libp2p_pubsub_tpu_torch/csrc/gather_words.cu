@@ -18,29 +18,38 @@
 // 50 MB L2, a word-major table made each lookup touch W sectors, and
 // reading nbr[n][k] with a stride of K across a warp touched one more.
 //
-// Design: a block owns BN = 32 receivers. It stages their nbr rows, one
-// contiguous [BN, K] run, into shared memory with 4-byte cp.async copies,
-// a warp per row (whole 128-byte rows at K = 32), padded to K + 1 words a
-// row so that the transposed read below is free of bank conflicts. Each
-// source row is read as W / VW vectors of VW = 4, 2 or 1 words (the widest
-// that W and the table's address allow), one lane per vector: the block is
-// (bx, BN, bz) threads with bx = min(W / VW, 8) and bz = min(512 / (32 *
-// bx), ceil(K / ILP)), so that every z has slots to take. A warp reads
-// whole rows, one sector request per row while 4*W <= 32, and writes each
+// Design: a block owns BN = 32 receivers. It stages their nbr rows into
+// shared memory with 4-byte cp.async copies, a warp per row, one chunk of
+// at most KC slots at a time, into a [BN, KC + 1] tile (padded a word a
+// row so that the transposed read below is free of bank conflicts). For
+// each chunk it waits for the copies, syncs, gathers the chunk's slots and
+// syncs again before the next chunk overwrites the tile. Each source row
+// is read as W / VW vectors of VW = 4, 2 or 1 words (the widest that W and
+// the table's address allow), one lane per vector: the block is (bx, BN,
+// bz) threads with bx = min(W / VW, 8) and bz = min(512 / (32 * bx),
+// ceil(KC / ILP)), so that every z has slots to take. A warp reads whole
+// rows, one sector request per row while 4*W <= 32, and writes each
 // out[w][k] as a run of consecutive n (at W = 2 one lane reads its
 // source's row as one 8-byte load and a warp stores two 128-byte runs).
 // Thread z takes ILP slots at a time, issuing their loads before any
-// store. The staged tile is 32 * (K + 1) * 4 bytes of dynamic shared
-// memory, so K is at most 383 (48 KB); the launcher refuses a larger K
-// with cudaErrorInvalidValue. Nothing is allocated here; the launcher runs
-// on the caller's stream and returns cudaGetLastError().
+// store.
+//
+// The tile is dynamic shared memory within the 48 KB a block has without
+// an opt-in. A K up to TILE_K = 383 is one chunk, KC = K: the tile is
+// 32 * (K + 1) * 4 bytes (48 KB at K = 383), whole rows staged at once.
+// A larger K goes in chunks of KC = 382 slots, the last one ragged: the
+// tile is 32 * 383 * 4 = 49,024 bytes, and its odd pitch keeps the
+// transposed read free of bank conflicts. So any K runs. Nothing is
+// allocated here; the launcher runs on the caller's stream and returns
+// cudaGetLastError().
 
 #include "gather_rows.cuh"
 
 constexpr int BN = 32;        // receivers per block
 constexpr int ILP = 4;        // slots in flight per thread
 constexpr int THREADS = 512;  // per block, at most
-constexpr size_t SMEM_MAX = 48 * 1024;  // dynamic shared memory, no opt-in
+constexpr int TILE_K = 383;   // the largest K staged as one chunk (48 KB)
+constexpr int CHUNK_K = 382;  // slots per chunk beyond it (odd pitch 383)
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
@@ -49,84 +58,94 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                : "memory");
 }
 
+// Slots per staged chunk: all of K up to TILE_K, else CHUNK_K.
+static inline int chunk_slots(int k) { return k <= TILE_K ? k : CHUNK_K; }
+
 template <int VW>
 __global__ void gather_words_kernel(const uint32_t* __restrict__ x,
                                     const int32_t* __restrict__ nbr,
                                     uint32_t* __restrict__ out, int n, int k,
-                                    int w) {
+                                    int w, int kc) {
   typedef typename Vec<VW>::T V;
-  extern __shared__ int32_t tile[];  // [BN][k + 1]
-  const int ld = k + 1;
+  extern __shared__ int32_t tile[];  // [BN][kc + 1]
+  const int ld = kc + 1;
   const int n0 = blockIdx.x * BN;
   const int rows = min(BN, n - n0);
   const int tid =
       threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
   const int lane = tid & 31;
   const int nwarps = blockDim.x * blockDim.y * blockDim.z / 32;
-  for (int row = tid >> 5; row < rows; row += nwarps) {
-    for (int c = lane; c < k; c += 32) {
-      cp_async4(tile + row * ld + c, nbr + (long long)(n0 + row) * k + c);
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-
   const int i = threadIdx.y;
-  if (i >= rows) return;
   const int nvec = w / VW;
   const long long plane = (long long)k * n;
-  for (int s0 = threadIdx.z * ILP; s0 < k; s0 += blockDim.z * ILP) {
-    long long j[ILP];
-#pragma unroll
-    for (int u = 0; u < ILP; ++u) {
-      j[u] = s0 + u < k ? (long long)tile[i * ld + s0 + u] : -1;
-    }
-    for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
-      const int w0 = q * VW;
-      V v[ILP];
-#pragma unroll
-      for (int u = 0; u < ILP; ++u) {
-        if (j[u] >= 0) {
-          v[u] = __ldg(reinterpret_cast<const V*>(x + j[u] * w + w0));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < ILP; ++u) {
-        if (j[u] < 0) continue;
-        const uint32_t* c = reinterpret_cast<const uint32_t*>(&v[u]);
-#pragma unroll
-        for (int e = 0; e < VW; ++e) {
-          out[(w0 + e) * plane + (long long)(s0 + u) * n + n0 + i] = c[e];
-        }
+  for (int c0 = 0; c0 < k; c0 += kc) {
+    const int cn = min(kc, k - c0);  // this chunk's slots
+    for (int row = tid >> 5; row < rows; row += nwarps) {
+      for (int c = lane; c < cn; c += 32) {
+        cp_async4(tile + row * ld + c,
+                  nbr + (long long)(n0 + row) * k + c0 + c);
       }
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    if (i < rows) {
+      for (int s0 = threadIdx.z * ILP; s0 < cn; s0 += blockDim.z * ILP) {
+        long long j[ILP];
+#pragma unroll
+        for (int u = 0; u < ILP; ++u) {
+          j[u] = s0 + u < cn ? (long long)tile[i * ld + s0 + u] : -1;
+        }
+        for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
+          const int w0 = q * VW;
+          V v[ILP];
+#pragma unroll
+          for (int u = 0; u < ILP; ++u) {
+            if (j[u] >= 0) {
+              v[u] = __ldg(reinterpret_cast<const V*>(x + j[u] * w + w0));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < ILP; ++u) {
+            if (j[u] < 0) continue;
+            const uint32_t* c = reinterpret_cast<const uint32_t*>(&v[u]);
+#pragma unroll
+            for (int e = 0; e < VW; ++e) {
+              out[(w0 + e) * plane + (long long)(c0 + s0 + u) * n + n0 + i] =
+                  c[e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the tile
   }
 }
 
 template <int VW>
 static void launch(const void* x, const void* nbr, void* out, int n, int k,
-                   int w, size_t smem, cudaStream_t stream) {
+                   int w, int kc, cudaStream_t stream) {
   const int nvec = w / VW;
   const int bx = nvec < 8 ? nvec : 8;
-  const int slots = (k + ILP - 1) / ILP;
+  const int slots = (kc + ILP - 1) / ILP;
   int bz = THREADS / (BN * bx);
   bz = bz < slots ? bz : slots;
   const dim3 block(bx, BN, bz > 0 ? bz : 1);
   const unsigned blocks = (unsigned)((n + BN - 1) / BN);
+  const size_t smem = (size_t)BN * (kc + 1) * sizeof(int32_t);  // <= 48 KB
   gather_words_kernel<VW><<<blocks, block, smem, stream>>>(
-      (const uint32_t*)x, (const int32_t*)nbr, (uint32_t*)out, n, k, w);
+      (const uint32_t*)x, (const int32_t*)nbr, (uint32_t*)out, n, k, w, kc);
 }
 
 extern "C" int gather_words_launch(const void* x, const void* nbr, void* out,
                                    int n, int k, int w, void* stream) {
   if (n > 0 && k > 0 && w > 0) {
-    const size_t smem = (size_t)BN * (k + 1) * sizeof(int32_t);
-    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const int kc = chunk_slots(k);
     const cudaStream_t s = (cudaStream_t)stream;
     switch (vector_words(x, w)) {
-      case 4: launch<4>(x, nbr, out, n, k, w, smem, s); break;
-      case 2: launch<2>(x, nbr, out, n, k, w, smem, s); break;
-      default: launch<1>(x, nbr, out, n, k, w, smem, s);
+      case 4: launch<4>(x, nbr, out, n, k, w, kc, s); break;
+      case 2: launch<2>(x, nbr, out, n, k, w, kc, s); break;
+      default: launch<1>(x, nbr, out, n, k, w, kc, s);
     }
   }
   return (int)cudaGetLastError();

@@ -145,11 +145,6 @@ def _edge_table_mxu(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
 
 # --- the words gather (permgather.py:_gather_words_pallas) ------------------
 
-# csrc/gather_words.cu stages a [32, K + 1] int32 tile of nbr in 48 KB of
-# dynamic shared memory
-GATHER_WORDS_MAX_K = 48 * 1024 // (32 * 4) - 1
-
-
 def _check_words(x_w, nbr):
     for name, x in (("x_w", x_w), ("nbr", nbr)):
         if x.dtype != I32 or x.dim() != 2:
@@ -169,7 +164,8 @@ def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
     words, ``nbr`` [N, K] int32 pre-clipped to [0, N_src); returns the
     k-major receiver view [W, K, N]. On the card the kernel reads the table
     interleaved into n-major rows (``x_w.T.contiguous()``, 0.4 MB at [2,
-    51200]), a source's W words in one 32-byte L2 sector. ``mode="mxu"``
+    51200]), a source's W words in one 32-byte L2 sector, and stages
+    ``nbr`` in chunks of slots, so it takes any K. ``mode="mxu"``
     routes it through the flat take at k-major ``idx = nbr.T.reshape(-1)``
     (permgather.py:462-470)."""
     if mode == "mxu":
@@ -186,10 +182,6 @@ def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
     n, k = nbr.shape
     cudalib.check_args("gather_words", [("x_w", x_w, I32, (w, n_src)),
                                         ("nbr", nbr, I32, (n, k))])
-    if k > GATHER_WORDS_MAX_K:
-        raise ValueError(f"gather_words: K={k} slots exceed the kernel's "
-                         f"{GATHER_WORDS_MAX_K}: its staged [32, K + 1] int32 "
-                         "nbr tile must fit 48 KB of shared memory")
     rows = x_w.T.contiguous()                              # [N_src, W]
     out = torch.empty((w, k, n), dtype=I32, device=x_w.device)
     cudalib.launch("gather_words", rows, nbr, out, n, k, w)

@@ -197,6 +197,22 @@ def test_gather_words_kernel_equals_plain(w, n_src, n, k):
     assert torch.equal(got[0], want[0])
 
 
+# K = 383 is one staged chunk of nbr (a 48 KB tile); beyond it the kernel
+# stages chunks of 382 slots: two with a short second one, several, and a
+# last one of a single slot
+@pytest.mark.parametrize("k", [383, 384, 512, 1000, 765])
+@pytest.mark.parametrize("w", [2, 3])
+def test_gather_words_kernel_any_k_equals_plain(w, k):
+    _need_card()
+    n = 1001
+    g = torch.Generator().manual_seed(90 + k + w)
+    d = dict(x=pack_bool(torch.rand(w, n, 32, generator=g) < 0.5)[..., 0],
+             nbr=torch.randint(0, n, (n, k), generator=g, dtype=torch.int32))
+    d["nbr"][0, 0], d["nbr"][-1, -1] = 0, n - 1
+    got, want = _both(pg.gather_words, d, ["x", "nbr"])
+    assert got[0].shape == (w, k, n) and torch.equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_permutation_gather_kernel_equals_plain(dtype):
     _need_card()

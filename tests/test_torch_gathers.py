@@ -217,6 +217,34 @@ def test_gather_wrappers_refuse_other_devices_and_types():
         mt.take_words(cpu, torch.zeros(4, dtype=torch.int64))
 
 
+GARBAGE = 0x5A5A5A5A              # fill of memory a kernel must write
+GW_BN, GW_TILE_K, GW_CHUNK_K = 32, 383, 382   # csrc/gather_words.cu
+SMEM_NO_OPT_IN = 48 * 1024
+
+
+def _emulated_gather_words(tab, nbr, out, n, k, w):
+    """csrc/gather_words.cu: a block of BN receivers stages its nbr rows
+    into a [BN, KC + 1] tile one chunk of slots at a time (KC = K up to
+    383, else 382) and gathers each chunk's slots from the tile; the tile
+    keeps the previous chunk's words where this one is shorter."""
+    kc = k if k <= GW_TILE_K else GW_CHUNK_K               # chunk_slots
+    ld = kc + 1
+    assert GW_BN * ld * 4 <= SMEM_NO_OPT_IN                # no opt-in
+    assert k <= GW_TILE_K or ld % 2 == 1                   # odd pitch
+    flat = tab.reshape(-1)
+    out.fill_(GARBAGE)
+    rows = torch.arange(n)
+    blk, i = rows // GW_BN, rows % GW_BN
+    tile = torch.full((-(-n // GW_BN), GW_BN * ld), GARBAGE, dtype=torch.int32)
+    for c0 in range(0, k, kc):
+        cn = min(kc, k - c0)
+        at = (blk[:, None], i[:, None] * ld + torch.arange(cn))
+        tile[at] = nbr[:, c0:c0 + cn]                      # cp.async stage
+        j = tile[at].long()                                # [N, cn]
+        src = j.T[None] * w + torch.arange(w)[:, None, None]
+        out[:, c0:c0 + cn, :] = flat[src]                  # [W, cn, N]
+
+
 def _emulated_launch(name, *args):
     """The two gather kernels' documented addressing, in PyTorch: what
     csrc/take_words.cu and csrc/gather_words.cu write from the n-major
@@ -232,10 +260,16 @@ def _emulated_launch(name, *args):
     elif name == "gather_words":
         tab, nbr, out, n, k, w = args
         assert tab.shape[1] == w and tab.is_contiguous()
-        src = nbr.long().T[None] * w + torch.arange(w)[:, None, None]
-        out.copy_(tab.reshape(-1)[src])                    # [W, K, N]
+        _emulated_gather_words(tab, nbr, out, n, k, w)
     else:
         raise AssertionError(f"unexpected kernel {name}")
+
+
+def _kernel_route(monkeypatch):
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    monkeypatch.setattr(cudalib, "use_kernel", lambda name, *t: True)
+    monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
+    monkeypatch.setattr(cudalib, "launch", _emulated_launch)
 
 
 @pytest.mark.parametrize("w", [1, 2, 3, 10])
@@ -243,10 +277,7 @@ def test_wrapper_layouts_equal_reference(w, monkeypatch):
     """The wrappers' layout logic on the kernel route (the interleave into
     rows, the strides, the n-major concatenation and the output views)
     with the kernels' addressing emulated, against the JAX package."""
-    from go_libp2p_pubsub_tpu_torch.ops import cudalib
-    monkeypatch.setattr(cudalib, "use_kernel", lambda name, *t: True)
-    monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
-    monkeypatch.setattr(cudalib, "launch", _emulated_launch)
+    _kernel_route(monkeypatch)
     n, k, r = 1001, 7, 777
     rng = np.random.default_rng(90 + w)
     x_w = _words(rng, w, n)
@@ -282,22 +313,19 @@ def test_wrapper_layouts_equal_reference(w, monkeypatch):
     _same(want, mt.take_payload(_t(payload), _t(jn), _t(rk)), "take_payload")
 
 
-def test_gather_words_refuses_k_beyond_its_tile(monkeypatch):
-    """On the kernel route a K whose staged nbr tile exceeds 48 KB of shared
-    memory is refused with a clear error before any launch; the largest K
-    that fits goes through."""
-    from go_libp2p_pubsub_tpu_torch.ops import cudalib
-    monkeypatch.setattr(cudalib, "use_kernel", lambda name, *t: True)
-    monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
-    monkeypatch.setattr(cudalib, "launch", _emulated_launch)
-    k_max = pg.GATHER_WORDS_MAX_K
-    assert 32 * (k_max + 1) * 4 <= 48 * 1024 < 32 * (k_max + 2) * 4
+# one chunk at its largest (the 48 KB tile), two chunks with a short
+# second one, several, and a last chunk of one slot
+@pytest.mark.parametrize("k", [383, 384, 512, 1000, 765])
+def test_gather_words_takes_any_k_in_chunks(monkeypatch, k):
+    """On the kernel route a K whose nbr rows do not fit one staged tile
+    goes through in chunks of slots, with no refusal, equal to the plain
+    version (held to the JAX package's Pallas kernel above)."""
+    _kernel_route(monkeypatch)
     n = 40
-    rng = np.random.default_rng(7)
-    x_w = _t(_words(rng, 2, n))
-    nbr = _t(rng.integers(0, n, size=(n, k_max), dtype=np.int32))
-    assert torch.equal(pg.gather_words(x_w, nbr),
-                       pg.gather_words_plain(x_w, nbr))
-    nbr = _t(rng.integers(0, n, size=(n, k_max + 1), dtype=np.int32))
-    with pytest.raises(ValueError, match="shared memory"):
-        pg.gather_words(x_w, nbr)
+    rng = np.random.default_rng(k)
+    x_w = _words(rng, 2, n)
+    nbr = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    nbr[0, 0], nbr[-1, -1] = 0, n - 1
+    got = pg.gather_words(_t(x_w), _t(nbr))
+    assert got.shape == (2, k, n)
+    assert torch.equal(got, pg.gather_words_plain(_t(x_w), _t(nbr)))
