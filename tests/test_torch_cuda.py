@@ -213,6 +213,36 @@ def test_gather_words_kernel_any_k_equals_plain(w, k):
     assert got[0].shape == (w, k, n) and torch.equal(got[0], want[0])
 
 
+def _at_offset(x, ofs):
+    """``x`` copied into a buffer at a storage offset of ``ofs`` elements:
+    on the card, an address no multiple of 16 bytes when ofs is odd."""
+    buf = torch.empty(x.numel() + ofs, dtype=x.dtype, device=x.device)
+    view = buf[ofs:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# N*K a multiple of 4 (four edges a thread) and not (the scalar tail); jn,
+# rk and out at a storage offset of one element (every edge one at a time)
+@pytest.mark.parametrize("n,k,ofs", [(N, K, 0), (1001, 7, 0), (N, K, 1),
+                                     (1001, 7, 1)])
+def test_permutation_gather_kernel_shapes_equal_plain(n, k, ofs):
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    g = torch.Generator().manual_seed(55 + k + ofs)
+    payload = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, k), generator=g,
+                            dtype=torch.int32).cuda()
+    jn = torch.randint(0, n, (n, k), generator=g, dtype=torch.int32).cuda()
+    rk = torch.randint(0, k, (n, k), generator=g, dtype=torch.int32).cuda()
+    jn, rk = _at_offset(jn, ofs), _at_offset(rk, ofs)
+    want = pg.permutation_gather_plain(payload, jn, rk)
+    assert torch.equal(pg.permutation_gather(payload, jn, rk), want)
+    out = _at_offset(torch.zeros_like(want), ofs)
+    cudalib.launch("permutation_gather", payload, jn, rk, out, n, k, k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_permutation_gather_kernel_equals_plain(dtype):
     _need_card()

@@ -220,6 +220,7 @@ def test_gather_wrappers_refuse_other_devices_and_types():
 GARBAGE = 0x5A5A5A5A              # fill of memory a kernel must write
 GW_BN, GW_TILE_K, GW_CHUNK_K = 32, 383, 382   # csrc/gather_words.cu
 SMEM_NO_OPT_IN = 48 * 1024
+PATHS = []                        # permutation_gather: "vector" / "scalar"
 
 
 def _emulated_gather_words(tab, nbr, out, n, k, w):
@@ -245,10 +246,29 @@ def _emulated_gather_words(tab, nbr, out, n, k, w):
         out[:, c0:c0 + cn, :] = flat[src]                  # [W, cn, N]
 
 
+def _emulated_permutation_gather(payload, jn, rk, out, n, k, k_src):
+    """csrc/permutation_gather.cu: where jn, rk and out are 16-byte
+    aligned a thread takes four edges (one 16-byte load of each of jn and
+    rk, four payload reads, one 16-byte store) and the last N*K % 4 edges
+    go one at a time; otherwise every edge does."""
+    nk = n * k
+    vec = all(x.data_ptr() % 16 == 0 for x in (jn, rk, out))
+    PATHS.append("vector" if vec else "scalar")
+    flat, o = payload.reshape(-1), out.view(-1)
+    j, r = jn.reshape(-1).long(), rk.reshape(-1).long()
+    o.fill_(GARBAGE)
+    nv = nk // 4 if vec else 0
+    quads = (j[:4 * nv].view(nv, 4) * k_src + r[:4 * nv].view(nv, 4))
+    o[:4 * nv] = flat[quads].reshape(-1)                   # 4 edges a thread
+    tail = torch.arange(4 * nv, nk)
+    o[tail] = flat[j[tail] * k_src + r[tail]]              # one at a time
+
+
 def _emulated_launch(name, *args):
-    """The two gather kernels' documented addressing, in PyTorch: what
-    csrc/take_words.cu and csrc/gather_words.cu write from the n-major
-    [N_src, W] table and the output strides a wrapper passes them."""
+    """The gather kernels' documented addressing, in PyTorch: what
+    csrc/take_words.cu, csrc/gather_words.cu and
+    csrc/permutation_gather.cu write from the tables, indices and output
+    strides a wrapper passes them."""
     if name == "take_words":
         tab, idx, out, r, w, os_r, os_w = args
         assert tab.shape[1] == w and tab.is_contiguous()
@@ -261,6 +281,8 @@ def _emulated_launch(name, *args):
         tab, nbr, out, n, k, w = args
         assert tab.shape[1] == w and tab.is_contiguous()
         _emulated_gather_words(tab, nbr, out, n, k, w)
+    elif name == "permutation_gather":
+        _emulated_permutation_gather(*args)
     else:
         raise AssertionError(f"unexpected kernel {name}")
 
@@ -329,3 +351,48 @@ def test_gather_words_takes_any_k_in_chunks(monkeypatch, k):
     got = pg.gather_words(_t(x_w), _t(nbr))
     assert got.shape == (2, k, n)
     assert torch.equal(got, pg.gather_words_plain(_t(x_w), _t(nbr)))
+
+
+def _offset(a, ofs):
+    """``a`` as a CPU tensor whose data begins ``ofs`` elements into its
+    storage, so that its address is no multiple of 16 bytes when ofs is odd."""
+    t = _t(a)
+    buf = torch.empty(t.numel() + ofs, dtype=t.dtype)
+    view = buf[ofs:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# N*K a multiple of 4 and not (the scalar tail), aligned and at a storage
+# offset of one element (every edge one at a time)
+@pytest.mark.parametrize("n,k,ofs", [(256, 16, 0), (250, 7, 0), (256, 16, 1),
+                                     (61, 3, 1)])
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32])
+def test_permutation_gather_kernel_route_equals_pallas(monkeypatch, n, k,
+                                                       ofs, dtype):
+    """The payload permute on its kernel route, with csrc/
+    permutation_gather.cu's four edges a thread and scalar edges
+    emulated, against the JAX package's Pallas kernel and the plain
+    version; with ``ofs = 1`` the output too is written at an address no
+    multiple of 16 bytes."""
+    _kernel_route(monkeypatch)
+    rng = np.random.default_rng(n + k + ofs)
+    payload = _words(rng, n, k) if dtype == np.uint32 else \
+        rng.standard_normal((n, k)).astype(np.float32)
+    jn = rng.integers(0, n, size=(n, k), dtype=np.int32)
+    rk = rng.integers(0, k, size=(n, k), dtype=np.int32)
+    jn[0, 0], jn[-1, -1], rk[-1, -1] = 0, n - 1, k - 1
+    want = _gather_pallas(jnp.asarray(payload), jnp.asarray(jn),
+                          jnp.asarray(rk), interpret=True)
+    tj, tr = _offset(jn, ofs), _offset(rk, ofs)
+    PATHS.clear()
+    got = pg.permutation_gather(_t(payload), tj, tr)
+    _same(want, got, "permutation_gather")
+    assert torch.equal(got.view(torch.int32), pg.permutation_gather_plain(
+        _t(payload), tj, tr).view(torch.int32))
+    # the launch with an output at the same offset
+    out = _offset(np.zeros((n, k), np.int32), ofs)
+    _emulated_launch("permutation_gather", _t(payload).view(torch.int32),
+                     tj, tr, out, n, k, k)
+    _same(want, out.view(got.dtype), "permutation_gather, offset output")
+    assert PATHS == ["scalar" if ofs else "vector"] * 2
