@@ -12,66 +12,43 @@
 // Bound on an H100 (3.35 TB/s HBM): bytes. At N=51200, K=32 one call reads
 // jn, rk and the payload (3 x 6.6 MB) and writes out (6.6 MB): ~26 MB,
 // ~8 us. There is no arithmetic beyond addressing. Beside those bytes each
-// edge makes one random 4-byte payload read, served by the L2 (the 6.6 MB
-// payload stays in its 50 MB) at its rate for random requests, ~91-115 G
-// a second on an H100 80GB HBM3 at 700 W as measured for edge_table
-// (PERF.md): 1.64 M reads a call need ~14-18 us, so no design that makes
-// one L2 request an edge reaches the byte bound.
+// edge makes one random 4-byte payload read, served by the L2 at its rate
+// for random requests (~91-115 G a second on an H100 80GB HBM3 at 700 W,
+// as measured for edge_table, PERF.md): 1.64 M reads a call need ~14-18
+// us, so no design that makes one L2 request an edge reaches the bound.
 //
-// Design, as edge_table.cu's: a thread walks the edges four at a time. It
-// reads jn and rk as 16-byte vectors (streaming loads, so they do not
-// evict the payload from the L2), issues its four payload reads before it
-// uses any, and writes the four words as one 16-byte streaming store. So a
-// thread spends one instruction where the one-thread-per-edge kernel spent
-// four on each of jn, rk and out, and keeps four L2 requests in flight.
-// Where jn, rk or out is not 16-byte aligned, every edge goes one at a
-// time; the last N*K % 4 edges always do. Nothing is allocated here; the
-// launcher runs on the caller's stream and returns cudaGetLastError().
+// Design: one thread per flat (n, k) edge, so the jn/rk reads and the out
+// writes are coalesced, at any alignment and edge count. The payload is
+// read at random through the read-only cache; at 6.6 MB it stays in the
+// 50 MB L2 across blocks. edge_table.cu's design (four edges a thread,
+// 16-byte jn/rk loads and out stores, four payload reads in flight) was
+// measured 6% slower here at the churn shape (PERF.md) and dropped.
+// Nothing is allocated here; the launcher runs on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int THREADS = 256;
-
-__global__ void __launch_bounds__(THREADS)
-permutation_gather_kernel(const uint32_t* __restrict__ payload,
-                          const int32_t* __restrict__ jn,
-                          const int32_t* __restrict__ rk,
-                          uint32_t* __restrict__ out, long long nk, int k_src,
-                          int vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nvec = vec ? nk / 4 : 0;
-  for (long long v = tid; v < nvec; v += stride) {
-    const int4 j = __ldcs(reinterpret_cast<const int4*>(jn) + v);
-    const int4 r = __ldcs(reinterpret_cast<const int4*>(rk) + v);
-    uint4 o;
-    o.x = __ldg(payload + (long long)j.x * k_src + r.x);
-    o.y = __ldg(payload + (long long)j.y * k_src + r.y);
-    o.z = __ldg(payload + (long long)j.z * k_src + r.z);
-    o.w = __ldg(payload + (long long)j.w * k_src + r.w);
-    __stcs(reinterpret_cast<uint4*>(out) + v, o);
-  }
-  for (long long e = 4 * nvec + tid; e < nk; e += stride) {
-    __stcs(out + e,
-           __ldg(payload + (long long)__ldcs(jn + e) * k_src + __ldcs(rk + e)));
-  }
+__global__ void permutation_gather_kernel(const uint32_t* __restrict__ payload,
+                                          const int32_t* __restrict__ jn,
+                                          const int32_t* __restrict__ rk,
+                                          uint32_t* __restrict__ out,
+                                          long long nk, int k_src) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= nk) return;
+  out[e] = __ldg(payload + (long long)jn[e] * k_src + rk[e]);
 }
-
-static bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 extern "C" int permutation_gather_launch(const void* payload, const void* jn,
                                          const void* rk, void* out, int n,
                                          int k, int k_src, void* stream) {
   const long long nk = (long long)n * k;
   if (nk > 0) {
-    const int vec = aligned16(jn) && aligned16(rk) && aligned16(out);
-    const long long work = vec ? (nk + 3) / 4 : nk;   // threads' items
-    const long long blocks = (work + THREADS - 1) / THREADS;
-    permutation_gather_kernel<<<(unsigned)blocks, THREADS, 0,
-                                (cudaStream_t)stream>>>(
+    const int threads = 256;
+    const unsigned blocks = (unsigned)((nk + threads - 1) / threads);
+    permutation_gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)payload, (const int32_t*)jn, (const int32_t*)rk,
-        (uint32_t*)out, nk, k_src, vec);
+        (uint32_t*)out, nk, k_src);
   }
   return (int)cudaGetLastError();
 }

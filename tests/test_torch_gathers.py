@@ -220,7 +220,6 @@ def test_gather_wrappers_refuse_other_devices_and_types():
 GARBAGE = 0x5A5A5A5A              # fill of memory a kernel must write
 GW_BN, GW_TILE_K, GW_CHUNK_K = 32, 383, 382   # csrc/gather_words.cu
 SMEM_NO_OPT_IN = 48 * 1024
-PATHS = []                        # permutation_gather: "vector" / "scalar"
 
 
 def _emulated_gather_words(tab, nbr, out, n, k, w):
@@ -247,21 +246,12 @@ def _emulated_gather_words(tab, nbr, out, n, k, w):
 
 
 def _emulated_permutation_gather(payload, jn, rk, out, n, k, k_src):
-    """csrc/permutation_gather.cu: where jn, rk and out are 16-byte
-    aligned a thread takes four edges (one 16-byte load of each of jn and
-    rk, four payload reads, one 16-byte store) and the last N*K % 4 edges
-    go one at a time; otherwise every edge does."""
-    nk = n * k
-    vec = all(x.data_ptr() % 16 == 0 for x in (jn, rk, out))
-    PATHS.append("vector" if vec else "scalar")
+    """csrc/permutation_gather.cu: one thread per flat edge e = n * K + k,
+    ``out[e] = payload[jn[e] * K_src + rk[e]]``, at any alignment and edge
+    count."""
     flat, o = payload.reshape(-1), out.view(-1)
-    j, r = jn.reshape(-1).long(), rk.reshape(-1).long()
     o.fill_(GARBAGE)
-    nv = nk // 4 if vec else 0
-    quads = (j[:4 * nv].view(nv, 4) * k_src + r[:4 * nv].view(nv, 4))
-    o[:4 * nv] = flat[quads].reshape(-1)                   # 4 edges a thread
-    tail = torch.arange(4 * nv, nk)
-    o[tail] = flat[j[tail] * k_src + r[tail]]              # one at a time
+    o[:n * k] = flat[jn.reshape(-1).long() * k_src + rk.reshape(-1).long()]
 
 
 def _emulated_launch(name, *args):
@@ -363,18 +353,17 @@ def _offset(a, ofs):
     return view
 
 
-# N*K a multiple of 4 and not (the scalar tail), aligned and at a storage
-# offset of one element (every edge one at a time)
+# N*K a multiple of 4 and not, aligned and at a storage offset of one
+# element (an address no multiple of 16 bytes)
 @pytest.mark.parametrize("n,k,ofs", [(256, 16, 0), (250, 7, 0), (256, 16, 1),
                                      (61, 3, 1)])
 @pytest.mark.parametrize("dtype", [np.uint32, np.float32])
 def test_permutation_gather_kernel_route_equals_pallas(monkeypatch, n, k,
                                                        ofs, dtype):
     """The payload permute on its kernel route, with csrc/
-    permutation_gather.cu's four edges a thread and scalar edges
-    emulated, against the JAX package's Pallas kernel and the plain
-    version; with ``ofs = 1`` the output too is written at an address no
-    multiple of 16 bytes."""
+    permutation_gather.cu's addressing emulated, against the JAX package's
+    Pallas kernel and the plain version; with ``ofs = 1`` the output too is
+    written at an address no multiple of 16 bytes."""
     _kernel_route(monkeypatch)
     rng = np.random.default_rng(n + k + ofs)
     payload = _words(rng, n, k) if dtype == np.uint32 else \
@@ -385,7 +374,6 @@ def test_permutation_gather_kernel_route_equals_pallas(monkeypatch, n, k,
     want = _gather_pallas(jnp.asarray(payload), jnp.asarray(jn),
                           jnp.asarray(rk), interpret=True)
     tj, tr = _offset(jn, ofs), _offset(rk, ofs)
-    PATHS.clear()
     got = pg.permutation_gather(_t(payload), tj, tr)
     _same(want, got, "permutation_gather")
     assert torch.equal(got.view(torch.int32), pg.permutation_gather_plain(
@@ -395,4 +383,3 @@ def test_permutation_gather_kernel_route_equals_pallas(monkeypatch, n, k,
     _emulated_launch("permutation_gather", _t(payload).view(torch.int32),
                      tj, tr, out, n, k, k)
     _same(want, out.view(got.dtype), "permutation_gather, offset output")
-    assert PATHS == ["scalar" if ofs else "vector"] * 2
