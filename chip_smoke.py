@@ -14,7 +14,10 @@ Phases, each printing its own lines and its seconds:
    exchange at the churn path's B=8 and B=4 planes, words gather also at
    102400, payload permute with int32 and float32 payloads, flat take at
    each of its call shapes, at W = 1 and 3 and at an R that is no multiple
-   of 1024). Beside each words gather and
+   of 1024; the words gather also at K = 383, 384, 512 and 1000 slots, one
+   and several staged chunks of nbr, at N=8192, W=2; the payload permute
+   also at an N*K that is no multiple of 4 and with jn, rk and out 4 bytes
+   past a 16-byte boundary). Beside each words gather and
    take, on its print line only: the 32-byte L2 sectors that one lookup's
    table row spans, computed from the indices and the row width (not
    measured), and that sector traffic over the measured time. Equality is
@@ -36,13 +39,21 @@ Phases, each printing its own lines and its seconds:
    one's iwant_resolve checked and timed on its real inputs;
 3b. churn path: ``scenarios.churn_50k(n_peers=51200)`` (gater, validation
    queue cap 64, connection churn with PX; the non-fused data path): first
-   the words gather, the take and the bit-table exchange (B = 8 and 4)
-   checked and timed as in phase 2 on the built state's own neighbour
-   indices and reverse slots, then 8 ticks with
+   the words gather, the take, the bit-table exchange (B = 8 and 4) and
+   the payload permute checked and timed as in phase 2 on the built
+   state's own neighbour indices and reverse slots, then 8 ticks with
    ``hop_mode="xla"`` under ``edge_gather_mode="pallas"`` and under
    ``"mxu"``, each twice, in turns, from copies of one initial state
    and one key, the counts reset before and read after each run; every
    run's final state must equal the first's in every field;
+3c. wide window: ``build_headline(4096, msg_window=288)`` (W = 9 words,
+   beyond the fused kernels' 8; int32 hop counts, which a window above 255
+   needs) under the builder's ``hop_mode="pallas"``: 4 ticks of ``step``
+   on the card with the counts reset before and read after; the resolvers
+   route it to the non-fused path, so hop, iwant_resolve and emit must not
+   launch and edge_table and gather_words must; clean fault flags, some
+   deliveries, and the state equal to the port's CPU run after every tick
+   (as phase 4 compares);
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
@@ -98,7 +109,11 @@ PATH_KERNELS = {
     "churn[mxu]": ({"take_words"}, {"edge_table", "gather_words",
                                     "permutation_gather", "hop",
                                     "iwant_resolve", "emit"}),
+    "wide window": ({"edge_table", "gather_words"},
+                    {"hop", "iwant_resolve", "emit", "permutation_gather",
+                     "take_words"}),
 }
+N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
 
 
 def row_sectors(idx, w):
@@ -367,6 +382,13 @@ class Smoke:
                   f"take_words wrappers): "
                   f"{self.time_ms(lambda x=x_w: x.T.contiguous()):.4f} ms",
                   flush=True)
+        # gather_words beyond one staged nbr tile (K = 383 is one 48 KB
+        # chunk; larger K goes in chunks of 382 slots)
+        nk_n = 8192
+        for kk in (383, 384, 512, 1000):
+            self.check_gather_words(f"W={w},N={nk_n},K={kk}",
+                                    self.rand_words(gen, w, nk_n),
+                                    index(nk_n, nk_n, kk))
         # permutation_gather: out[n, k] = payload[jn[n, k], rk[n, k]], the
         # churn exchange's packed bit-planes (int32) and a float32 payload
         jn64, rk64 = jn.long(), rk.long()
@@ -377,6 +399,7 @@ class Smoke:
                 pg.permutation_gather_plain, [payload, jn, rk],
                 nb(payload, jn, rk) + n * k * 4, 0,
                 library_fn=lambda p=payload: p[jn64, rk64])
+        self.check_permutation_edges(gen, n, k, index)
         # take_words: out[w, r] = x_w[w, idx[r]] at its call shapes under
         # edge_gather_mode="mxu": the words gather ([2, N], R = N*K, the
         # wrapper interleaving the table into rows), the bit-table
@@ -398,6 +421,46 @@ class Smoke:
                 continue
             self.check_take_words(f"{case},[{rows},{cols}],R={r}",
                                   self.rand_words(gen, rows, cols), idx)
+
+    def check_permutation_edges(self, gen, n, k, index):
+        """permutation_gather at an N*K that is no multiple of 4, and with
+        jn, rk and out at a storage offset of one element, 4 bytes past a
+        16-byte boundary. The launch with the offset output goes to the
+        kernel directly (the wrapper allocates its own output); its offset
+        views are made once, outside the timed calls."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        payload = self.rand_words(gen, n, k)
+        nbytes = 4 * payload.numel()
+        nt, kt = n - 1, k - 1                       # N*K = 1587169, odd
+        jt, rt = index(n, nt, kt), index(k, nt, kt)
+        self.check_kernel(
+            "permutation_gather", f"int32,[{nt},{kt}] edges,N*K%4={nt * kt % 4}",
+            pg.permutation_gather, pg.permutation_gather_plain,
+            [payload, jt, rt], nbytes + 3 * 4 * nt * kt, 0,
+            library_fn=lambda j=jt.long(), r=rt.long(): payload[j, r])
+        jn, rk = index(n, n, k), index(k, n, k)
+
+        def offset(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+
+        jo, ro, oo = offset(jn), offset(rk), offset(torch.zeros_like(jn))
+        if not all(x.data_ptr() % 16 for x in (jo, ro, oo)):
+            raise AssertionError("offset views landed on 16-byte boundaries")
+
+        def offset_launch(p, _j, _r):
+            cudalib.launch("permutation_gather", p, jo, ro, oo, n, k, k)
+            return oo
+
+        self.check_kernel(
+            "permutation_gather", f"int32,N={n},jn/rk/out at offset 1",
+            offset_launch, pg.permutation_gather_plain, [payload, jn, rk],
+            nbytes + 3 * 4 * n * k, 0,
+            library_fn=lambda j=jn.long(), r=rk.long(): payload[j, r])
 
     def check_gather_words(self, case, x_w, nbr):
         """``gather_words`` (the wrapper: interleave, then the kernel)
@@ -510,10 +573,11 @@ class Smoke:
         return calls
 
     def real_index_kernels(self, st):
-        """The words gather and the take on the churn state's own
-        neighbour indices (clipped as the path clips them), beside phase
-        2's uniform random ones: the words gather and the words take at
-        [2, N], the bit-table+answers take at [N, 10]."""
+        """The gathers on the churn state's own neighbour indices and
+        reverse slots (clipped as the path clips them), beside phase 2's
+        uniform random ones: the words gather and the words take at [2, N],
+        the bit-table+answers take at [N, 10], the bit-table exchange at
+        B = 8 and 4, the payload permute."""
         torch = self.torch
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(1)
@@ -531,14 +595,22 @@ class Smoke:
         self.check_take_rows(f"bit-table+answers,[{n},{8 + w}] rows,"
                              f"R={n * k},real jn",
                              self.rand_words(gen, n, 8 + w), nbr.reshape(-1))
-        # the bit-table exchange on the state's own jn and rk (empty slots
-        # clipped to row 0 and slot 0, as the heartbeat clips them)
+        # the bit-table exchange and the payload permute on the state's own
+        # jn and rk (empty slots clipped to row 0 and slot 0, as the
+        # heartbeat and churn clip them)
         rk = st.reverse_slot.clamp(0, k - 1)
         for b_planes in (8, 4):
             self.check_edge_table(f"B={b_planes},T=4,N={n},real jn/rk",
                                   self.rand_words(gen, n, b_planes * k // 32,
                                                   density=0.2),
                                   nbr, rk, b_planes)
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        payload = self.rand_words(gen, n, k)
+        self.check_kernel(
+            "permutation_gather", f"int32,N={n},real jn/rk",
+            pg.permutation_gather, pg.permutation_gather_plain,
+            [payload, nbr, rk], 4 * 4 * n * k, 0,
+            library_fn=lambda j=nbr.long(), r=rk.long(): payload[j, r])
 
     # ---- phase 3: the main path at full size ------------------------------
     def phase_main(self, topo):
@@ -743,6 +815,74 @@ class Smoke:
         print("churn path: the pallas, mxu, mxu and pallas runs end in the "
               "same state, every field equal", flush=True)
 
+    # ---- phase 3c: a message window wider than the fused kernels' -------
+    def phase_wide(self):
+        """``build_headline(4096, msg_window=288)``: W = 9 words, int32
+        hop counts, the builder's ``hop_mode="pallas"``. 4 ticks of
+        ``step`` on the card and on the CPU from one key, compared after
+        every tick; the card's launch counts cover its 4 ticks only."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.ops.hopkernel import (
+            resolve_emit_mode, resolve_hop_mode)
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, step,
+                                                    state_to_numpy, topology)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            VIOLATION_MASK, decode_violations)
+        topo = topology.sparse(N_WIDE, K, degree=12)
+        devs = (self.dev, torch.device("cpu"))
+        runs = []
+        for d in devs:
+            cfg, tp, st = build_headline(N_WIDE, msg_window=M_WIDE, device=d,
+                                         topo=topo)
+            runs.append((dataclasses.replace(cfg, count_dtype="int32"), tp,
+                         st))
+        cfg = runs[0][0]
+        modes = (cfg.hop_mode, resolve_hop_mode(cfg), resolve_emit_mode(cfg))
+        if modes != ("pallas", "xla", "xla"):
+            raise AssertionError(f"wide window: hop_mode, resolved hop and "
+                                 f"emit modes {modes}")
+        keys = [rng.split(rng.PRNGKey(0, device=d), 4) for d in devs]
+        card, (ccfg, ctp, cpu) = runs[0][2], runs[1]
+        self.sync()
+        cudalib.reset_launches()
+        secs = 0.0
+        for tick in range(4):
+            t0 = time.perf_counter()
+            card = step(card, cfg, runs[0][1], keys[0][tick], device=self.dev)
+            self.sync()
+            secs += time.perf_counter() - t0
+            cpu = step(cpu, ccfg, ctp, keys[1][tick], device="cpu")
+            a, b = state_to_numpy(card), state_to_numpy(cpu)
+            for f in a:
+                x, y = a[f], b[f]
+                same = (np.allclose(x, y, rtol=1e-6, atol=0.0)
+                        if x.dtype == np.float32 else np.array_equal(x, y))
+                if not same:
+                    raise AssertionError(
+                        f"wide window: field {f} differs between the card "
+                        f"and the CPU after tick {tick}")
+        launches = dict(cudalib.LAUNCHES)
+        flags = int(card.fault_flags) & 0xFFFFFFFF
+        delivered = float(card.delivered_total)
+        print(f"wide window: build_headline({N_WIDE}, msg_window={M_WIDE}) "
+              f"W={(M_WIDE + 31) // 32}, count_dtype=int32, hop_mode "
+              f"{modes[0]} -> hop {modes[1]}, emit {modes[2]}; 4 ticks on the "
+              f"card in {secs:.3f} s; equal to the CPU run after every tick "
+              f"(integer/bool/packed exact, float32 rtol 1e-6); "
+              f"delivered_total {delivered:.0f}; fault_flags 0x{flags:08x}",
+              flush=True)
+        print(f"wide window launches: {json.dumps(launches)}", flush=True)
+        self.check_launches("wide window", launches)
+        if delivered <= 0:
+            raise AssertionError("the wide-window path delivered nothing")
+        if flags & VIOLATION_MASK:
+            raise AssertionError(f"wide window: invariant violations "
+                                 f"{decode_violations(flags)}")
+
     # ---- phase 4 / 4b: the card's trajectory against the CPU's -----------
     def phase_trajectory(self, what="headline", gather=None):
         import dataclasses
@@ -886,6 +1026,7 @@ def main() -> int:
             topology_of(smoke.n)))
         timed("3b (churn path)", lambda: smoke.phase_churn(
             topology_of(N_CHURN)))
+        timed("3c (wide window)", smoke.phase_wide)
         timed("4 (trajectory)", smoke.phase_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,

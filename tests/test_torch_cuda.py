@@ -179,11 +179,18 @@ def test_edge_table_kernel_shapes_equal_plain(b_planes, k):
 
 # K * N no multiple of the block and N no multiple of the kernel's
 # 32-receiver tile, a source wider than N; sources 0 and N_src - 1 among
-# the indices
+# the indices. K = 383 is one staged chunk of nbr (a 48 KB tile); beyond
+# it chunks of 382 slots: two with a short second one, several, and a
+# last one of a single slot
 @pytest.mark.parametrize("w,n_src,n,k", [(1, N, N, K), (2, N, N, K),
                                          (3, N, N, K), (2, 1500, 1000, 7),
                                          (4, N, N, K), (8, N, N, K),
-                                         (10, N, N, K), (10, 1500, 1000, 7)])
+                                         (10, N, N, K), (10, 1500, 1000, 7),
+                                         (2, 1001, 1001, 383),
+                                         (3, 1001, 1001, 384),
+                                         (2, 1001, 1001, 512),
+                                         (3, 1001, 1001, 765),
+                                         (2, 1500, 1001, 1000)])
 def test_gather_words_kernel_equals_plain(w, n_src, n, k):
     _need_card()
     g = torch.Generator().manual_seed(40 + w)
@@ -197,22 +204,6 @@ def test_gather_words_kernel_equals_plain(w, n_src, n, k):
     assert torch.equal(got[0], want[0])
 
 
-# K = 383 is one staged chunk of nbr (a 48 KB tile); beyond it the kernel
-# stages chunks of 382 slots: two with a short second one, several, and a
-# last one of a single slot
-@pytest.mark.parametrize("k", [383, 384, 512, 1000, 765])
-@pytest.mark.parametrize("w", [2, 3])
-def test_gather_words_kernel_any_k_equals_plain(w, k):
-    _need_card()
-    n = 1001
-    g = torch.Generator().manual_seed(90 + k + w)
-    d = dict(x=pack_bool(torch.rand(w, n, 32, generator=g) < 0.5)[..., 0],
-             nbr=torch.randint(0, n, (n, k), generator=g, dtype=torch.int32))
-    d["nbr"][0, 0], d["nbr"][-1, -1] = 0, n - 1
-    got, want = _both(pg.gather_words, d, ["x", "nbr"])
-    assert got[0].shape == (w, k, n) and torch.equal(got[0], want[0])
-
-
 def _at_offset(x, ofs):
     """``x`` copied into a buffer at a storage offset of ``ofs`` elements:
     on the card, an address no multiple of 16 bytes when ofs is odd."""
@@ -222,8 +213,8 @@ def _at_offset(x, ofs):
     return view
 
 
-# N*K a multiple of 4 (four edges a thread) and not (the scalar tail); jn,
-# rk and out at a storage offset of one element (every edge one at a time)
+# N*K a multiple of 4 and not; jn, rk and out at a storage offset of one
+# element (an address no multiple of 16 bytes)
 @pytest.mark.parametrize("n,k,ofs", [(N, K, 0), (1001, 7, 0), (N, K, 1),
                                      (1001, 7, 1)])
 def test_permutation_gather_kernel_shapes_equal_plain(n, k, ofs):
@@ -310,6 +301,38 @@ def test_churn_trajectory_cuda_equals_cpu(gather):
         outs.append(state_to_numpy(run(st, cfg, tp,
                                        rng.PRNGKey(0, device=dev), 4,
                                        device=dev)))
+    for f, a in outs[0].items():
+        b = outs[1][f]
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def test_wide_window_trajectory_cuda_equals_cpu():
+    """The headline network at 512 peers with a 288-message window (W = 9,
+    beyond the fused kernels' 8 words) and int32 counts, under the
+    builder's ``hop_mode="pallas"``: on the card it runs the non-fused
+    path, launching no fused kernel, and after 4 ticks its state equals
+    the CPU's."""
+    _need_card()
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    from go_libp2p_pubsub_tpu_torch.sim import (build_headline, run,
+                                                state_to_numpy, topology)
+    topo = topology.sparse(512, K, degree=12)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        cfg, tp, st = build_headline(512, msg_window=288, device=dev,
+                                     topo=topo)
+        cfg = dataclasses.replace(cfg, count_dtype="int32")
+        cudalib.reset_launches()
+        outs.append(state_to_numpy(run(st, cfg, tp, rng.PRNGKey(0, device=dev),
+                                       4, device=dev)))
+        if dev == "cuda":
+            launched = {k for k, v in cudalib.LAUNCHES.items() if v}
+            assert launched == {"edge_table", "gather_words"}, launched
+    assert outs[0]["delivered_total"] > 0 and outs[0]["fault_flags"] == 0
     for f, a in outs[0].items():
         b = outs[1][f]
         if a.dtype == np.float32:
