@@ -436,7 +436,8 @@ class Smoke:
         nt, kt = n - 1, k - 1                       # N*K = 1587169, odd
         jt, rt = index(n, nt, kt), index(k, nt, kt)
         self.check_kernel(
-            "permutation_gather", f"int32,[{nt},{kt}] edges,N*K%4={nt * kt % 4}",
+            "permutation_gather",
+            f"int32,[{nt},{kt}] edges,N*K%4={nt * kt % 4}",
             pg.permutation_gather, pg.permutation_gather_plain,
             [payload, jt, rt], nbytes + 3 * 4 * nt * kt, 0,
             library_fn=lambda j=jt.long(), r=rt.long(): payload[j, r])

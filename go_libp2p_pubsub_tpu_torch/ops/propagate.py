@@ -19,10 +19,10 @@ resolve_emit_mode exactly where the reference chooses:
   peer gater's admission and stats, and the emit through
   ``_bits_to_slot`` / ``_budgeted_iwant``.
 
-The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8. Edge queue caps,
-flood publish, provenance and the floodsub/randomsub routers are a later
-slice and raise NotImplementedError; so is the fault plane, whose
-link/dup/censor inputs ``forward_tick`` does not take yet.
+The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8.
+Edge queue caps, flood publish, provenance and the floodsub/randomsub
+routers are a later slice and raise NotImplementedError; so is the fault
+plane, whose link/dup/censor inputs ``forward_tick`` does not take yet.
 """
 
 from __future__ import annotations
