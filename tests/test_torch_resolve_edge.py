@@ -413,20 +413,20 @@ def test_iwant_resolve_kernel_route_counts_wrap(kernel_route):
 
 
 def test_iwant_resolve_refuses_only_what_it_must(kernel_route):
-    """W > 8 and M > 32 W are refused before any launch, a tile of counts
-    too large for one receiver by the launcher; K = 130 (beyond the
-    earlier kernel's 128) and the widest W go through."""
+    """W > 8, M > 32 W and a tile of counts too large for one receiver
+    ((2T+1) K > 32768, the launcher's own refusal too) are refused before
+    any launch; K = 130 (beyond the earlier kernel's 128) and the widest W
+    go through."""
     d = _resolve_inputs(4300, 40, 40, 8, 1, 9, 64)
     with pytest.raises(ValueError):
         hk.iwant_resolve(*[_t(d[a]) for a in RESOLVE_ARGS], 9 * 32)
     d = _resolve_inputs(4301, 40, 40, 8, 1, 2, 64)
     with pytest.raises(ValueError):
         hk.iwant_resolve(*[_t(d[a]) for a in RESOLVE_ARGS], 65)
-    assert kernel_route[0] == []
     d = _resolve_inputs(4302, 4, 4, 10923, 1, 1, 32)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError, match="2T"):
         hk.iwant_resolve(*[_t(d[a]) for a in RESOLVE_ARGS], 32)
-    kernel_route[0].clear()
+    assert kernel_route[0] == []
     for k, w in ((130, 2), (8, 8)):
         d = _resolve_inputs(4303 + k, 40, 40, k, 1, w, 32 * w)
         got = hk.iwant_resolve(*[_t(d[a]) for a in RESOLVE_ARGS], 32 * w)
