@@ -53,7 +53,9 @@ Phases, each printing its own lines and its seconds:
    route it to the non-fused path, so hop, iwant_resolve and emit must not
    launch and edge_table and gather_words must; clean fault flags, some
    deliveries, and the state equal to the port's CPU run after every tick
-   (as phase 4 compares);
+   (as phase 4 compares); then one more tick whose edge_table calls and
+   words gathers (W = 9 rows) are recorded, and each checked and timed as
+   in phase 2 on that tick's real inputs;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
@@ -883,6 +885,39 @@ class Smoke:
         if flags & VIOLATION_MASK:
             raise AssertionError(f"wide window: invariant violations "
                                  f"{decode_violations(flags)}")
+        self.real_wide_kernels(card, cfg, runs[0][1])
+
+    def real_wide_kernels(self, st, cfg, tp):
+        """One more wide tick on the card from ``st`` with its heartbeat's
+        edge_table calls and its words gathers recorded; every recorded
+        call checked and timed as in phase 2 on its own inputs. At W = 9
+        the words gather reads each row as nine 4-byte vectors with a
+        block 8 lanes wide, so one lane takes a second vector."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import heartbeat as hb
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        from go_libp2p_pubsub_tpu_torch.sim import step
+        calls = self.record_calls(
+            [(hb, "edge_table"), (pg, "gather_words")], lambda: step(
+                st, cfg, tp, rng.PRNGKey(4, device=self.dev),
+                device=self.dev))
+        shapes = [(tuple(a[0].shape), tuple(a[1].shape))
+                  for a, _ in calls["gather_words"]]
+        w_wide = (M_WIDE + 31) // 32
+        if not calls["edge_table"] or not any(x[0] == w_wide
+                                              for x, _ in shapes):
+            raise AssertionError(
+                f"the recorded wide tick made edge_table calls at "
+                f"B={[a[3] for a, _ in calls['edge_table']]} and words "
+                f"gathers at {shapes}")
+        for i, (args, _) in enumerate(calls["edge_table"]):
+            self.check_edge_table(f"B={args[3]},wide tick,call {i + 1}",
+                                  *args[:4])
+        for i, (args, _) in enumerate(calls["gather_words"]):
+            x_w, nbr = args[:2]
+            self.check_gather_words(
+                f"W={x_w.shape[0]},N={nbr.shape[0]},K={nbr.shape[1]},"
+                f"wide tick,call {i + 1}", x_w, nbr)
 
     # ---- phase 4 / 4b: the card's trajectory against the CPU's -----------
     def phase_trajectory(self, what="headline", gather=None):

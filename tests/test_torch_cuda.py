@@ -179,12 +179,15 @@ def test_edge_table_kernel_shapes_equal_plain(b_planes, k):
 
 # K * N no multiple of the block and N no multiple of the kernel's
 # 32-receiver tile, a source wider than N; sources 0 and N_src - 1 among
-# the indices. K = 383 is one staged chunk of nbr (a 48 KB tile); beyond
-# it chunks of 382 slots: two with a short second one, several, and a
-# last one of a single slot
+# the indices. W = 9 (the wide window's rows) is read as nine 4-byte
+# vectors by a block 8 lanes wide: one lane takes a second vector. K = 383
+# is one staged chunk of nbr (a 48 KB tile); beyond it chunks of 382
+# slots: two with a short second one, several, and a last one of a single
+# slot
 @pytest.mark.parametrize("w,n_src,n,k", [(1, N, N, K), (2, N, N, K),
                                          (3, N, N, K), (2, 1500, 1000, 7),
                                          (4, N, N, K), (8, N, N, K),
+                                         (9, N, N, K),
                                          (10, N, N, K), (10, 1500, 1000, 7),
                                          (2, 1001, 1001, 383),
                                          (3, 1001, 1001, 384),

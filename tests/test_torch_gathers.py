@@ -284,7 +284,7 @@ def _kernel_route(monkeypatch):
     monkeypatch.setattr(cudalib, "launch", _emulated_launch)
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 10])
+@pytest.mark.parametrize("w", [1, 2, 3, 9, 10])
 def test_wrapper_layouts_equal_reference(w, monkeypatch):
     """The wrappers' layout logic on the kernel route (the interleave into
     rows, the strides, the n-major concatenation and the output views)

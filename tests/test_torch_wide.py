@@ -69,9 +69,11 @@ def test_resolvers_refuse_unknown_modes():
 @pytest.mark.parametrize("t,k", TK)
 @pytest.mark.parametrize("w", [1, 8, 9, 16])
 def test_wrappers_refuse_what_the_resolvers_route_away(monkeypatch, w, t, k):
-    """On the kernel route each fused wrapper launches exactly the shapes
-    the resolvers send it (hop and iwant_resolve: ``_fused_shape_ok``;
-    emit: W <= 8) and refuses the rest before any launch."""
+    """On the kernel route the fused wrappers refuse, before any launch,
+    what their kernels cannot hold: hop and emit refuse W > 8 only, and
+    iwant_resolve refuses what ``_fused_shape_ok`` rejects (W > 8 or
+    (2T+1) * K > 32768). The hop takes a (2T+1) * K beyond the resolve's
+    tile, which the resolvers send away from it all the same."""
     launched = []
     monkeypatch.setattr(cudalib, "use_kernel", lambda name, *x: True)
     monkeypatch.setattr(cudalib, "check_args", lambda name, specs: None)
