@@ -20,13 +20,17 @@ resolve_emit_mode exactly where the reference chooses:
   ``_bits_to_slot`` / ``_budgeted_iwant``.
 
 The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8.
-Edge queue caps, flood publish, provenance and the floodsub/randomsub
-routers are a later slice and raise NotImplementedError; so is the fault
-plane, whose link/dup/censor inputs ``forward_tick`` does not take yet.
+
+The data plane's other branches follow the reference (propagate.py:146-177
+and :229-853): the floodsub and randomsub forwarding masks. Flood
+publish, edge queue caps and provenance are a later slice and raise
+NotImplementedError; so is the fault plane, whose link/dup/censor inputs
+``forward_tick`` does not take yet (the engine refuses a plan).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -46,9 +50,11 @@ from .bits import (
     unpack_words,
 )
 from .gater import accept_data
+from .heartbeat import edge_gather
 from .hopkernel import emit, hop, iwant_resolve, resolve_emit_mode, \
     resolve_hop_mode
 from .score_ops import decayed
+from .selection import select_random
 
 U8 = torch.uint8
 # the per-(topic, slot, receiver) hop-count accumulators (propagate.py:361-372)
@@ -123,6 +129,37 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
 def _ones(cond: torch.Tensor) -> torch.Tensor:
     """bool -> int32 word mask: all 32 bits set where ``cond``, else 0."""
     return -cond.to(I32)
+
+
+def _edge_forward_mask(state: SimState, cfg: SimConfig, key: torch.Tensor,
+                       fwd_send: torch.Tensor | None = None) -> torch.Tensor:
+    """[N, T, K] receiver-view forwarding mask: slot s's peer would forward
+    a topic-t message to me, per router (propagate.py:146-177)."""
+    n, t, _ = state.mesh.shape
+    conn = state.connected[:, None, :]
+    my_sub = state.subscribed[:, :, None]
+    if cfg.router == "gossipsub":
+        # along the sender's mesh, or its fanout when it is not subscribed;
+        # the engine passes the heartbeat's receiver view
+        if fwd_send is not None:
+            return fwd_send
+        send = state.mesh | (state.fanout & ~my_sub)
+        return edge_gather(send, state, mode=cfg.edge_gather_mode)
+    if cfg.router == "floodsub":
+        # to every subscribed neighbour (floodsub.go:76-100)
+        return conn & my_sub
+    if cfg.router == "randomsub":
+        # to max(D, ceil(sqrt N)) random subscribed neighbours, drawn
+        # sender-side (randomsub.go:124-143) and seen through the edge
+        # permutation; the rank selection takes every candidate when the
+        # target exceeds K, as the reference's max_count=min(target, K) does
+        target = max(cfg.d, math.ceil(math.sqrt(cfg.n_peers)))
+        cand = conn & state.nbr_subscribed                     # sender view
+        sel = select_random(cand, torch.full((n, t), target,
+                                             device=cand.device), key)
+        return edge_gather(sel, state, mode=cfg.edge_gather_mode) \
+            & conn & my_sub
+    raise ValueError(f"unknown router {cfg.router!r}")
 
 
 def _edge_topic_bits(mask_ntk: torch.Tensor, topic_bits: torch.Tensor,
@@ -252,8 +289,10 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
                  dlv_bits, answer_bits, gw, answers_k) -> _Traffic:
     """Resolve and hops in the non-fused formulation (propagate.py:425-483
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
-    hop, the validation-queue cap and the gater's stats. Counts are kept in
-    ``cfg.count_dtype`` (uint8 wraps as the reference's uint8 adds do)."""
+    hop, and the admission layers in the reference's order (graylist and
+    gater in ``tb.data_ok``, then the validation-queue cap) and the gater's
+    stats. Counts are kept in ``cfg.count_dtype`` (uint8 wraps as the
+    reference's uint8 adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
     cdt = _COUNT_DTYPES[cfg.count_dtype]
@@ -355,7 +394,6 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
 
 def _check_path(cfg: SimConfig) -> None:
     refusals = [
-        (cfg.router != "gossipsub", f"router={cfg.router!r}"),
         (cfg.edge_queue_cap > 0, "edge_queue_cap"),
         (cfg.flood_publish, "flood_publish"),
         (cfg.record_provenance, "record_provenance"),
@@ -367,17 +405,20 @@ def _check_path(cfg: SimConfig) -> None:
 
 def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                  inc_gossip: torch.Tensor, scores: torch.Tensor,
-                 key: torch.Tensor, *, fwd_send: torch.Tensor,
+                 key: torch.Tensor, *,
+                 fwd_send: torch.Tensor | None = None,
                  answers_k: torch.Tensor | None = None) -> SimState:
     """One tick of data-plane traffic: resolve last tick's IWANTs, run up
     to ``prop_substeps`` forwarding hops, fold the counters, emit this
     tick's IHAVE/IWANT (propagate.py:229-853).
 
     ``scores`` is the heartbeat's [N, K] score cache; ``inc_gossip`` and
-    ``fwd_send`` are its receiver views (HeartbeatOut). ``answers_k`` is
-    the IWANT answer table's receiver view when the heartbeat routed it
-    (engine._iwant_answer_extras). ``key`` feeds the gater's admission
-    draw. The fault plane's link/dup/censor inputs are not ported."""
+    ``fwd_send`` are its receiver views (HeartbeatOut); ``fwd_send=None``
+    makes the gossipsub router gather its own, and floodsub and randomsub
+    take none. ``answers_k`` is the IWANT answer table's receiver view when
+    the heartbeat routed it (engine._iwant_answer_extras). ``key`` feeds
+    randomsub's draw and the gater's admission draw. The fault plane's
+    link/dup/censor inputs are not ported."""
     _check_path(cfg)
     n, t, k = state.mesh.shape
     m = cfg.msg_window
@@ -390,7 +431,7 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                          f"the {cfg.count_dtype} hop-count accumulators; "
                          "shrink the window or widen count_dtype")
     w = (m + 31) // 32
-    _, k_gate = rng.split(key, 2)
+    k_fwd, k_gate = rng.split(key, 2)
     dev = state.mesh.device
     tick = state.tick
     nbr = state.neighbors.clamp(0, n - 1)                  # [N, K]
@@ -441,8 +482,9 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     age_dlv = tick - state.deliver_tick
     window_old = pack_words((age_dlv >= 0)
                             & (age_dlv <= cfg.mesh_message_deliveries_window_ticks))
+    fwd_mask = _edge_forward_mask(state, cfg, k_fwd, fwd_send)
     tb = _Tables(topic_bits, alive_bits, valid_msg_bits, vm, inv_n, ign_n,
-                 window_old, data_ok, fwd_send & data_ok[:, None, :])
+                 window_old, data_ok, fwd_mask & data_ok[:, None, :])
 
     # malicious sources never answer IWANTs; honest sources answer from
     # their mcache, which rejected/ignored messages never enter

@@ -5,8 +5,9 @@
       1. publish            P scenario-chosen messages enter the network
       2. gater_decay        (gater configs) the peer gater's stats decay
       3. heartbeat          mesh maintenance + GRAFT/PRUNE exchange + gossip
-                            peer selection (score decay applies inline)
-      4. forward_tick       IWANT resolution, mesh forwarding hops, IHAVE emit
+                            peer selection (score decay applies inline);
+                            floodsub and randomsub run none
+      4. forward_tick       IWANT resolution, forwarding hops, IHAVE emit
       5. churn_edges        (churn configs) edges go down and come back
       6. record_flags       the invariant sentinel closes the tick
 
@@ -24,7 +25,7 @@ from ..device import check_on
 from ..ops.bits import pack_words
 from ..ops.churn import churn_edges
 from ..ops.gater import gater_decay
-from ..ops.heartbeat import heartbeat
+from ..ops.heartbeat import HeartbeatOut, heartbeat
 from ..ops.hopkernel import resolve_hop_mode
 from ..ops.permgather import resolve_gather_mode
 from ..ops.propagate import forward_tick, publish
@@ -39,20 +40,20 @@ def _later(item: int) -> str:
 
 def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for any config outside the ported paths:
-    the gossipsub step with scoring, the peer gater, the validation-queue
-    cap and connection churn with PX, on the fused kernels or the non-fused
-    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in the
-    ``pallas`` or ``mxu`` gather formulation, uint8 or int32 hop counts
-    (int32 on the non-fused path), with recorded invariants and the host
-    key schedule. Each refusal names the queue item that lifts it."""
+    the step under every router (gossipsub with scoring, floodsub,
+    randomsub), the peer gater, the validation-queue cap
+    and connection churn with PX, on the fused kernels or the non-fused data path (hop_mode
+    ``auto``/``pallas``/``pallas-mxu``/``xla``) in the ``pallas`` or
+    ``mxu`` gather formulation, uint8 or int32 hop counts (int32 on the
+    non-fused path), with recorded invariants and the host key schedule.
+    Each refusal names the queue item that lifts it."""
     refusals = [
         (cfg.fault_plan is not None, "fault_plan", 1),
-        (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
-         "subscription churn", 2),
-        (cfg.router != "gossipsub", f"router={cfg.router!r}", 1),
         (cfg.flood_publish, "flood_publish", 1),
         (cfg.record_provenance, "record_provenance", 1),
         (cfg.edge_queue_cap > 0, "edge_queue_cap", 1),
+        (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
+         "subscription churn", 2),
         (cfg.invariant_mode != "record",
          f"invariant_mode={cfg.invariant_mode!r}", 2),
         (cfg.key_schedule != "host", f"key_schedule={cfg.key_schedule!r}", 2),
@@ -107,10 +108,21 @@ def step(state: SimState, cfg: SimConfig, tp: TopicParams,
     state = publish(state, cfg, peers, topics, k_ign)
     if cfg.gater_enabled:
         state = gater_decay(state, cfg)
-    hb = heartbeat(state, cfg, tp, k_hb,
-                   extra_words=_iwant_answer_extras(state, cfg))
+    gossipsub = cfg.router == "gossipsub"
+    if gossipsub:
+        hb = heartbeat(state, cfg, tp, k_hb,
+                       extra_words=_iwant_answer_extras(state, cfg))
+    else:
+        # floodsub and randomsub run no heartbeat: no mesh, no gossip, no
+        # scoring (engine.py:147-161)
+        n, t, k = state.mesh.shape
+        dev = state.mesh.device
+        zf = torch.zeros((n, k), dtype=torch.float32, device=dev)
+        zb = torch.zeros((n, t, k), dtype=torch.bool, device=dev)
+        hb = HeartbeatOut(state=state, scores=zf, scores_all=zf,
+                          inc_gossip=zb, fwd_send=zb)
     state = forward_tick(hb.state, cfg, tp, hb.inc_gossip, hb.scores, k_fwd,
-                         fwd_send=hb.fwd_send,
+                         fwd_send=hb.fwd_send if gossipsub else None,
                          answers_k=hb.extra_routed[0] if hb.extra_routed
                          else None)
     if cfg.churn_disconnect_prob > 0.0:

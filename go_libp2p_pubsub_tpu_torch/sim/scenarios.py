@@ -10,6 +10,10 @@ array-equal to the reference constructor's for the same arguments.
   reconnects and 30-tick score retention, and the peer gater with a
   validation queue cap of 64 (scenarios.py:130-153). The gater and the
   cap put it on the non-fused data path. Its 128-friendly size is 51200.
+- ``router_sweep_100k`` — BASELINE config #5: one 100k network per router
+  (floodsub, randomsub, gossipsub), scoring off (scenarios.py:193-203).
+  Floodsub and randomsub run no heartbeat; all three take the fused
+  kernels. Its 128-friendly size is 102400.
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -41,6 +45,12 @@ def default_topic_params(n_topics: int = 1, device=None) -> TopicParams:
     )] * n_topics, device=device)
 
 
+def _topology(topo, n_peers, k_slots, degree):
+    if topo is None:
+        topo = topology.sparse(n_peers, k_slots, degree=degree, seed=SEED)
+    return topo
+
+
 def churn_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
               n_topics: int = 4, disconnect_prob: float = 0.02,
               reconnect_prob: float = 0.2, device=None,
@@ -62,7 +72,24 @@ def churn_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
         churn_reconnect_prob=reconnect_prob,
         gater_enabled=True, validation_queue_cap=64,
         px_enabled=True, accept_px_threshold=-50.0)
-    if topo is None:
-        topo = topology.sparse(n_peers, k_slots, degree=degree, seed=SEED)
+    topo = _topology(topo, n_peers, k_slots, degree)
     return cfg, default_topic_params(n_topics, device=device), \
         init_state(cfg, topo, subscribed=subscribed, device=device)
+
+
+def router_sweep_100k(router: str, n_peers: int = 100_000, k_slots: int = 32,
+                      degree: int = 12, device=None,
+                      topo: topology.Topology | None = None,
+                      ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Config 5: one 100k network per router variant, scoring off (floodsub
+    and randomsub have no scoring; the comparison isolates propagation).
+    ``topo`` may carry a prebuilt ``topology.sparse(n_peers, k_slots,
+    degree=degree, seed=SEED)``."""
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=1, msg_window=32,
+        publishers_per_tick=4, prop_substeps=8,
+        router=router, scoring_enabled=False)
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, TopicParams.disabled(1, device=device), \
+        init_state(cfg, topo, device=device)
+
