@@ -22,10 +22,13 @@ resolve_emit_mode exactly where the reference chooses:
 The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8.
 
 The data plane's other branches follow the reference (propagate.py:146-177
-and :229-853): the floodsub and randomsub forwarding masks. Flood
-publish, edge queue caps and provenance are a later slice and raise
-NotImplementedError; so is the fault plane, whose link/dup/censor inputs
-``forward_tick`` does not take yet (the engine refuses a plan).
+and :229-853): the floodsub and randomsub forwarding masks, flood publish
+(the sender-side score and direct planes through ``permutation_gather``,
+the origin words through ``gw``). Flood publish runs on the non-fused path
+only (``hopkernel._hop_config_ok``). Edge queue caps and provenance are a
+later slice and raise NotImplementedError; so is the fault plane, whose
+link/dup/censor inputs ``forward_tick`` does not take yet (the engine
+refuses a plan).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from .gater import accept_data
 from .heartbeat import edge_gather
 from .hopkernel import emit, hop, iwant_resolve, resolve_emit_mode, \
     resolve_hop_mode
+from .permgather import permutation_gather, resolve_gather_mode
 from .score_ops import decayed
 from .selection import select_random
 
@@ -285,14 +289,43 @@ def _fused_traffic(state: SimState, cfg: SimConfig, tb: _Tables,
     return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup, None)
 
 
+def _flood_offer(state: SimState, cfg: SimConfig, tb: _Tables,
+                 scores: torch.Tensor, nbr: torch.Tensor, gw) -> torch.Tensor:
+    """[W, K, N] hop-0 offers of flood publish (propagate.py:498-545): the
+    origin sends its own new messages to every subscribed topic peer that
+    scores it >= publish_threshold (direct peers bypass the gate). The
+    sender-side planes, its score of me and its direct flag for me, come
+    through the edge permutation (``permutation_gather``: a float32 and an
+    int32 payload); with scoring off the gate is open and neither is
+    gathered."""
+    n, t, k = state.mesh.shape
+    w = tb.topic_bits.shape[1]
+    mode = resolve_gather_mode(cfg.edge_gather_mode)
+    rk = state.reverse_slot.clamp(0, k - 1)
+    if cfg.scoring_enabled:
+        sender_scores_me = permutation_gather(scores, nbr, rk, mode)
+        sender_direct_me = permutation_gather(
+            state.direct.to(I32), nbr, rk, mode) != 0
+        score_gate = sender_direct_me \
+            | (sender_scores_me >= cfg.publish_threshold)
+    else:
+        score_gate = torch.ones((n, k), dtype=torch.bool, device=nbr.device)
+    flood_mask = state.connected[:, None, :] & state.subscribed[:, :, None] \
+        & score_gate[:, None, :] & tb.data_ok[:, None, :]
+    origin_bits = pack_words((state.deliver_tick == state.tick)
+                             & (state.msg_publish_tick == state.tick)[None, :])
+    return gw(origin_bits) & _edge_topic_bits(flood_mask, tb.topic_bits, w)
+
+
 def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
-                 dlv_bits, answer_bits, gw, answers_k) -> _Traffic:
+                 dlv_bits, answer_bits, gw, answers_k, flood_offer
+                 ) -> _Traffic:
     """Resolve and hops in the non-fused formulation (propagate.py:425-483
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
     hop, and the admission layers in the reference's order (graylist and
-    gater in ``tb.data_ok``, then the validation-queue cap) and the gater's
-    stats. Counts are kept in ``cfg.count_dtype`` (uint8 wraps as the
-    reference's uint8 adds do)."""
+    gater in ``tb.data_ok``, then the validation-queue cap), the gater's
+    stats and flood publish's hop-0 offers. Counts are kept in
+    ``cfg.count_dtype`` (uint8 wraps as the reference's uint8 adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
     cdt = _COUNT_DTYPES[cfg.count_dtype]
@@ -348,6 +381,8 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     # the early exit reads the frontier on the host once per hop
     while i < cfg.prop_substeps and bool((frontier != 0).any()):
         offered = gw(frontier) & allowed                       # [W, K, N]
+        if i == 0 and flood_offer is not None:
+            offered = offered | flood_offer
         excl = exclusive_prefix_or(offered, axis=1)
         new_from_k = offered & ~excl & ~have_bits[:, None, :]
         new_any = (excl[:, -1] | offered[:, -1]) & ~have_bits  # [W, N]
@@ -395,7 +430,6 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
 def _check_path(cfg: SimConfig) -> None:
     refusals = [
         (cfg.edge_queue_cap > 0, "edge_queue_cap"),
-        (cfg.flood_publish, "flood_publish"),
         (cfg.record_provenance, "record_provenance"),
     ]
     for refused, what in refusals:
@@ -493,8 +527,10 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
         tr = _fused_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
                             nbr)
     else:
+        flood = _flood_offer(state, cfg, tb, scores, nbr, gw) \
+            if cfg.flood_publish and cfg.router == "gossipsub" else None
         tr = _xla_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
-                          gw, answers_k)
+                          gw, answers_k, flood)
     have_bits, dlv_bits = tr.have, tr.dlv
 
     # [T,K,N] counts -> [N,T,K] f32 counter increments, folded with this
