@@ -24,11 +24,11 @@ The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8.
 The data plane's other branches follow the reference (propagate.py:146-177
 and :229-853): the floodsub and randomsub forwarding masks, flood publish
 (the sender-side score and direct planes through ``permutation_gather``,
-the origin words through ``gw``). Flood publish runs on the non-fused path
-only (``hopkernel._hop_config_ok``). Edge queue caps and provenance are a
-later slice and raise NotImplementedError; so is the fault plane, whose
-link/dup/censor inputs ``forward_tick`` does not take yet (the engine
-refuses a plan).
+the origin words through ``gw``) and per-edge queue caps in the resolve
+and the hops. Flood publish and caps run on the non-fused path only
+(``hopkernel._hop_config_ok``). Provenance is a later slice and raises
+NotImplementedError; so is the fault plane, whose link/dup/censor inputs
+``forward_tick`` does not take yet (the engine refuses a plan).
 """
 
 from __future__ import annotations
@@ -323,13 +323,15 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     """Resolve and hops in the non-fused formulation (propagate.py:425-483
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
     hop, and the admission layers in the reference's order (graylist and
-    gater in ``tb.data_ok``, then the validation-queue cap), the gater's
-    stats and flood publish's hop-0 offers. Counts are kept in
-    ``cfg.count_dtype`` (uint8 wraps as the reference's uint8 adds do)."""
+    gater in ``tb.data_ok``, then the per-edge queue cap, then the
+    validation-queue cap), the gater's stats and flood publish's hop-0
+    offers. Counts are kept in ``cfg.count_dtype`` (uint8 wraps as the
+    reference's uint8 adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
     cdt = _COUNT_DTYPES[cfg.count_dtype]
     cap = cfg.validation_queue_cap
+    ecap = cfg.edge_queue_cap
     gater = cfg.gater_enabled
 
     def topic_counts(events):
@@ -339,7 +341,7 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
                          dtype=cdt) for ti in range(t)])
 
     # -- step 1: last tick's IWANTs (gossipsub.go:698-739); pulled data is
-    # still data, so graylist, gater and the validation budget apply
+    # still data, so graylist, gater and both budgets apply
     asked_k = _slot_bitplanes(state.iwant_pending, k) \
         & tb.alive_bits[:, None, None]
     if answers_k is None:
@@ -348,6 +350,10 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
         & _ones(tb.data_ok.T)[None]
     broken_k = asked_k & ~answers_k
     throttled = torch.zeros((n,), dtype=I32, device=have_bits.device)
+    if ecap > 0:
+        # a pull that would blow the edge's budget drops whole
+        pull_sz = popcount_sum(got_k, axis=0, dtype=I32)       # [K, N]
+        got_k = got_k & _ones(pull_sz <= ecap)[None]
     if cap > 0:
         # over-budget pulls are dropped unseen and charged as throttle
         # events; the sender answered, so no broken promise
@@ -363,6 +369,7 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
         + popcount_sum(broken_k, axis=0).T
     have_bits = have_bits | got_any
     dlv_bits = dlv_bits | got_valid_any
+    edge_used = popcount_sum(got_k, axis=0, dtype=I32) if ecap > 0 else None
     arrivals = popcount_sum(got_any, axis=0, dtype=I32)        # [N]
     validated = arrivals.float()
 
@@ -383,6 +390,13 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
         offered = gw(frontier) & allowed                       # [W, K, N]
         if i == 0 and flood_offer is not None:
             offered = offered | flood_offer
+        if ecap > 0:
+            # drop-on-full, whole-RPC granularity (comm.go:156-191): the
+            # hop's RPC on an edge fits the remaining budget or drops
+            rpc_size = popcount_sum(offered, axis=0, dtype=I32)   # [K, N]
+            edge_fits = (edge_used + rpc_size) <= ecap
+            offered = offered & _ones(edge_fits)[None]
+            edge_used = edge_used + torch.where(edge_fits, rpc_size, 0)
         excl = exclusive_prefix_or(offered, axis=1)
         new_from_k = offered & ~excl & ~have_bits[:, None, :]
         new_any = (excl[:, -1] | offered[:, -1]) & ~have_bits  # [W, N]
@@ -429,7 +443,6 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
 
 def _check_path(cfg: SimConfig) -> None:
     refusals = [
-        (cfg.edge_queue_cap > 0, "edge_queue_cap"),
         (cfg.record_provenance, "record_provenance"),
     ]
     for refused, what in refusals:

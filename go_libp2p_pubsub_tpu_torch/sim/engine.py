@@ -41,8 +41,8 @@ def _later(item: int) -> str:
 def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for any config outside the ported paths:
     the step under every router (gossipsub with scoring, floodsub,
-    randomsub), flood publish, the peer gater, the validation-queue cap
-    and connection churn with PX, on the fused kernels or the non-fused data path (hop_mode
+    randomsub), flood publish, the peer gater, the validation and edge
+    queue caps and connection churn with PX, on the fused kernels or the non-fused data path (hop_mode
     ``auto``/``pallas``/``pallas-mxu``/``xla``) in the ``pallas`` or
     ``mxu`` gather formulation, uint8 or int32 hop counts (int32 on the
     non-fused path), with recorded invariants and the host key schedule.
@@ -50,7 +50,6 @@ def check_slice(cfg: SimConfig) -> None:
     refusals = [
         (cfg.fault_plan is not None, "fault_plan", 1),
         (cfg.record_provenance, "record_provenance", 1),
-        (cfg.edge_queue_cap > 0, "edge_queue_cap", 1),
         (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
          "subscription churn", 2),
         (cfg.invariant_mode != "record",

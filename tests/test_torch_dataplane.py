@@ -1,8 +1,9 @@
 """Parity of the port's data-plane branches against the JAX package on the
-CPU: flood publish, scoring on and off.
+CPU: flood publish (scoring on and off) and per-edge queue caps.
 
 The network is the headline's (``__graft_entry__._build(512, 32, 12)``)
-with ``prop_substeps=2``, so that gossip pulls are common. Each case runs 8 ticks of
+with ``prop_substeps=2``, so that gossip pulls are common and a cap meets
+them in the resolve as well as in the hops. Each case runs 8 ticks of
 ``engine.run`` from PRNGKey(0); the JAX side runs ``hop_mode="xla"``
 under its default gather formulation, the port its non-fused path under
 ``edge_gather_mode="pallas"`` and ``"mxu"`` (the reference pins its
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 from __graft_entry__ import _build
+from go_libp2p_pubsub_tpu.ops.propagate import forward_tick as jforward
 from go_libp2p_pubsub_tpu.sim.engine import step_jit as jstep
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops.hopkernel import resolve_hop_mode
+from go_libp2p_pubsub_tpu_torch.ops.propagate import forward_tick
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
                                             state_from_reference,
                                             state_to_numpy, step)
@@ -29,6 +32,12 @@ CASES = {
     "base": {},
     "flood": dict(flood_publish=True),
     "flood,no scoring": dict(flood_publish=True, scoring_enabled=False),
+    "edge cap 1": dict(edge_queue_cap=1),
+    "edge cap 2": dict(edge_queue_cap=2),
+    # the admission layers together: graylist, gater, edge cap, validation
+    "edge cap 1,validation cap 3,gater": dict(
+        edge_queue_cap=1, validation_queue_cap=3, gater_enabled=True,
+        ignore_fraction=0.1),
 }
 
 
@@ -60,6 +69,13 @@ def _port(jcfg, jtp, jst, gather):
                               edge_gather_mode=gather)
     return (cfg, TopicParams(*[torch.from_numpy(np.array(x)) for x in jtp]),
             state_from_reference(_arrays(jst), device="cpu"))
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))
 
 
 @pytest.fixture(scope="module")
@@ -95,8 +111,37 @@ def test_dataplane_run_equal(ref_runs, case, gather):
 @pytest.mark.parametrize("case", [c for c in CASES if c != "base"])
 def test_each_branch_changes_the_run(ref_runs, case):
     """Non-vacuous: each branch leaves another state than the plain run
-    (flood publish adds hop-0 offers)."""
+    (flood publish adds hop-0 offers, a cap drops RPCs)."""
     base = _arrays(ref_runs["base"][3])
     got = _arrays(ref_runs[case][3])
     differ = [f for f in base if not np.array_equal(base[f], got[f])]
     assert differ, case
+    if "cap" in case:
+        assert got["delivered_total"] < base["delivered_total"]
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+def test_edge_cap_binds_in_the_resolve(ref_runs, cap):
+    """A forward_tick with no hop (``prop_substeps=0``), so that the tick's
+    traffic is the IWANT resolve alone, from a state whose pending pulls
+    ask more than ``cap`` messages of one slot: the capped resolve drops
+    whole pulls (another state than the uncapped one) and the port's
+    equals the reference's in both formulations."""
+    jcfg, jtp, jst, jout, _ = ref_runs["base"]
+    pend = np.asarray(jout.iwant_pending)
+    per_slot = np.stack([(pend == s).sum(1) for s in range(jcfg.k_slots)], 1)
+    assert per_slot.max() > cap
+    from go_libp2p_pubsub_tpu.ops.heartbeat import heartbeat as jheartbeat
+    outs = {}
+    for c in (0, cap):
+        jc = dataclasses.replace(jcfg, prop_substeps=0, edge_queue_cap=c)
+        hb = jheartbeat(jout, jc, jtp, jax.random.PRNGKey(7))
+        outs[c] = jforward(hb.state, jc, jtp, hb.inc_gossip, hb.scores,
+                           jax.random.PRNGKey(8), fwd_send=hb.fwd_send)
+        for gather in ("pallas", "mxu"):
+            cfg, tp, st = _port(jc, jtp, hb.state, gather)
+            got = forward_tick(st, cfg, tp, _t(hb.inc_gossip), _t(hb.scores),
+                               rng.PRNGKey(8, device="cpu"),
+                               fwd_send=_t(hb.fwd_send))
+            _assert_equal(_arrays(outs[c]), state_to_numpy(got))
+    assert float(outs[cap].delivered_total) < float(outs[0].delivered_total)
