@@ -24,11 +24,11 @@ The emit is fused under every hop_mode but ``"xla"`` wherever W <= 8.
 The data plane's other branches follow the reference (propagate.py:146-177
 and :229-853): the floodsub and randomsub forwarding masks, flood publish
 (the sender-side score and direct planes through ``permutation_gather``,
-the origin words through ``gw``) and per-edge queue caps in the resolve
-and the hops. Flood publish and caps run on the non-fused path only
-(``hopkernel._hop_config_ok``). Provenance is a later slice and raises
-NotImplementedError; so is the fault plane, whose link/dup/censor inputs
-``forward_tick`` does not take yet (the engine refuses a plan).
+the origin words through ``gw``), per-edge queue caps in the resolve and
+the hops and delivery provenance (``deliver_from``). Flood publish, caps
+and provenance run on the non-fused path only (``hopkernel._hop_config_ok``).
+The fault plane, whose link/dup/censor inputs ``forward_tick`` does not
+take yet, is a later slice (the engine refuses a plan).
 """
 
 from __future__ import annotations
@@ -63,17 +63,17 @@ from .selection import select_random
 U8 = torch.uint8
 # the per-(topic, slot, receiver) hop-count accumulators (propagate.py:361-372)
 _COUNT_DTYPES = {"uint8": U8, "int32": I32}
-_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 1)"
 
 
 def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
             topics: torch.Tensor, key: torch.Tensor | None = None
             ) -> SimState:
     """Start ``P`` new messages this tick, rotating through message slots
-    (propagate.py:70-143): slot reuse resets the per-peer seen state,
-    non-subscribed publishers stamp ``fanout_lastpub``, malicious
-    publishers emit invalid messages, a ``cfg.ignore_fraction`` of honest
-    messages draw validation verdict IGNORE."""
+    (propagate.py:70-143): slot reuse resets the per-peer seen state (and
+    ``deliver_from`` under provenance), non-subscribed publishers stamp
+    ``fanout_lastpub``, malicious publishers emit invalid messages, a
+    ``cfg.ignore_fraction`` of honest messages draw validation verdict
+    IGNORE."""
     p = publishers.shape[0]
     m = cfg.msg_window
     if p > m:
@@ -102,6 +102,10 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     msg_ignored[slots] = ign
     msg_publisher = state.msg_publisher.clone()
     msg_publisher[slots] = publishers.to(I32)
+    deliver_from = state.deliver_from
+    if cfg.record_provenance:
+        deliver_from = deliver_from.clone()
+        deliver_from[:, slots] = -1
     # reset recycled slots (word-AND), then set the publisher's slot bit
     # (a scatter-add: the bits were just cleared and the slots of one batch
     # are distinct, so added bits never carry)
@@ -125,7 +129,7 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     return state._replace(msg_topic=msg_topic, msg_publish_tick=msg_publish_tick,
                           msg_invalid=msg_invalid, msg_ignored=msg_ignored,
                           msg_publisher=msg_publisher, have=have,
-                          deliver_tick=deliver_tick,
+                          deliver_tick=deliver_tick, deliver_from=deliver_from,
                           iwant_pending=iwant_pending,
                           fanout_lastpub=fanout_lastpub)
 
@@ -252,6 +256,8 @@ class _Traffic(NamedTuple):
     ni: torch.Tensor              # [T, K, N] invalid deliveries
     dup: torch.Tensor             # [T, K, N] mesh duplicates
     gater: dict | None            # ig, gdup, validated, throttled
+    nv_acc: torch.Tensor | None = None  # [W, K, N] first-delivery slot sets
+                                        # (provenance only)
 
 
 def _fused_traffic(state: SimState, cfg: SimConfig, tb: _Tables,
@@ -324,9 +330,9 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
     hop, and the admission layers in the reference's order (graylist and
     gater in ``tb.data_ok``, then the per-edge queue cap, then the
-    validation-queue cap), the gater's stats and flood publish's hop-0
-    offers. Counts are kept in ``cfg.count_dtype`` (uint8 wraps as the
-    reference's uint8 adds do)."""
+    validation-queue cap), the gater's stats, flood publish's hop-0 offers
+    and the provenance sets. Counts are kept in ``cfg.count_dtype`` (uint8
+    wraps as the reference's uint8 adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
     cdt = _COUNT_DTYPES[cfg.count_dtype]
@@ -381,6 +387,7 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     nv = topic_counts(got_valid)
     ni = topic_counts(got_k & tb.inv_n[:, None, :])
     dup = torch.zeros((t, k, n), dtype=cdt, device=have_bits.device)
+    nv_acc = got_valid if cfg.record_provenance else None
     if gater:
         ig = popcount_sum(got_k & tb.ign_n[:, None, :], axis=0, dtype=cdt)
         gdup = torch.zeros((k, n), dtype=cdt, device=have_bits.device)
@@ -415,7 +422,8 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
             # unbounded queue: every admitted message counts as validated
             validated = validated + popcount_sum(new_any, axis=0)
         new_valid = new_any & tb.vm
-        nv = nv + topic_counts(new_from_k & tb.vm[:, None, :])
+        nv_ev = new_from_k & tb.vm[:, None, :]
+        nv = nv + topic_counts(nv_ev)
         ni = ni + topic_counts(new_from_k & tb.inv_n[:, None, :])
         # mesh-delivery credit for every mesh sender of a message held
         # valid within the credit window (score.go:938-981)
@@ -430,6 +438,8 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
             gdup = gdup + popcount_sum(
                 offered & ~new_from_k & (have_bits | new_any)[:, None, :],
                 axis=0, dtype=cdt)
+        if nv_acc is not None:
+            nv_acc = nv_acc | nv_ev
         frontier = new_valid
         have_bits = have_bits | new_any
         dlv_bits = dlv_bits | new_valid
@@ -438,16 +448,7 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     stats = dict(ig=ig, gdup=gdup, validated=validated,
                  throttled=throttled) if gater else None
     return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup,
-                    stats)
-
-
-def _check_path(cfg: SimConfig) -> None:
-    refusals = [
-        (cfg.record_provenance, "record_provenance"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"forward_tick with {what} {_LATER}")
+                    stats, nv_acc)
 
 
 def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
@@ -466,7 +467,6 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     the heartbeat routed it (engine._iwant_answer_extras). ``key`` feeds
     randomsub's draw and the gater's admission draw. The fault plane's
     link/dup/censor inputs are not ported."""
-    _check_path(cfg)
     n, t, k = state.mesh.shape
     m = cfg.msg_window
     cdt = _COUNT_DTYPES.get(cfg.count_dtype)
@@ -570,6 +570,11 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     new_dlv_mask = unpack_words(newly_dlv, m)
     deliver_tick = torch.where(new_dlv_mask, tick, state.deliver_tick)
     delivered = popcount_sum(have_bits, axis=(0, 1)) - n_have_start
+    if tr.nv_acc is not None:
+        # provenance: the winning sender slot of each first delivery this
+        # tick, pulls included (trace export reads it)
+        state = state._replace(deliver_from=torch.where(
+            new_dlv_mask, _bits_to_slot(tr.nv_acc, m), state.deliver_from))
     state = state._replace(
         have=have_bits.T.contiguous(), deliver_tick=deliver_tick,
         first_message_deliveries=fmd,

@@ -42,14 +42,14 @@ def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for any config outside the ported paths:
     the step under every router (gossipsub with scoring, floodsub,
     randomsub), flood publish, the peer gater, the validation and edge
-    queue caps and connection churn with PX, on the fused kernels or the non-fused data path (hop_mode
+    queue caps, provenance and connection churn with PX, on the fused
+    kernels or the non-fused data path (hop_mode
     ``auto``/``pallas``/``pallas-mxu``/``xla``) in the ``pallas`` or
     ``mxu`` gather formulation, uint8 or int32 hop counts (int32 on the
     non-fused path), with recorded invariants and the host key schedule.
     Each refusal names the queue item that lifts it."""
     refusals = [
         (cfg.fault_plan is not None, "fault_plan", 1),
-        (cfg.record_provenance, "record_provenance", 1),
         (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
          "subscription churn", 2),
         (cfg.invariant_mode != "record",

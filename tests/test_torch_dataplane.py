@@ -1,5 +1,6 @@
 """Parity of the port's data-plane branches against the JAX package on the
-CPU: flood publish (scoring on and off) and per-edge queue caps.
+CPU: flood publish (scoring on and off), per-edge queue caps, and delivery
+provenance.
 
 The network is the headline's (``__graft_entry__._build(512, 32, 12)``)
 with ``prop_substeps=2``, so that gossip pulls are common and a cap meets
@@ -19,10 +20,11 @@ import torch
 
 from __graft_entry__ import _build
 from go_libp2p_pubsub_tpu.ops.propagate import forward_tick as jforward
+from go_libp2p_pubsub_tpu.ops.propagate import publish as jpublish
 from go_libp2p_pubsub_tpu.sim.engine import step_jit as jstep
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops.hopkernel import resolve_hop_mode
-from go_libp2p_pubsub_tpu_torch.ops.propagate import forward_tick
+from go_libp2p_pubsub_tpu_torch.ops.propagate import forward_tick, publish
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
                                             state_from_reference,
                                             state_to_numpy, step)
@@ -38,6 +40,10 @@ CASES = {
     "edge cap 1,validation cap 3,gater": dict(
         edge_queue_cap=1, validation_queue_cap=3, gater_enabled=True,
         ignore_fraction=0.1),
+    "provenance": dict(record_provenance=True),
+    "flood,edge cap 2,provenance,gater": dict(
+        flood_publish=True, edge_queue_cap=2, record_provenance=True,
+        gater_enabled=True, validation_queue_cap=8),
 }
 
 
@@ -111,13 +117,35 @@ def test_dataplane_run_equal(ref_runs, case, gather):
 @pytest.mark.parametrize("case", [c for c in CASES if c != "base"])
 def test_each_branch_changes_the_run(ref_runs, case):
     """Non-vacuous: each branch leaves another state than the plain run
-    (flood publish adds hop-0 offers, a cap drops RPCs)."""
+    (flood publish adds hop-0 offers, a cap drops RPCs, provenance writes
+    deliver_from)."""
     base = _arrays(ref_runs["base"][3])
     got = _arrays(ref_runs[case][3])
     differ = [f for f in base if not np.array_equal(base[f], got[f])]
     assert differ, case
     if "cap" in case:
         assert got["delivered_total"] < base["delivered_total"]
+    if "provenance" in case:
+        assert "deliver_from" in differ
+
+
+@pytest.mark.parametrize("case", ["provenance",
+                                  "flood,edge cap 2,provenance,gater"])
+def test_provenance_deliver_from_in_range(ref_runs, case):
+    """deliver_from holds a slot in [0, K) for every message a receiver
+    got from a neighbour, and -1 for the publisher's own and undelivered
+    ones; the port's equals the reference's (test_dataplane_run_equal)."""
+    jcfg, _, _, jout, _ = ref_runs[case]
+    df = np.asarray(jout.deliver_from)
+    dt = np.asarray(jout.deliver_tick)
+    pub = np.asarray(jout.msg_publisher)
+    assert ((df >= -1) & (df < jcfg.k_slots)).all()
+    got = (df >= 0)
+    assert got.sum() > 0
+    # a delivered message came from a slot unless the receiver published it
+    own = np.arange(N)[:, None] == pub[None, :]
+    assert (got == ((dt < 2 ** 30) & ~own)).mean() > 0.99
+    assert not (got & own).any()
 
 
 @pytest.mark.parametrize("cap", [1, 2])
@@ -145,3 +173,28 @@ def test_edge_cap_binds_in_the_resolve(ref_runs, cap):
                                fwd_send=_t(hb.fwd_send))
             _assert_equal(_arrays(outs[c]), state_to_numpy(got))
     assert float(outs[cap].delivered_total) < float(outs[0].delivered_total)
+
+
+def test_publish_resets_provenance(ref_runs):
+    """publish under record_provenance sets the recycled slots'
+    deliver_from to -1 for every receiver, and leaves it alone otherwise
+    (at tick 16 the 4 publishes recycle slots 0-3, delivered in tick 0)."""
+    jcfg, _, _, jout, _ = ref_runs["provenance"]
+    jst = jout._replace(tick=jax.numpy.int32(16))
+    slots = np.arange(4)
+    before = np.asarray(jst.deliver_from)[:, slots]
+    assert (before >= 0).any()
+    peers = np.asarray([3, 40, 300, 511], np.int32)
+    topics = np.zeros(4, np.int32)
+    for prov in (True, False):
+        jc = dataclasses.replace(jcfg, record_provenance=prov)
+        want = jpublish(jst, jc, peers, topics)
+        got = publish(state_from_reference(_arrays(jst), device="cpu"),
+                      SimConfig(**dataclasses.asdict(jc)),
+                      torch.from_numpy(peers), torch.from_numpy(topics))
+        _assert_equal(_arrays(want), state_to_numpy(got))
+        after = np.asarray(want.deliver_from)[:, slots]
+        if prov:
+            assert (after == -1).all()
+        else:
+            np.testing.assert_array_equal(after, before)

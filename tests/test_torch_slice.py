@@ -194,8 +194,7 @@ def test_step_refuses_configs_outside_the_slice():
 
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
-    for over in (dict(sub_leave_prob=0.1), dict(record_provenance=True),
-                 dict(invariant_mode="raise"),
+    for over in (dict(sub_leave_prob=0.1), dict(invariant_mode="raise"),
                  dict(key_schedule="fold_in"),
                  dict(edge_gather_mode="sort"),
                  dict(edge_gather_mode="scalar")):
