@@ -122,11 +122,14 @@ def bring_edges_up(state: SimState, cfg: SimConfig,
 
 def churn_edges(state: SimState, cfg: SimConfig, tp: TopicParams,
                 key: torch.Tensor,
-                scores_all: torch.Tensor | None = None) -> SimState:
+                scores_all: torch.Tensor | None = None,
+                forbid_up: torch.Tensor | None = None) -> SimState:
     """One churn round (churn.py:203-269): take down a random fraction of
     live edges, bring back a random fraction of down edges, PX-gated when
     ``cfg.px_enabled``. ``scores_all`` is the heartbeat's unmasked score
-    cache (HeartbeatOut.scores_all); without it the scores are computed."""
+    cache (HeartbeatOut.scores_all); without it the scores are computed.
+    ``forbid_up`` ([N, K] bool, symmetric) masks the edges a fault plan
+    holds down out of the reconnect draw."""
     kd, ku = rng.split(key, 2)
     known = state.neighbors >= 0
     down = known & ~state.connected
@@ -159,5 +162,7 @@ def churn_edges(state: SimState, cfg: SimConfig, tp: TopicParams,
     # (gossipsub.go:1648-1670), tick 0 included
     redial = (state.tick % cfg.direct_connect_ticks) == 0
     come_up = come_up | (down & direct_low & redial)
+    if forbid_up is not None:
+        come_up = come_up & ~forbid_up
     state = take_edges_down(state, cfg, tp, go_down)
     return bring_edges_up(state, cfg, come_up)

@@ -25,10 +25,11 @@ The data plane's other branches follow the reference (propagate.py:146-177
 and :229-853): the floodsub and randomsub forwarding masks, flood publish
 (the sender-side score and direct planes through ``permutation_gather``,
 the origin words through ``gw``), per-edge queue caps in the resolve and
-the hops and delivery provenance (``deliver_from``). Flood publish, caps
-and provenance run on the non-fused path only (``hopkernel._hop_config_ok``).
-The fault plane, whose link/dup/censor inputs ``forward_tick`` does not
-take yet, is a later slice (the engine refuses a plan).
+the hops, delivery provenance (``deliver_from``), and the fault plane's
+inputs: ``link_ok`` (lossy and slow links), ``dup_edges`` (re-offered
+deliveries) and ``censor_bits`` (withheld messages). Flood publish, caps,
+provenance, link faults and censors run on the non-fused path only
+(``hopkernel._hop_config_ok``).
 """
 
 from __future__ import annotations
@@ -66,14 +67,15 @@ _COUNT_DTYPES = {"uint8": U8, "int32": I32}
 
 
 def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
-            topics: torch.Tensor, key: torch.Tensor | None = None
-            ) -> SimState:
+            topics: torch.Tensor, key: torch.Tensor | None = None,
+            corrupt: torch.Tensor | None = None) -> SimState:
     """Start ``P`` new messages this tick, rotating through message slots
     (propagate.py:70-143): slot reuse resets the per-peer seen state (and
     ``deliver_from`` under provenance), non-subscribed publishers stamp
     ``fanout_lastpub``, malicious publishers emit invalid messages, a
     ``cfg.ignore_fraction`` of honest messages draw validation verdict
-    IGNORE."""
+    IGNORE. ``corrupt`` ([P] bool, sim/faults.py) marks publishes corrupted
+    in flight: honest receivers REJECT them as they do a sybil's."""
     p = publishers.shape[0]
     m = cfg.msg_window
     if p > m:
@@ -87,6 +89,8 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     slots = ((tick.long() * p + torch.arange(p, device=dev)) % m)
 
     invalid_pub = state.malicious[pub]
+    if corrupt is not None:
+        invalid_pub = invalid_pub | corrupt
     msg_topic = state.msg_topic.clone()
     msg_topic[slots] = topics.to(I32)
     msg_publish_tick = state.msg_publish_tick.clone()
@@ -324,15 +328,17 @@ def _flood_offer(state: SimState, cfg: SimConfig, tb: _Tables,
 
 
 def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
-                 dlv_bits, answer_bits, gw, answers_k, flood_offer
-                 ) -> _Traffic:
+                 dlv_bits, answer_bits, gw, answers_k, flood_offer,
+                 link_ok, dup_edges, censor) -> _Traffic:
     """Resolve and hops in the non-fused formulation (propagate.py:425-483
     and :635-725): packed [W, K, N] per-slot sets, one words gather per
     hop, and the admission layers in the reference's order (graylist and
     gater in ``tb.data_ok``, then the per-edge queue cap, then the
-    validation-queue cap), the gater's stats, flood publish's hop-0 offers
-    and the provenance sets. Counts are kept in ``cfg.count_dtype`` (uint8
-    wraps as the reference's uint8 adds do)."""
+    validation-queue cap), the gater's stats, flood publish's and link
+    duplication's hop-0 offers, censors' withheld forwards and the
+    provenance sets (the fault inputs as forward_tick takes them). Counts
+    are kept in ``cfg.count_dtype`` (uint8 wraps as the reference's uint8
+    adds do)."""
     n, t, k = state.mesh.shape
     w = have_bits.shape[0]
     cdt = _COUNT_DTYPES[cfg.count_dtype]
@@ -347,14 +353,19 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
                          dtype=cdt) for ti in range(t)])
 
     # -- step 1: last tick's IWANTs (gossipsub.go:698-739); pulled data is
-    # still data, so graylist, gater and both budgets apply
+    # still data, so graylist, gater, link faults and both budgets apply
     asked_k = _slot_bitplanes(state.iwant_pending, k) \
         & tb.alive_bits[:, None, None]
     if answers_k is None:
         answers_k = gw(answer_bits)                            # [W, K, N]
     got_k = asked_k & answers_k & ~have_bits[:, None, :] \
         & _ones(tb.data_ok.T)[None]
-    broken_k = asked_k & ~answers_k
+    if link_ok is None:
+        broken_k = asked_k & ~answers_k
+    else:
+        # an answer the link ate is still a broken promise; a graylist,
+        # gater or queue drop is not (propagate.py:441-451)
+        broken_k = asked_k & ~(answers_k & _ones(link_ok.T)[None])
     throttled = torch.zeros((n,), dtype=I32, device=have_bits.device)
     if ecap > 0:
         # a pull that would blow the edge's budget drops whole
@@ -382,6 +393,18 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     # -- step 2: eager forwarding, up to prop_substeps hops
     allowed = _edge_topic_bits(tb.fwd_mask, tb.topic_bits, w)  # [W, K, N]
     mesh_eb = _edge_topic_bits(state.mesh, tb.topic_bits, w)   # [W, K, N]
+    if dup_edges is not None:
+        # a duplicating mesh edge re-offers the sender's recent deliveries
+        # (its mcache gossip slice) on hop 0 (propagate.py:549-565)
+        age_d = state.tick - state.deliver_tick
+        dup_window = pack_words((age_d >= 0) & (age_d < cfg.history_gossip)) \
+            & tb.alive_bits[:, None]
+        if censor is not None:
+            dup_window = dup_window & ~censor
+        dup_kn = _ones((dup_edges & tb.data_ok).T)[None]
+        dup_offer = gw(dup_window) & mesh_eb & dup_kn
+    else:
+        dup_offer = None
     frontier = pack_words(state.deliver_tick == state.tick) | got_valid_any
     dlv_new = got_valid_any
     nv = topic_counts(got_valid)
@@ -394,9 +417,14 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     i = 0
     # the early exit reads the frontier on the host once per hop
     while i < cfg.prop_substeps and bool((frontier != 0).any()):
-        offered = gw(frontier) & allowed                       # [W, K, N]
-        if i == 0 and flood_offer is not None:
-            offered = offered | flood_offer
+        # censors hold censored messages out of their offers; they did
+        # receive them, so have and frontier keep them
+        src = frontier if censor is None else frontier & ~censor
+        offered = gw(src) & allowed                            # [W, K, N]
+        if i == 0:
+            for extra in (flood_offer, dup_offer):
+                if extra is not None:
+                    offered = offered | extra
         if ecap > 0:
             # drop-on-full, whole-RPC granularity (comm.go:156-191): the
             # hop's RPC on an edge fits the remaining budget or drops
@@ -455,7 +483,10 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                  inc_gossip: torch.Tensor, scores: torch.Tensor,
                  key: torch.Tensor, *,
                  fwd_send: torch.Tensor | None = None,
-                 answers_k: torch.Tensor | None = None) -> SimState:
+                 answers_k: torch.Tensor | None = None,
+                 link_ok: torch.Tensor | None = None,
+                 dup_edges: torch.Tensor | None = None,
+                 censor_bits: torch.Tensor | None = None) -> SimState:
     """One tick of data-plane traffic: resolve last tick's IWANTs, run up
     to ``prop_substeps`` forwarding hops, fold the counters, emit this
     tick's IHAVE/IWANT (propagate.py:229-853).
@@ -465,8 +496,14 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     makes the gossipsub router gather its own, and floodsub and randomsub
     take none. ``answers_k`` is the IWANT answer table's receiver view when
     the heartbeat routed it (engine._iwant_answer_extras). ``key`` feeds
-    randomsub's draw and the gater's admission draw. The fault plane's
-    link/dup/censor inputs are not ported."""
+    randomsub's draw and the gater's admission draw.
+
+    The fault plane's inputs (sim/faults.py): ``link_ok`` ([N, K] bool) is
+    the tick's lossy-link draw, ANDed into the data admission; a pull
+    answer it eats is still a broken promise. ``dup_edges`` ([N, K] bool)
+    makes mesh edges re-offer their recent deliveries on hop 0.
+    ``censor_bits`` ([W, N] packed) marks the slots each sender withholds:
+    no pull answer, no forward, while it still receives them."""
     n, t, k = state.mesh.shape
     m = cfg.msg_window
     cdt = _COUNT_DTYPES.get(cfg.count_dtype)
@@ -525,6 +562,9 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
         data_ok = accept_ok & (accept_data(state, cfg, k_gate) | mal[:, None])
     else:
         data_ok = accept_ok
+    if link_ok is not None:
+        # lossy links drop the edge's data plane for the tick
+        data_ok = data_ok & link_ok
     # P3 duplicate-credit window (score.go:949-981)
     age_dlv = tick - state.deliver_tick
     window_old = pack_words((age_dlv >= 0)
@@ -534,8 +574,11 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                  window_old, data_ok, fwd_mask & data_ok[:, None, :])
 
     # malicious sources never answer IWANTs; honest sources answer from
-    # their mcache, which rejected/ignored messages never enter
+    # their mcache, which rejected/ignored messages never enter; censors
+    # withhold the victim's messages
     answer_bits = torch.where(mal[None, :], zero, dlv_bits)            # [W,N]
+    if censor_bits is not None:
+        answer_bits = answer_bits & ~censor_bits
     if resolve_hop_mode(cfg) == "pallas":
         tr = _fused_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
                             nbr)
@@ -543,7 +586,8 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
         flood = _flood_offer(state, cfg, tb, scores, nbr, gw) \
             if cfg.flood_publish and cfg.router == "gossipsub" else None
         tr = _xla_traffic(state, cfg, tb, have_bits, dlv_bits, answer_bits,
-                          gw, answers_k, flood)
+                          gw, answers_k, flood, link_ok, dup_edges,
+                          censor_bits)
     have_bits, dlv_bits = tr.have, tr.dlv
 
     # [T,K,N] counts -> [N,T,K] f32 counter increments, folded with this

@@ -281,6 +281,12 @@ class SimConfig:
     # the dense reference. Ignored when degree_buckets is None.
     bucketed_rng: str = "dense"
 
+    def __post_init__(self):
+        # the port's own FaultPlan, also from a plan's dict form (what
+        # dataclasses.asdict makes of a reference config)
+        from .faults import as_plan
+        object.__setattr__(self, "fault_plan", as_plan(self.fault_plan))
+
     @staticmethod
     def from_params(n_peers: int, k_slots: int, n_topics: int = 1,
                     params: GossipSubParams | None = None,

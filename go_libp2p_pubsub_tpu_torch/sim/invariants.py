@@ -2,8 +2,8 @@
 of sim/invariants.py, ``"record"`` mode).
 
 The bit layout is the reference's (flags version 2): the low half-word
-holds injected-fault bits (set by the fault plane, a later slice of the
-port), bits 16+ invariant violations that must never hold in a healthy run.
+holds injected-fault bits (which faults of the plan fired, sim/faults.py),
+bits 16+ invariant violations that must never hold in a healthy run.
 """
 
 from __future__ import annotations
@@ -14,6 +14,17 @@ from .config import SimConfig
 from .state import NEVER, SimState
 
 FLAGS_VERSION = 2
+FAULT_LINK_DROP = 1 << 0     # >=1 link dropped a data plane this run
+FAULT_LINK_DUP = 1 << 1      # >=1 link duplicated traffic
+FAULT_PARTITION = 1 << 2     # a partition window was active
+FAULT_OUTAGE = 1 << 3        # an outage window was active
+FAULT_CORRUPT = 1 << 4       # >=1 honest publish was corrupted
+FAULT_STORM = 1 << 5         # a flash-crowd publish storm window was active
+FAULT_SLOWLINK = 1 << 6      # >=1 slow-link class stalled a live edge
+FAULT_ECLIPSE = 1 << 7       # an eclipse window was active
+FAULT_CENSOR = 1 << 8        # a censorship window was active
+FAULT_WAVE = 1 << 9          # a diurnal churn wave's dark phase was active
+
 FLAG_NONFINITE = 1 << 16     # NaN/Inf in a score counter / app score
 FLAG_NEG_COUNTER = 1 << 17   # a monotone/decayed counter went negative
 FLAG_MESH_DEAD_EDGE = 1 << 18  # mesh slot points at a down/absent edge
@@ -74,15 +85,19 @@ def violation_flags(state: SimState, cfg: SimConfig) -> torch.Tensor:
     return f
 
 
-def record_flags(state: SimState, cfg: SimConfig) -> SimState:
-    """OR this tick's violation bits into ``state.fault_flags``."""
+def record_flags(state: SimState, cfg: SimConfig,
+                 injected: torch.Tensor | None = None) -> SimState:
+    """OR this tick's violation bits, and the fault plane's ``injected``
+    bits when given, into ``state.fault_flags``."""
     if cfg.invariant_mode != "record":
         raise NotImplementedError(
             f"invariant_mode={cfg.invariant_mode!r}: the port records flags "
             "only; 'raise' and 'off' are not ported yet (ROADMAP.md, "
             "Queue 1 item 2)")
-    return state._replace(
-        fault_flags=state.fault_flags | violation_flags(state, cfg))
+    flags = violation_flags(state, cfg)
+    if injected is not None:
+        flags = flags | injected
+    return state._replace(fault_flags=state.fault_flags | flags)
 
 
 def decode_violations(flags: int) -> list[str]:

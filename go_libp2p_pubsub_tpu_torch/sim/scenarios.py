@@ -14,6 +14,14 @@ array-equal to the reference constructor's for the same arguments.
   (floodsub, randomsub, gossipsub), scoring off (scenarios.py:193-203).
   Floodsub and randomsub run no heartbeat; all three take the fused
   kernels. Its 128-friendly size is 102400.
+- ``partition_50k`` — fault scenario 6: 2 topics at 70% subscription, full
+  scoring, a 2-way partition on ticks [start, heal) with RemovePeer cuts
+  and a redial at ``heal`` (scenarios.py:206-235); the fused kernels.
+- ``outage_10k`` — fault scenario 7: background churn with PX, and 20% of
+  the peers dark on ticks [start, heal) (scenarios.py:238-262); the fused
+  kernels, churn's exchanges through ``permutation_gather``.
+- ``partition_small`` / ``outage_small`` — the two at sweep scale (512
+  peers, K = 16, degree 6, window [8, 20); scenarios.py:453-467).
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -25,6 +33,7 @@ import numpy as np
 from ..core.params import TopicScoreParams
 from . import topology
 from .config import SimConfig, TopicParams
+from .faults import FaultPlan, OutageWindow, PartitionWindow
 from .state import SimState, init_state
 
 SEED = 314159
@@ -93,3 +102,65 @@ def router_sweep_100k(router: str, n_peers: int = 100_000, k_slots: int = 32,
     return cfg, TopicParams.disabled(1, device=device), \
         init_state(cfg, topo, device=device)
 
+
+def partition_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
+                  n_topics: int = 2, start: int = 10, heal: int = 25,
+                  components: int = 2, device=None,
+                  topo: topology.Topology | None = None,
+                  ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Fault scenario 6: full scoring, a ``components``-way partition on
+    ticks [start, heal): cross-component edges go down with RemovePeer
+    semantics and redial at ``heal`` (sim/faults.py)."""
+    rng = np.random.default_rng(SEED)
+    subscribed = rng.random((n_peers, n_topics)) < 0.7
+    subscribed[~subscribed.any(axis=1), 0] = True
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=n_topics, msg_window=64,
+        publishers_per_tick=16, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_decay=0.999, gossip_threshold=-100.0,
+        publish_threshold=-200.0, graylist_threshold=-300.0,
+        retain_score_ticks=30,
+        fault_plan=FaultPlan(partitions=(
+            PartitionWindow(start, heal, components=components),)))
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, default_topic_params(n_topics, device=device), \
+        init_state(cfg, topo, subscribed=subscribed, device=device)
+
+
+def outage_10k(n_peers: int = 10_000, k_slots: int = 32, degree: int = 12,
+               fraction: float = 0.2, start: int = 10, heal: int = 25,
+               device=None, topo: topology.Topology | None = None,
+               ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Fault scenario 7: background churn with PX; a ``fraction`` of the
+    peers goes dark on ticks [start, heal) and returns through the
+    churn/backoff/retention path (sim/faults.py)."""
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=1, msg_window=64,
+        publishers_per_tick=8, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_decay=0.999, gossip_threshold=-100.0,
+        publish_threshold=-200.0, graylist_threshold=-300.0,
+        churn_disconnect_prob=0.005, churn_reconnect_prob=0.2,
+        px_enabled=True, accept_px_threshold=-50.0, retain_score_ticks=30,
+        fault_plan=FaultPlan(outages=(
+            OutageWindow(start, heal, fraction=fraction),)))
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, default_topic_params(1, device=device), \
+        init_state(cfg, topo, device=device)
+
+
+def partition_small(n_peers: int = 512, k_slots: int = 16, degree: int = 6,
+                    start: int = 8, heal: int = 20, **kw
+                    ) -> tuple[SimConfig, TopicParams, SimState]:
+    """partition_50k's 2-way cut and heal at sweep scale."""
+    return partition_50k(n_peers=n_peers, k_slots=k_slots, degree=degree,
+                         start=start, heal=heal, **kw)
+
+
+def outage_small(n_peers: int = 512, k_slots: int = 16, degree: int = 6,
+                 start: int = 8, heal: int = 20, **kw
+                 ) -> tuple[SimConfig, TopicParams, SimState]:
+    """outage_10k's 20%-dark regional outage at sweep scale."""
+    return outage_10k(n_peers=n_peers, k_slots=k_slots, degree=degree,
+                      start=start, heal=heal, **kw)

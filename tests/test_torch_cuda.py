@@ -362,3 +362,63 @@ def test_trajectory_cuda_equals_cpu():
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=f)
         else:
             np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+# the data plane's branches at 512 peers: both routers without a heartbeat,
+# flood publish, queue caps with provenance, and a plan of every fault
+# family (the victim publishes often as one of the storm's hot peers)
+_EVERY_FAMILY = ("drop=0.1,dup=0.2,corrupt=0.3,partition=2@1:4,"
+                 "outage=0.2@2:5,eclipse=0.1@3:6,censor=0.4x1@1:7,"
+                 "storm=4x0.9x0@2:5,slowlink=0.3@3:0.1,wave=0.25@4:2:8,seed=3")
+
+
+def _dataplane_case(case, dev, topo):
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    from go_libp2p_pubsub_tpu_torch.sim.faults import FaultPlan
+    if case in ("floodsub", "randomsub"):
+        return scenarios.router_sweep_100k(case, 512, device=dev, topo=topo)
+    if case == "every fault family":
+        cfg, tp, st = scenarios.partition_small(512, k_slots=K, degree=12,
+                                                device=dev, topo=topo)
+        mal = torch.zeros(512, dtype=torch.bool, device=dev)
+        mal[::25] = True
+        return (dataclasses.replace(
+            cfg, fault_plan=FaultPlan.parse(_EVERY_FAMILY)), tp,
+            st._replace(malicious=mal))
+    cfg, tp, st = build_headline(512, device=dev, topo=topo)
+    over = (dict(flood_publish=True) if case == "flood publish" else
+            dict(edge_queue_cap=2, record_provenance=True, prop_substeps=2,
+                 gater_enabled=True, validation_queue_cap=8))
+    return dataclasses.replace(cfg, **over), tp, st
+
+
+@pytest.mark.parametrize("case", ["floodsub", "randomsub", "flood publish",
+                                  "edge caps, provenance",
+                                  "every fault family"])
+def test_dataplane_trajectory_cuda_equals_cpu(case):
+    """8 ticks of each data-plane branch at 512 peers: the card's state
+    equals the CPU's after every tick (float32 within rtol 1e-6), and the
+    fault flags hold the plan's bits and no violation."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, state_to_numpy, step
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    runs = [_dataplane_case(case, dev, topo) for dev in ("cuda", "cpu")]
+    keys = [rng.split(rng.PRNGKey(0, device=dev), 8) for dev in ("cuda", "cpu")]
+    states = [r[2] for r in runs]
+    for tick in range(8):
+        states = [step(s, r[0], r[1], kk[tick], device=d) for s, r, kk, d
+                  in zip(states, runs, keys, ("cuda", "cpu"))]
+        a, b = (state_to_numpy(s) for s in states)
+        for f, x in a.items():
+            if x.dtype == np.float32:
+                np.testing.assert_allclose(x, b[f], rtol=1e-6, atol=0,
+                                           err_msg=f"{f}, tick {tick}")
+            else:
+                np.testing.assert_array_equal(x, b[f],
+                                              err_msg=f"{f}, tick {tick}")
+    flags = int(a["fault_flags"])
+    assert a["delivered_total"] > 0 and not flags & VIOLATION_MASK
+    assert (flags == 0x3FF) == (case == "every fault family")

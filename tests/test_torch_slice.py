@@ -135,8 +135,9 @@ def test_state_round_trip(ref_run):
 
 
 def test_port_imports_no_jax():
-    """The port imports and steps with jax unimportable, and neither it nor
-    chip_smoke.py imports the JAX package."""
+    """The port imports and steps with jax unimportable (the headline, the
+    churn path, a fault plan with flood publish, randomsub), and neither it
+    nor chip_smoke.py imports the JAX package."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.path.insert(0, %r)\n"
         "import pkgutil, importlib, go_libp2p_pubsub_tpu_torch as p\n"
@@ -154,6 +155,18 @@ def test_port_imports_no_jax():
         "    c = dataclasses.replace(cfg, hop_mode='xla', edge_gather_mode=g)\n"
         "    out = run(st, c, tp, rng.PRNGKey(0, device='cpu'), 2, device='cpu')\n"
         "    assert int(out.tick) == 2\n"
+        "from go_libp2p_pubsub_tpu_torch.sim import faults, invariants\n"
+        "cfg, tp, st = scenarios.partition_small(64, k_slots=8, degree=4, "
+        "start=0, heal=1, device='cpu')\n"
+        "cfg = dataclasses.replace(cfg, fault_plan=faults.FaultPlan.parse("
+        "'partition=2@0:1,drop=0.1,censor=0.3x1@0:2'), flood_publish=True)\n"
+        "out = run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, device='cpu')\n"
+        "assert int(out.fault_flags) == (invariants.FAULT_PARTITION | "
+        "invariants.FAULT_LINK_DROP | invariants.FAULT_CENSOR)\n"
+        "cfg, tp, st = scenarios.router_sweep_100k('randomsub', 64, k_slots=8, "
+        "degree=4, device='cpu')\n"
+        "assert int(run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, "
+        "device='cpu').tick) == 2\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'go_libp2p_pubsub_tpu.'))"
         " or n == 'go_libp2p_pubsub_tpu' for n in sys.modules if sys.modules[n])\n"
         "print('ok')\n") % REPO
@@ -198,7 +211,7 @@ def test_step_refuses_configs_outside_the_slice():
                  dict(key_schedule="fold_in"),
                  dict(edge_gather_mode="sort"),
                  dict(edge_gather_mode="scalar")):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item \d"):
+        with pytest.raises(NotImplementedError, match=r"Queue 1 item [2-9]"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
 
 
