@@ -56,16 +56,34 @@ Phases, each printing its own lines and its seconds:
    (as phase 4 compares); then one more tick whose edge_table calls and
    words gathers (W = 9 rows) are recorded, and each checked and timed as
    in phase 2 on that tick's real inputs;
+3d. the data plane: six paths, 8 ticks of ``step`` each with the counts
+   reset before and read after: ``router_sweep_100k("floodsub")`` and
+   ``("randomsub")`` at 102400 peers (no heartbeat), the headline with
+   ``flood_publish=True`` (102400, non-fused), ``partition_50k(51200,
+   start=2, heal=6)``, the same network under the combined plan of
+   tests/test_faults.py (link drop 0.2, corruption 0.5, a partition on
+   ticks [2, 5); non-fused) and ``outage_10k(10240, start=2, heal=6)``;
+   each prints hb/s, delivery, the edges down after every tick and its
+   launches, and must set exactly its plan's fault bits with no violation
+   bit, and (partition, combined plan, outage) take edges down and bring
+   them back; then one more tick whose every kernel call is recorded,
+   checked against its plain version and timed as in phase 2;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
 4b. the same for ``churn_50k(n_peers=1024)`` with the validation queue cap
    cut to 4 (throttle and RED drop live), under both gather formulations;
+4c. the same for the data plane's branches at 1024 peers: floodsub,
+   randomsub, flood publish, edge caps with provenance and the gater, and
+   a plan of every fault family (link drop, duplication, slow links,
+   corruption, partition, outage, eclipse, wave, censor, storm);
 5. the ``kernels`` JSON line, then the device JSON line last.
 
-The two underlays (102400 and 51200 peers; a pure-Python O(N^2) build) are
-made in child processes while the kernels are built and checked. Any
-failure exits non-zero without the last line. Imports nothing of JAX.
+The three underlays (102400, 51200 and 10240 peers; a pure-Python O(N^2)
+build) are made in child processes while the kernels are built and
+checked; phase 3d reuses the first two (``topology.sparse(n, 32,
+degree=12)`` at the scenarios' seed). Any failure exits non-zero without
+the last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -114,7 +132,23 @@ PATH_KERNELS = {
     "wide window": ({"edge_table", "gather_words"},
                     {"hop", "iwant_resolve", "emit", "permutation_gather",
                      "take_words"}),
+    # phase 3d: the data plane's branches
+    "floodsub": ({"hop", "iwant_resolve", "emit"},
+                 {"edge_table", "gather_words", "permutation_gather",
+                  "take_words"}),
+    "randomsub": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                  {"gather_words", "permutation_gather", "take_words"}),
+    "flood publish": ({"edge_table", "gather_words", "permutation_gather",
+                       "emit"}, {"hop", "iwant_resolve", "take_words"}),
+    "partition": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                  {"gather_words", "permutation_gather", "take_words"}),
+    "combined plan": ({"edge_table", "gather_words", "emit"},
+                      {"hop", "iwant_resolve", "permutation_gather",
+                       "take_words"}),
+    "outage": ({"edge_table", "hop", "iwant_resolve", "emit",
+                "permutation_gather"}, {"gather_words", "take_words"}),
 }
+N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
 
 
@@ -125,6 +159,45 @@ def row_sectors(idx, w):
     first = idx.long() * (4 * w) // SECTOR
     last = (idx.long() * (4 * w) + 4 * w - 1) // SECTOR
     return float((last - first + 1).double().mean()) if idx.numel() else 0.0
+
+
+# phase 4's data-plane trajectories: a plan of every fault family (peer 1,
+# the victim, is one of the storm's hot publishers)
+EVERY_FAMILY = ("drop=0.1,dup=0.2,corrupt=0.3,partition=2@1:4,outage=0.2@2:5,"
+                "eclipse=0.1@3:6,censor=0.4x1@1:7,storm=4x0.9x0@2:5,"
+                "slowlink=0.3@3:0.1,wave=0.25@4:2:8,seed=3")
+DATAPLANE_CASES = ("floodsub", "randomsub", "flood publish",
+                   "edge caps, provenance", "every fault family")
+
+
+def dataplane_case(what, n, dev, topo):
+    """(cfg, tp, state) of a data-plane branch at ``n`` peers on ``dev``:
+    the router sweep's floodsub and randomsub, the headline with flood
+    publish, the headline with edge caps, provenance and the gater (two
+    hops a tick, so that pulls meet the caps), and partition_small with
+    every fault family and a sybil in 25."""
+    import dataclasses
+    import torch
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    from go_libp2p_pubsub_tpu_torch.sim.faults import FaultPlan
+    if what in ("floodsub", "randomsub"):
+        return scenarios.router_sweep_100k(what, n, device=dev, topo=topo)
+    if what == "every fault family":
+        cfg, tp, st = scenarios.partition_small(n, k_slots=K, degree=12,
+                                                device=dev, topo=topo)
+        mal = torch.zeros(n, dtype=torch.bool, device=dev)
+        mal[::25] = True
+        return (dataclasses.replace(
+            cfg, fault_plan=FaultPlan.parse(EVERY_FAMILY)), tp,
+            st._replace(malicious=mal))
+    cfg, tp, st = build_headline(n, device=dev, topo=topo)
+    if what == "flood publish":
+        return dataclasses.replace(cfg, flood_publish=True), tp, st
+    if what == "edge caps, provenance":
+        return dataclasses.replace(
+            cfg, edge_queue_cap=2, record_provenance=True, prop_substeps=2,
+            gater_enabled=True, validation_queue_cap=8), tp, st
+    raise ValueError(f"unknown data-plane case {what!r}")
 
 
 def _build_topology(conn, n, k, degree):
@@ -919,6 +992,169 @@ class Smoke:
                 f"W={x_w.shape[0]},N={nbr.shape[0]},K={nbr.shape[1]},"
                 f"wide tick,call {i + 1}", x_w, nbr)
 
+    # ---- phase 3d: the data plane's branches ------------------------------
+    def dataplane_paths(self, topo_full, topo_churn, topo_outage):
+        """The six paths of phase 3d: (label, (cfg, tp, state), the fault
+        bits the plan must inject, whether its plan cuts and heals edges).
+        The routers and flood publish reuse the headline's 102400-peer
+        underlay, the partitions the churn path's 51200-peer one: all are
+        ``topology.sparse(n, 32, degree=12)`` at the scenarios' seed."""
+        import dataclasses
+        import inspect
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
+                                                    topology)
+        from go_libp2p_pubsub_tpu_torch.sim import invariants as inv
+        from go_libp2p_pubsub_tpu_torch.sim.faults import (FaultPlan,
+                                                           PartitionWindow)
+        if inspect.signature(topology.sparse).parameters["seed"].default \
+                != scenarios.SEED:
+            raise AssertionError("the underlays' seed is not the scenarios'")
+        dev = self.dev
+        cfg, tp, st = build_headline(N_FULL, device=dev, topo=topo_full)
+        flood = (dataclasses.replace(cfg, flood_publish=True), tp, st)
+        part = scenarios.partition_50k(N_CHURN, start=2, heal=6, device=dev,
+                                       topo=topo_churn)
+        # the combined plan of tests/test_faults.py's union test
+        combined = (dataclasses.replace(part[0], fault_plan=FaultPlan(
+            link_drop_prob=0.2, corrupt_prob=0.5,
+            partitions=(PartitionWindow(2, 5),))), part[1], part[2])
+        return [
+            ("floodsub", scenarios.router_sweep_100k(
+                "floodsub", N_FULL, device=dev, topo=topo_full), 0, False),
+            ("randomsub", scenarios.router_sweep_100k(
+                "randomsub", N_FULL, device=dev, topo=topo_full), 0, False),
+            ("flood publish", flood, 0, False),
+            ("partition", part, inv.FAULT_PARTITION, True),
+            ("combined plan", combined, inv.FAULT_LINK_DROP
+             | inv.FAULT_CORRUPT | inv.FAULT_PARTITION, True),
+            ("outage", scenarios.outage_10k(N_OUTAGE, start=2, heal=6,
+                                            device=dev, topo=topo_outage),
+             inv.FAULT_OUTAGE, True),
+        ]
+
+    def phase_dataplane(self, topo_full, topo_churn, topo_outage):
+        """Each path of :meth:`dataplane_paths`: 8 ticks of ``step`` from
+        one key (as ``run`` splits it), the counts reset just before and
+        read just after; hb/s over the 8 ticks, delivery, fault flags (the
+        plan's injected bits exactly, no violation), the edges down after
+        each tick (down, then back, where the plan cuts); then one more
+        tick whose kernel calls are recorded and each checked and timed as
+        in phase 2 on its own inputs."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.ops.hopkernel import (
+            resolve_emit_mode, resolve_hop_mode)
+        from go_libp2p_pubsub_tpu_torch.sim import delivery_fraction, step
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            VIOLATION_MASK, decode_violations)
+        for label, (cfg, tp, st), want_flags, cuts in self.dataplane_paths(
+                topo_full, topo_churn, topo_outage):
+            keys = rng.split(rng.PRNGKey(0, device=self.dev), 8)
+            known = st.neighbors >= 0
+            down = []
+            self.sync()
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            for tick in range(8):
+                st = step(st, cfg, tp, keys[tick], device=self.dev)
+                down.append((known & ~st.connected).sum())
+            self.sync()
+            secs = time.perf_counter() - t0
+            launches = dict(cudalib.LAUNCHES)
+            down = [int(d) for d in down]
+            flags = int(st.fault_flags) & 0xFFFFFFFF
+            delivered = float(st.delivered_total)
+            n = cfg.n_peers
+            print(f"data plane [{label}]: {n} peers, router {cfg.router}, "
+                  f"hop {resolve_hop_mode(cfg)}, emit "
+                  f"{resolve_emit_mode(cfg)}, plan "
+                  f"{cfg.fault_plan.format() if cfg.fault_plan else None}; "
+                  f"8 ticks in {secs:.3f} s = {8 / secs:.3f} hb/s; "
+                  f"delivery_fraction (age>=2) "
+                  f"{float(delivery_fraction(st, cfg, min_age_ticks=2)):.6f}; "
+                  f"edges down after each tick {down}; delivered_total "
+                  f"{delivered:.0f}; fault_flags 0x{flags:08x}", flush=True)
+            print(f"data plane [{label}] launches: {json.dumps(launches)}",
+                  flush=True)
+            self.check_launches(label, launches)
+            if delivered <= 0:
+                raise AssertionError(f"{label}: the path delivered nothing")
+            if flags & VIOLATION_MASK:
+                raise AssertionError(f"{label}: invariant violations "
+                                     f"{decode_violations(flags)}")
+            if flags != want_flags:
+                raise AssertionError(f"{label}: fault_flags 0x{flags:x}, the "
+                                     f"plan injects 0x{want_flags:x}")
+            if cuts and not (max(down) > down[-1] and max(down) > down[0]):
+                raise AssertionError(f"{label}: the plan's edges did not go "
+                                     f"down and come back: {down}")
+            self.check_recorded(label, st, cfg, tp)
+
+    def check_recorded(self, label, st, cfg, tp):
+        """One more tick of a path from ``st`` with every kernel wrapper
+        recorded where the path calls it; each call checked against its
+        plain version and timed, as in phase 2, on its own inputs."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import churn
+        from go_libp2p_pubsub_tpu_torch.ops import heartbeat as hb
+        from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        from go_libp2p_pubsub_tpu_torch.ops import propagate
+        from go_libp2p_pubsub_tpu_torch.sim import step
+        targets = [(hb, "edge_table"), (propagate, "iwant_resolve"),
+                   (propagate, "hop"), (propagate, "emit"),
+                   (pg, "gather_words"), (propagate, "permutation_gather"),
+                   (churn, "permutation_gather")]
+        calls = self.record_calls(targets, lambda: step(
+            st, cfg, tp, rng.PRNGKey(5, device=self.dev), device=self.dev))
+        counts = {name: len(c) for name, c in calls.items()}
+        print(f"data plane [{label}]: the recorded tick's calls {counts}",
+              flush=True)
+
+        def nb(*xs):
+            return sum(x.numel() * x.element_size() for x in xs
+                       if isinstance(x, torch.Tensor))
+
+        for i, (args, _) in enumerate(calls["edge_table"]):
+            self.check_edge_table(f"B={args[3]},{label},call {i + 1}",
+                                  *args[:4])
+        for i, (args, _) in enumerate(calls["iwant_resolve"]):
+            self.check_resolve(f"T={args[7].shape[0]},{label},call {i + 1}",
+                               args[:9], args[9])
+        for i, (hop_in, _) in enumerate(calls["hop"]):
+            w, n = hop_in[1].shape
+            k, t = hop_in[8].shape[1], hop_in[11].shape[0]
+            self.check_kernel("hop", f"T={t},{label},hop {i + 1}", hk.hop,
+                              hk.hop_plain, hop_in,
+                              nb(*hop_in) + 4 * w * n * 4 + nb(*hop_in[12:]),
+                              n * k * w * (16 + 8 * t))
+        for i, (args, kwargs) in enumerate(calls["emit"]):
+            emit_in, m = args[:5], args[5]
+            budget = kwargs.get("budget", args[6] if len(args) > 6 else None)
+            w, n = emit_in[0].shape
+            k, t = emit_in[4].shape[1], emit_in[3].shape[0]
+            self.check_kernel(
+                "emit", f"T={t},budget={budget},{label},call {i + 1}",
+                lambda *a, m=m, b=budget: hk.emit(*a, m, b),
+                lambda *a, m=m, b=budget: hk.emit_plain(*a, m, b), emit_in,
+                nb(*emit_in) + n * m * 4, n * k * w * (8 + 2 * t) + n * m)
+        for i, (args, _) in enumerate(calls["gather_words"]):
+            x_w, nbr = args[:2]
+            self.check_gather_words(
+                f"W={x_w.shape[0]},N={nbr.shape[0]},{label},call {i + 1}",
+                x_w, nbr)
+        for i, (args, _) in enumerate(calls["permutation_gather"]):
+            payload, jn, rk = args[:3]
+            n, k = jn.shape
+            self.check_kernel(
+                "permutation_gather",
+                f"{payload.dtype},N={n},{label},call {i + 1}",
+                pg.permutation_gather, pg.permutation_gather_plain,
+                [payload, jn, rk], nb(payload, jn, rk) + n * k * 4, 0,
+                library_fn=lambda p=payload, j=jn.long(), r=rk.long():
+                p[j, r])
+
     # ---- phase 4 / 4b: the card's trajectory against the CPU's -----------
     def phase_trajectory(self, what="headline", gather=None):
         import dataclasses
@@ -928,13 +1164,14 @@ class Smoke:
         from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
                                                     step, state_to_numpy,
                                                     topology)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
         n = 1024
         topo = topology.sparse(n, K, degree=12)
         devs = (self.dev, torch.device("cpu"))
         if what == "headline":
             runs = [build_headline(n, device=d, topo=topo) for d in devs]
             label = f"{n} peers"
-        else:
+        elif what == "churn":
             runs = []
             for d in devs:
                 cfg, tp, st = scenarios.churn_50k(n_peers=n, device=d,
@@ -944,6 +1181,9 @@ class Smoke:
                     validation_queue_cap=4), tp, st))
             label = (f"churn_50k({n}) cap 4, hop_mode=xla, "
                      f"edge_gather_mode={gather}")
+        else:
+            runs = [dataplane_case(what, n, d, topo) for d in devs]
+            label = f"{what}, {n} peers"
         keys = [rng.split(rng.PRNGKey(0, device=d), 8) for d in devs]
         states = [r[2] for r in runs]
         for tick in range(8):
@@ -961,13 +1201,18 @@ class Smoke:
                         f"trajectory [{label}]: field {f} differs between "
                         f"{devs[0]} and cpu after tick {tick}")
         extra = ""
-        if what != "headline":
+        if what == "churn":
             extra = (f"; gater_throttle sum "
                      f"{float(states[0].gater_throttle.double().sum()):.4f}")
+        flags = int(states[0].fault_flags) & 0xFFFFFFFF
+        if flags & VIOLATION_MASK or (what == "every fault family"
+                                      and flags != 0x3FF):
+            raise AssertionError(f"trajectory [{label}]: fault_flags "
+                                 f"0x{flags:08x}")
         print(f"trajectory [{label}]: 8 ticks on {devs[0]} equal to the CPU "
               f"run (integer/bool/packed exact, float32 rtol 1e-6); "
-              f"delivered_total {float(states[0].delivered_total):.0f}"
-              f"{extra}", flush=True)
+              f"delivered_total {float(states[0].delivered_total):.0f}; "
+              f"fault_flags 0x{flags:08x}{extra}", flush=True)
 
     def kernels_line(self):
         rows = []
@@ -1016,7 +1261,7 @@ def main() -> int:
     # built and checked
     ctx = mp.get_context("spawn")
     topo_jobs = {}
-    for n in (smoke.n, N_CHURN):
+    for n in (smoke.n, N_CHURN, N_OUTAGE):
         parent, child = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=_build_topology, args=(child, n, K, 12),
                            daemon=True)
@@ -1024,12 +1269,15 @@ def main() -> int:
         child.close()
         topo_jobs[n] = (parent, proc)
 
+    topos = {}
+
     def topology_of(n):
-        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
-        parent, proc = topo_jobs[n]
-        topo = Topology(*parent.recv())
-        proc.join()
-        return topo
+        if n not in topos:
+            from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+            parent, proc = topo_jobs[n]
+            topos[n] = Topology(*parent.recv())
+            proc.join()
+        return topos[n]
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -1063,10 +1311,16 @@ def main() -> int:
         timed("3b (churn path)", lambda: smoke.phase_churn(
             topology_of(N_CHURN)))
         timed("3c (wide window)", smoke.phase_wide)
+        timed("3d (data plane)", lambda: smoke.phase_dataplane(
+            topology_of(smoke.n), topology_of(N_CHURN),
+            topology_of(N_OUTAGE)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
                   "churn", gather)
+        for case in DATAPLANE_CASES:
+            timed(f"4c (data-plane trajectory, {case})",
+                  smoke.phase_trajectory, case)
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
