@@ -68,6 +68,17 @@ Phases, each printing its own lines and its seconds:
    bit, and (partition, combined plan, outage) take edges down and bring
    them back; then one more tick whose every kernel call is recorded,
    checked against its plain version and timed as in phase 2;
+3e. the BASELINE configs at full size, 8 ticks of ``run`` each with the
+   counts reset before and read after: ``single_topic_1k(1024)``,
+   ``beacon_10k(10240)`` (T = 9 topics, K = 48 slots: the fused kernels'
+   K > 32 branches and 27-word bit-table rows), the same beacon network
+   with attestation-subnet rotation (subscription churn at 0.01 a tick, a
+   stress rate, not the chain's real rotation) and ``sybil_100k(102400)``
+   (churn with PX); each prints hb/s, delivery and its launches and must
+   end with fault_flags 0; the rotation prints the subscriptions left and
+   joined, sybil the share of honest peers' mesh edges that point at
+   sybils after ticks 1 and 8; then one more tick whose every kernel call
+   is recorded, checked and timed as in phase 3d;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
@@ -77,13 +88,21 @@ Phases, each printing its own lines and its seconds:
    randomsub, flood publish, edge caps with provenance and the gater, and
    a plan of every fault family (link drop, duplication, slow links,
    corruption, partition, outage, eclipse, wave, censor, storm);
+4d. the same for ``beacon_10k(1024)`` with subscription churn (0.02 a tick)
+   and ``sybil_small(1024)``; then ``single_topic_1k(1024)`` under
+   ``key_schedule="fold_in"``, tick by tick (``run_window`` of one tick)
+   on the card against the CPU, two ``run_window`` chunks (3 + 5) and one
+   8-tick ``run`` on the card equal to it exactly; then ``run_checked``
+   under ``invariant_mode="raise"``: a clean run passes, and a state
+   poisoned with an infinite ``mesh_failure_penalty`` raises on the card
+   with the violation bits and tick it raises with on the CPU;
 5. the ``kernels`` JSON line, then the device JSON line last.
 
-The three underlays (102400, 51200 and 10240 peers; a pure-Python O(N^2)
-build) are made in child processes while the kernels are built and
-checked; phase 3d reuses the first two (``topology.sparse(n, 32,
-degree=12)`` at the scenarios' seed). Any failure exits non-zero without
-the last line. Imports nothing of JAX.
+The four underlays (102400, 51200 and 10240 peers at K = 32, and the
+beacon network's 10240 peers at K = 48; a pure-Python O(N^2) build) are
+made in child processes while the kernels are built and checked; phases
+3d and 3e reuse them (``topology.sparse`` at the scenarios' seed). Any
+failure exits non-zero without the last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -147,8 +166,22 @@ PATH_KERNELS = {
                        "take_words"}),
     "outage": ({"edge_table", "hop", "iwant_resolve", "emit",
                 "permutation_gather"}, {"gather_words", "take_words"}),
+    # phase 3e: the BASELINE configs
+    "single_topic_1k": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                        {"gather_words", "permutation_gather", "take_words"}),
+    "beacon_10k": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                   {"gather_words", "permutation_gather", "take_words"}),
+    "beacon rotation": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                        {"gather_words", "permutation_gather",
+                         "take_words"}),
+    "sybil_100k": ({"edge_table", "hop", "iwant_resolve", "emit",
+                    "permutation_gather"}, {"gather_words", "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
+N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
+# the beacon network's attestation-subnet rotation: a stress rate, not the
+# chain's ~27-hour rotation
+ROTATION_PROB = 0.01
 N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
 
 
@@ -198,6 +231,31 @@ def dataplane_case(what, n, dev, topo):
             cfg, edge_queue_cap=2, record_provenance=True, prop_substeps=2,
             gater_enabled=True, validation_queue_cap=8), tp, st
     raise ValueError(f"unknown data-plane case {what!r}")
+
+
+BASELINE_CASES = ("beacon_10k, subscription churn", "sybil_small")
+
+
+def baseline_case(what, n, dev, topo):
+    """(cfg, tp, state) of a BASELINE card case at ``n`` peers on ``dev``:
+    beacon_10k (T = 9, K = 48) with subscription churn at 0.02 a tick, and
+    sybil_small on its own K = 16, degree-6 underlay."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios
+    if what == "sybil_small":
+        return scenarios.sybil_small(n, device=dev, topo=topo)
+    cfg, tp, st = scenarios.beacon_10k(n, device=dev, topo=topo)
+    return dataclasses.replace(cfg, sub_leave_prob=0.02,
+                               sub_join_prob=0.02), tp, st
+
+
+def trajectory_topology(what, n):
+    """The underlay of a phase-4 case: the scenario's own (K, degree) at
+    the scenarios' seed."""
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    k, degree = {"sybil_small": (16, 6)}.get(
+        what, (K_BEACON, 16) if what.startswith("beacon") else (K, 12))
+    return topology.sparse(n, k, degree=degree)
 
 
 def _build_topology(conn, n, k, degree):
@@ -697,7 +755,7 @@ class Smoke:
                                                     delivery_fraction,
                                                     mesh_degrees, run)
         from go_libp2p_pubsub_tpu_torch.sim.invariants import (
-            VIOLATION_MASK, decode_violations)
+            VIOLATION_MASK, decode_flags)
         cfg, tp, st = build_headline(self.n, device=self.dev, topo=topo)
         key = rng.PRNGKey(0, device=self.dev)
         self.sync()
@@ -724,7 +782,7 @@ class Smoke:
             raise AssertionError("the main path delivered nothing")
         if flags & VIOLATION_MASK:
             raise AssertionError(f"invariant violations: "
-                                 f"{decode_violations(flags)}")
+                                 f"{decode_flags(flags)}")
         self.real_fused_kernels(out, cfg, tp)
 
     def real_fused_kernels(self, st, cfg, tp):
@@ -830,7 +888,7 @@ class Smoke:
         from go_libp2p_pubsub_tpu_torch.sim import (delivery_fraction, run,
                                                     scenarios, state_to_numpy)
         from go_libp2p_pubsub_tpu_torch.sim.invariants import (
-            VIOLATION_MASK, decode_violations)
+            VIOLATION_MASK, decode_flags)
         cfg, tp, st0 = scenarios.churn_50k(n_peers=N_CHURN, device=self.dev,
                                            topo=topo)
         self.real_index_kernels(st0)
@@ -873,7 +931,7 @@ class Smoke:
                 raise AssertionError(f"the {path} path delivered nothing")
             if flags & VIOLATION_MASK:
                 raise AssertionError(f"{path}: invariant violations "
-                                     f"{decode_violations(flags)}")
+                                     f"{decode_flags(flags)}")
             if conn1 == conn0:
                 raise AssertionError(f"{path}: no edge changed state")
             if float(out.gater_validate.sum()) <= 0:
@@ -907,7 +965,7 @@ class Smoke:
         from go_libp2p_pubsub_tpu_torch.sim import (build_headline, step,
                                                     state_to_numpy, topology)
         from go_libp2p_pubsub_tpu_torch.sim.invariants import (
-            VIOLATION_MASK, decode_violations)
+            VIOLATION_MASK, decode_flags)
         topo = topology.sparse(N_WIDE, K, degree=12)
         devs = (self.dev, torch.device("cpu"))
         runs = []
@@ -957,7 +1015,7 @@ class Smoke:
             raise AssertionError("the wide-window path delivered nothing")
         if flags & VIOLATION_MASK:
             raise AssertionError(f"wide window: invariant violations "
-                                 f"{decode_violations(flags)}")
+                                 f"{decode_flags(flags)}")
         self.real_wide_kernels(card, cfg, runs[0][1])
 
     def real_wide_kernels(self, st, cfg, tp):
@@ -1046,7 +1104,7 @@ class Smoke:
             resolve_emit_mode, resolve_hop_mode)
         from go_libp2p_pubsub_tpu_torch.sim import delivery_fraction, step
         from go_libp2p_pubsub_tpu_torch.sim.invariants import (
-            VIOLATION_MASK, decode_violations)
+            VIOLATION_MASK, decode_flags)
         for label, (cfg, tp, st), want_flags, cuts in self.dataplane_paths(
                 topo_full, topo_churn, topo_outage):
             keys = rng.split(rng.PRNGKey(0, device=self.dev), 8)
@@ -1081,7 +1139,7 @@ class Smoke:
                 raise AssertionError(f"{label}: the path delivered nothing")
             if flags & VIOLATION_MASK:
                 raise AssertionError(f"{label}: invariant violations "
-                                     f"{decode_violations(flags)}")
+                                     f"{decode_flags(flags)}")
             if flags != want_flags:
                 raise AssertionError(f"{label}: fault_flags 0x{flags:x}, the "
                                      f"plan injects 0x{want_flags:x}")
@@ -1090,7 +1148,7 @@ class Smoke:
                                      f"down and come back: {down}")
             self.check_recorded(label, st, cfg, tp)
 
-    def check_recorded(self, label, st, cfg, tp):
+    def check_recorded(self, label, st, cfg, tp, phase="data plane"):
         """One more tick of a path from ``st`` with every kernel wrapper
         recorded where the path calls it; each call checked against its
         plain version and timed, as in phase 2, on its own inputs."""
@@ -1109,7 +1167,7 @@ class Smoke:
         calls = self.record_calls(targets, lambda: step(
             st, cfg, tp, rng.PRNGKey(5, device=self.dev), device=self.dev))
         counts = {name: len(c) for name, c in calls.items()}
-        print(f"data plane [{label}]: the recorded tick's calls {counts}",
+        print(f"{phase} [{label}]: the recorded tick's calls {counts}",
               flush=True)
 
         def nb(*xs):
@@ -1162,11 +1220,10 @@ class Smoke:
         torch = self.torch
         from go_libp2p_pubsub_tpu_torch import rng
         from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
-                                                    step, state_to_numpy,
-                                                    topology)
+                                                    step, state_to_numpy)
         from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
         n = 1024
-        topo = topology.sparse(n, K, degree=12)
+        topo = trajectory_topology(what, n)
         devs = (self.dev, torch.device("cpu"))
         if what == "headline":
             runs = [build_headline(n, device=d, topo=topo) for d in devs]
@@ -1181,6 +1238,9 @@ class Smoke:
                     validation_queue_cap=4), tp, st))
             label = (f"churn_50k({n}) cap 4, hop_mode=xla, "
                      f"edge_gather_mode={gather}")
+        elif what in BASELINE_CASES:
+            runs = [baseline_case(what, n, d, topo) for d in devs]
+            label = f"{what}, {n} peers"
         else:
             runs = [dataplane_case(what, n, d, topo) for d in devs]
             label = f"{what}, {n} peers"
@@ -1204,6 +1264,13 @@ class Smoke:
         if what == "churn":
             extra = (f"; gater_throttle sum "
                      f"{float(states[0].gater_throttle.double().sum()):.4f}")
+        if what.startswith("beacon"):
+            sub0, sub1 = runs[0][2].subscribed, states[0].subscribed
+            moved = (int((sub0 & ~sub1).sum()), int((~sub0 & sub1).sum()))
+            if not all(moved):
+                raise AssertionError(f"trajectory [{label}]: subscriptions "
+                                     f"left, joined {moved}")
+            extra = f"; subscriptions left {moved[0]}, joined {moved[1]}"
         flags = int(states[0].fault_flags) & 0xFFFFFFFF
         if flags & VIOLATION_MASK or (what == "every fault family"
                                       and flags != 0x3FF):
@@ -1213,6 +1280,203 @@ class Smoke:
               f"run (integer/bool/packed exact, float32 rtol 1e-6); "
               f"delivered_total {float(states[0].delivered_total):.0f}; "
               f"fault_flags 0x{flags:08x}{extra}", flush=True)
+
+    # ---- phase 3e: the BASELINE configs at full size ---------------------
+    def baseline_paths(self, topo_full, topo_beacon):
+        """The four paths of phase 3e: (label, (cfg, tp, state)).
+        single_topic_1k builds its own 1024-peer underlay; the beacon
+        network's is ``topology.sparse(10240, 48, degree=16)``; sybil_100k
+        reuses the headline's 102400-peer ``topology.sparse(n, 32,
+        degree=12)``, all at the scenarios' seed."""
+        import dataclasses
+        from go_libp2p_pubsub_tpu_torch.sim import scenarios
+        dev = self.dev
+        beacon = scenarios.beacon_10k(N_BEACON, device=dev, topo=topo_beacon)
+        cfg, tp, st = beacon
+        rotation = (dataclasses.replace(cfg, sub_leave_prob=ROTATION_PROB,
+                                        sub_join_prob=ROTATION_PROB), tp,
+                    st._replace(**{f: getattr(st, f).clone()
+                                   for f in st._fields}))
+        return [
+            ("single_topic_1k", scenarios.single_topic_1k(1024, device=dev)),
+            ("beacon_10k", beacon),
+            ("beacon rotation", rotation),
+            ("sybil_100k", scenarios.sybil_100k(N_FULL, device=dev,
+                                                topo=topo_full)),
+        ]
+
+    def phase_baseline(self, topo_full, topo_beacon):
+        """Each path of :meth:`baseline_paths`: 8 ticks of ``run`` from one
+        key, the counts reset just before and read just after; hb/s,
+        delivery, launches, fault flags 0; the rotation's subscriptions
+        left and joined; sybil's share of honest peers' mesh edges that
+        point at sybils after tick 1 (``run_keys`` over the first of
+        ``window_keys``' rows, outside the timed run) and after tick 8,
+        as information. Then one more tick whose kernel calls are
+        recorded, checked and timed as in phase 2."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.ops.hopkernel import (
+            resolve_emit_mode, resolve_hop_mode)
+        from go_libp2p_pubsub_tpu_torch.sim import (delivery_fraction, run,
+                                                    run_keys, window_keys)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import decode_flags
+
+        def sybil_share(s):
+            honest = ~s.malicious
+            nbr = s.neighbors.clamp(0, s.neighbors.shape[0] - 1).long()
+            to_sybil = s.malicious[nbr][:, None, :]
+            mesh = s.mesh & honest[:, None, None]
+            return float((mesh & to_sybil).sum()) / max(int(mesh.sum()), 1)
+
+        for label, (cfg, tp, st) in self.baseline_paths(topo_full,
+                                                        topo_beacon):
+            key = rng.PRNGKey(0, device=self.dev)
+            extra = ""
+            if label == "sybil_100k":
+                first = run_keys(st, cfg, tp, window_keys(cfg, key, 0, 0, 1, 8),
+                                 device=self.dev)
+                extra = (f"; honest mesh edges to sybils "
+                         f"{100 * sybil_share(first):.3f}% after tick 1")
+            self.sync()
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            out = run(st, cfg, tp, key, 8, device=self.dev)
+            self.sync()
+            secs = time.perf_counter() - t0
+            launches = dict(cudalib.LAUNCHES)
+            flags = int(out.fault_flags) & 0xFFFFFFFF
+            delivered = float(out.delivered_total)
+            if label == "sybil_100k":
+                extra += (f", {100 * sybil_share(out):.3f}% after tick 8 "
+                          f"(information only)")
+            if label == "beacon rotation":
+                left = int((st.subscribed & ~out.subscribed).sum())
+                joined = int((~st.subscribed & out.subscribed).sum())
+                extra = (f"; subscription churn {ROTATION_PROB} a tick (a "
+                         f"stress rate, not the chain's ~27-hour subnet "
+                         f"rotation): {left} subscriptions left, {joined} "
+                         f"joined over 8 ticks")
+                if not (left and joined):
+                    raise AssertionError(f"{label}: subscriptions left "
+                                         f"{left}, joined {joined}")
+            print(f"BASELINE [{label}]: {cfg.n_peers} peers, T={cfg.n_topics}, "
+                  f"K={cfg.k_slots}, hop {resolve_hop_mode(cfg)}, emit "
+                  f"{resolve_emit_mode(cfg)}; 8 ticks of run in {secs:.3f} s "
+                  f"= {8 / secs:.3f} hb/s; delivery_fraction (age>=2) "
+                  f"{float(delivery_fraction(out, cfg, min_age_ticks=2)):.6f}"
+                  f"; delivered_total {delivered:.0f}; fault_flags "
+                  f"0x{flags:08x}{extra}", flush=True)
+            print(f"BASELINE [{label}] launches: {json.dumps(launches)}",
+                  flush=True)
+            self.check_launches(label, launches)
+            if delivered <= 0:
+                raise AssertionError(f"{label}: the path delivered nothing")
+            if flags:
+                raise AssertionError(f"{label}: fault_flags 0x{flags:x} "
+                                     f"{decode_flags(flags)}")
+            self.check_recorded(label, out, cfg, tp, phase="BASELINE")
+
+    # ---- phase 4d: the fold_in schedule and run_checked on the card -------
+    def phase_fold_in(self):
+        """single_topic_1k(1024) under ``key_schedule="fold_in"``: tick by
+        tick (``run_window`` of one tick) on the card and on the CPU,
+        compared after every tick as phase 4 compares; on the card, two
+        ``run_window`` chunks (3 + 5) and one 8-tick ``run`` must equal
+        the tick-by-tick run in every field, exactly."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (run, run_window, scenarios,
+                                                    state_to_numpy)
+        n = 1024
+        topo = trajectory_topology("single_topic_1k", n)
+        devs = (self.dev, torch.device("cpu"))
+        runs = []
+        for d in devs:
+            cfg, tp, st = scenarios.single_topic_1k(n, device=d, topo=topo)
+            runs.append((dataclasses.replace(cfg, key_schedule="fold_in"), tp,
+                         st))
+        keys = [rng.PRNGKey(0, device=d) for d in devs]
+        states = [r[2] for r in runs]
+        for tick in range(8):
+            states = [run_window(s, r[0], r[1], kk, 1, device=d)
+                      for s, r, kk, d in zip(states, runs, keys, devs)]
+            a, b = (state_to_numpy(s) for s in states)
+            for f in a:
+                x, y = a[f], b[f]
+                same = (np.allclose(x, y, rtol=1e-6, atol=0.0)
+                        if x.dtype == np.float32 else np.array_equal(x, y))
+                if not same:
+                    raise AssertionError(
+                        f"fold_in: field {f} differs between the card and "
+                        f"the CPU after tick {tick}")
+        cfg, tp, st = runs[0]
+        chunked = run_window(run_window(st, cfg, tp, keys[0], 3,
+                                        device=self.dev),
+                             cfg, tp, keys[0], 5, device=self.dev)
+        whole = run(st, cfg, tp, keys[0], 8, device=self.dev)
+        want = state_to_numpy(states[0])
+        for what, s in (("run_window 3 + 5", chunked), ("run 8", whole)):
+            got = state_to_numpy(s)
+            differ = [f for f in want if not np.array_equal(want[f], got[f])]
+            if differ:
+                raise AssertionError(f"fold_in: {what} differs from the "
+                                     f"tick-by-tick run in {differ}")
+        print(f"fold_in [single_topic_1k({n})]: 8 ticks of run_window(1) on "
+              f"{devs[0]} equal to the CPU run after every tick (integer/"
+              f"bool/packed exact, float32 rtol 1e-6); run_window 3 + 5 and "
+              f"run 8 equal to it in every field; delivered_total "
+              f"{float(states[0].delivered_total):.0f}", flush=True)
+
+    def phase_checked(self):
+        """``run_checked`` under ``invariant_mode="raise"`` on
+        single_topic_1k(1024): a clean 4-tick run passes on the card and
+        equals the CPU's; the state poisoned as tests/test_faults.py
+        poisons it (``mesh_failure_penalty[0,0,0] = inf``) raises on the
+        card with the violation bits and tick it raises with on the CPU."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (run_checked, scenarios,
+                                                    state_to_numpy)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            InvariantViolation, decode_flags)
+        n = 1024
+        topo = trajectory_topology("single_topic_1k", n)
+        clean, raised = [], []
+        for d in (self.dev, torch.device("cpu")):
+            cfg, tp, st = scenarios.single_topic_1k(n, device=d, topo=topo)
+            cfg = dataclasses.replace(cfg, invariant_mode="raise")
+            clean.append(state_to_numpy(run_checked(
+                st, cfg, tp, rng.PRNGKey(0, device=d), 4, device=d)))
+            mfp = st.mesh_failure_penalty.clone()
+            mfp[0, 0, 0] = float("inf")
+            try:
+                run_checked(st._replace(mesh_failure_penalty=mfp), cfg, tp,
+                            rng.PRNGKey(0, device=d), 4, device=d)
+            except InvariantViolation as e:
+                raised.append((e.flags, e.tick, str(e)))
+            else:
+                raise AssertionError(f"run_checked on {d}: the poisoned "
+                                     f"state did not raise")
+        if raised[0][:2] != raised[1][:2] or not raised[0][0]:
+            raise AssertionError(f"run_checked: the card raised {raised[0]}, "
+                                 f"the CPU {raised[1]}")
+        for f, x in clean[0].items():
+            y = clean[1][f]
+            same = (np.allclose(x, y, rtol=1e-6, atol=0.0)
+                    if x.dtype == np.float32 else np.array_equal(x, y))
+            if not same:
+                raise AssertionError(f"run_checked: the clean run's field {f} "
+                                     f"differs between the card and the CPU")
+        print(f"run_checked [single_topic_1k({n}), invariant_mode=raise]: a "
+              f"clean 4-tick run passes on {self.dev}, equal to the CPU's; "
+              f"the poisoned state raises on both at tick {raised[0][1]} with "
+              f"fault_flags=0x{raised[0][0]:08x} {decode_flags(raised[0][0])}"
+              f" (card: {raised[0][2]!r})", flush=True)
 
     def kernels_line(self):
         rows = []
@@ -1257,27 +1521,29 @@ def main() -> int:
         return 1
     smoke = Smoke()
 
-    # the two underlays build in child processes while the kernels are
+    # the four underlays build in child processes while the kernels are
     # built and checked
     ctx = mp.get_context("spawn")
     topo_jobs = {}
-    for n in (smoke.n, N_CHURN, N_OUTAGE):
+    for shape in ((smoke.n, K, 12), (N_CHURN, K, 12), (N_OUTAGE, K, 12),
+                  (N_BEACON, K_BEACON, 16)):
         parent, child = ctx.Pipe(duplex=False)
-        proc = ctx.Process(target=_build_topology, args=(child, n, K, 12),
+        proc = ctx.Process(target=_build_topology, args=(child, *shape),
                            daemon=True)
         proc.start()
         child.close()
-        topo_jobs[n] = (parent, proc)
+        topo_jobs[shape] = (parent, proc)
 
     topos = {}
 
-    def topology_of(n):
-        if n not in topos:
+    def topology_of(n, k=K, degree=12):
+        shape = (n, k, degree)
+        if shape not in topos:
             from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
-            parent, proc = topo_jobs[n]
-            topos[n] = Topology(*parent.recv())
+            parent, proc = topo_jobs[shape]
+            topos[shape] = Topology(*parent.recv())
             proc.join()
-        return topos[n]
+        return topos[shape]
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -1314,6 +1580,8 @@ def main() -> int:
         timed("3d (data plane)", lambda: smoke.phase_dataplane(
             topology_of(smoke.n), topology_of(N_CHURN),
             topology_of(N_OUTAGE)))
+        timed("3e (BASELINE configs)", lambda: smoke.phase_baseline(
+            topology_of(smoke.n), topology_of(N_BEACON, K_BEACON, 16)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
@@ -1321,6 +1589,11 @@ def main() -> int:
         for case in DATAPLANE_CASES:
             timed(f"4c (data-plane trajectory, {case})",
                   smoke.phase_trajectory, case)
+        for case in BASELINE_CASES:
+            timed(f"4d (BASELINE trajectory, {case})",
+                  smoke.phase_trajectory, case)
+        timed("4d (fold_in schedule, run_window chunks)", smoke.phase_fold_in)
+        timed("4d (run_checked)", smoke.phase_checked)
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)

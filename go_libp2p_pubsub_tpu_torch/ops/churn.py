@@ -9,8 +9,9 @@ dropped, and the score is retained. An edge coming back after more than
 Both directions of an edge go down and up together: the lower-id
 endpoint's draw wins, exchanged through the reverse-edge permutation
 (``permutation_gather``, kernel 6, or the flat take under
-``edge_gather_mode="mxu"``). Subscription churn (``churn_subscriptions``)
-and the sharded halo route are a later slice.
+``edge_gather_mode="mxu"``). Subscription churn
+(:func:`churn_subscriptions`) is the topic Join/Leave round. The sharded
+halo route is a later slice (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import torch
 
 from .. import rng
 from ..sim.config import SimConfig, TopicParams
-from ..sim.state import NEVER, SimState
+from ..sim.state import NEVER, SimState, refresh_nbr_subscribed
 from .bits import pack_bool, to_i32
+from .heartbeat import edge_gather
 from .permgather import permutation_gather, resolve_gather_mode
 from .score_ops import apply_prune_penalty, compute_scores
 
@@ -65,6 +67,48 @@ def _symmetric_bools(state: SimState, bits: list,
     mine = _mine_wins(state)
     return [torch.where(mine, b, ((g >> i) & 1).bool())
             for i, b in enumerate(bits)]
+
+
+def churn_subscriptions(state: SimState, cfg: SimConfig, tp: TopicParams,
+                        key: torch.Tensor) -> SimState:
+    """One batched topic Join/Leave round (churn.py:93-144).
+
+    Leave (gossipsub.go:1104-1124): the leaver PRUNEs every mesh member of
+    the topic; both sides drop the edge, take the P3b prune penalty and
+    enter the unsubscribe backoff. Join (gossipsub.go:1047-1102): live
+    fanout edges not under backoff on either side promote straight into
+    the mesh, mirrored on the remote side; the rest fill in at the next
+    heartbeat's undersubscribed graft. The three receiver views are bool
+    masks, so they ride the packed exchange."""
+    n, t, k = state.mesh.shape
+    kj, kl = rng.split(key, 2)
+    leave = state.subscribed & (rng.uniform(kl, (n, t)) < cfg.sub_leave_prob)
+    join = ~state.subscribed & (rng.uniform(kj, (n, t)) < cfg.sub_join_prob)
+
+    mode = cfg.edge_gather_mode
+    removed = state.mesh & leave[:, :, None]
+    mesh_removed = removed | (edge_gather(removed, state, mode=mode)
+                              & state.mesh)
+    state = apply_prune_penalty(state, mesh_removed, tp)
+    backoff = torch.where(mesh_removed,
+                          state.tick + cfg.unsubscribe_backoff_ticks,
+                          state.backoff)
+
+    backoff_ok = state.tick >= backoff
+    remote_ok = edge_gather(backoff_ok, state, mode=mode)
+    promote = join[:, :, None] & state.fanout & \
+        state.connected[:, None, :] & backoff_ok & remote_ok
+    promoted = promote | edge_gather(promote, state, mode=mode)
+    new_mesh = (state.mesh & ~mesh_removed) | promoted
+    grafted = promoted & ~state.mesh
+    state = refresh_nbr_subscribed(state._replace(
+        subscribed=(state.subscribed | join) & ~leave))
+    return state._replace(
+        mesh=new_mesh, backoff=backoff,
+        fanout=state.fanout & ~join[:, :, None],
+        fanout_lastpub=torch.where(join, NEVER, state.fanout_lastpub),
+        graft_tick=torch.where(grafted, state.tick, state.graft_tick),
+        mesh_active=state.mesh_active & ~grafted)
 
 
 def take_edges_down(state: SimState, cfg: SimConfig, tp: TopicParams,

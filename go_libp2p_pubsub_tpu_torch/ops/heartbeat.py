@@ -33,15 +33,29 @@ from .selection import masked_median, select_random, select_top
 
 def edge_gather(x: torch.Tensor, state: SimState, fill=False,
                 mode: str = "auto") -> torch.Tensor:
-    """incoming[j, t, s] = x[neighbors[j,s], t, reverse_slot[j,s]], invalid
-    slots False (heartbeat.py:40-57), for a boolean mask: it rides the
-    packed exchange. The reference's indexed gather of other dtypes and
-    fills has no caller on the ported paths and raises."""
-    if x.dtype != torch.bool or fill is not False:
-        raise NotImplementedError(
-            f"edge_gather of a {x.dtype} plane with fill={fill!r} is not "
-            "ported yet (ROADMAP.md, Queue 1 item 2)")
-    return edge_gather_packed([x], state, mode)[0][0]
+    """incoming[j, t, s] = x[neighbors[j,s], t, reverse_slot[j,s]]
+    (heartbeat.py:40-57): the receiver-side view of per-edge state, invalid
+    slots reading ``fill``. A boolean mask with ``fill=False`` rides the
+    packed exchange; other dtypes and fills take the indexed gather, whose
+    output type is the reference's (``x``'s, or float32 for a float fill
+    of an integer or bool plane, int32 for an int fill of a bool plane)."""
+    if x.dtype == torch.bool and fill is False:
+        return edge_gather_packed([x], state, mode)[0][0]
+    n, t, k = x.shape
+    j = state.neighbors.clamp(0, n - 1).long()[:, None, :]
+    rk = state.reverse_slot.clamp(0, k - 1).long()[:, None, :]
+    tt = torch.arange(t, device=x.device)[None, :, None]
+    y = x[j, tt, rk]
+    valid = ((state.neighbors >= 0) & (state.reverse_slot >= 0))[:, None, :]
+    # jnp.where's promotion of a Python scalar fill
+    if isinstance(fill, float) and not y.dtype.is_floating_point:
+        dtype = torch.float32
+    elif y.dtype == torch.bool and not isinstance(fill, bool):
+        dtype = torch.int32
+    else:
+        dtype = y.dtype
+    return torch.where(valid, y.to(dtype),
+                       torch.tensor(fill, dtype=dtype, device=x.device))
 
 
 def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",

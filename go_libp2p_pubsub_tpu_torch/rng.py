@@ -69,12 +69,13 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
-    d = int(data) & _M32
-    z = torch.zeros(1, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], z, z + d)
-    return torch.cat([b1, b2])
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for 32-bit ``data``: a Python int
+    or an integer tensor on the key's device (a tick counter folds with
+    no host read). A tensor of shape S gives keys of shape S + [2]."""
+    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
+    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:

@@ -13,8 +13,10 @@ from .state import (  # noqa: F401
     state_to_numpy,
 )
 
-_ENGINE_EXPORTS = ("choose_publishers", "delivery_fraction", "mesh_degrees",
-                   "run", "step")
+_ENGINE_EXPORTS = ("choose_publishers", "delivery_fraction",
+                   "delivery_latency_ticks", "mesh_degrees", "run",
+                   "run_checked", "run_checked_keys", "run_keys",
+                   "run_window", "step", "window_keys")
 
 
 def __getattr__(name):

@@ -1,21 +1,38 @@
 """The simulation engine: one step = faults + publish + heartbeat + traffic
-+ churn (port of sim/engine.py on the ported paths).
++ churn (port of sim/engine.py).
 
     step: (state, key) -> state
       0. apply_faults       (fault plans) partition/outage/eclipse/wave cuts
                             and heals, this tick's link and corruption draws
-      1. publish            P scenario-chosen messages enter the network
-      2. gater_decay        (gater configs) the peer gater's stats decay
-      3. heartbeat          mesh maintenance + GRAFT/PRUNE exchange + gossip
+      1. churn_subscriptions (sub churn configs) topic Join/Leave round
+      2. publish            P scenario-chosen messages enter the network
+      3. gater_decay        (gater configs) the peer gater's stats decay
+      4. heartbeat          mesh maintenance + GRAFT/PRUNE exchange + gossip
                             peer selection (score decay applies inline);
                             floodsub and randomsub run none
-      4. forward_tick       IWANT resolution, forwarding hops, IHAVE emit
-      5. churn_edges        (churn configs) edges go down and come back
-      6. record_flags       injected-fault and violation bits close the tick
+      5. forward_tick       IWANT resolution, forwarding hops, IHAVE emit
+      6. churn_edges        (churn configs) edges go down and come back
+      7. record_flags       injected-fault and violation bits close the tick
+                            (skipped under invariant_mode="off")
 
-``run`` splits ONE master key into per-tick keys on the host, as the
-reference's ``key_schedule="host"``, and steps eagerly. Every config
-outside the ported paths raises NotImplementedError (:func:`check_slice`).
+The entry points step eagerly, one Python loop iteration a tick, as the
+reference's ``lax.scan``s do on device:
+
+- :func:`run` dispatches on ``key_schedule``: ``"host"`` splits ONE master
+  key into per-tick keys (:func:`run_keys` over them), ``"fold_in"``
+  derives each tick's key from the master and the state's absolute tick
+  (:func:`run_window`), so any chunking of a run lands on the same
+  trajectory;
+- :func:`window_keys` gives the per-tick keys of a window of a run under
+  either schedule;
+- :func:`run_checked` / :func:`run_checked_keys` escalate
+  ``invariant_mode="raise"``: the tick's violation bits are read on the
+  host after every tick, and the first tick that sets one raises
+  :class:`~.invariants.InvariantViolation`. The plain entry points refuse
+  ``"raise"`` with a ValueError, as the reference's do.
+
+Configs outside the ported paths raise NotImplementedError
+(:func:`check_slice`).
 """
 
 from __future__ import annotations
@@ -25,7 +42,7 @@ import torch
 from .. import rng
 from ..device import check_on
 from ..ops.bits import pack_words
-from ..ops.churn import churn_edges
+from ..ops.churn import churn_edges, churn_subscriptions
 from ..ops.gater import gater_decay
 from ..ops.heartbeat import HeartbeatOut, heartbeat
 from ..ops.hopkernel import resolve_hop_mode
@@ -33,7 +50,8 @@ from ..ops.permgather import resolve_gather_mode
 from ..ops.propagate import forward_tick, publish
 from .config import SimConfig, TopicParams
 from .faults import apply_faults, censor_word_mask, storm_publishers
-from .invariants import FAULT_CORRUPT, record_flags
+from .invariants import (FAULT_CORRUPT, VIOLATION_MASK, InvariantViolation,
+                         tick_flags)
 from .state import NEVER, SimState, unpack_have
 
 
@@ -45,18 +63,13 @@ def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for any config outside the ported paths:
     the step under every router (gossipsub with scoring, floodsub,
     randomsub), flood publish, the peer gater, the validation and edge
-    queue caps, provenance, every fault-plan family and connection churn
-    with PX, on the fused kernels or the non-fused data path (hop_mode
-    ``auto``/``pallas``/``pallas-mxu``/``xla``) in the ``pallas`` or
-    ``mxu`` gather formulation, uint8 or int32 hop counts (int32 on the
-    non-fused path), with recorded invariants and the host key schedule.
-    Each refusal names the queue item that lifts it."""
+    queue caps, provenance, every fault-plan family, connection churn
+    with PX and subscription churn, on the fused kernels or the non-fused
+    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in the
+    ``pallas`` or ``mxu`` gather formulation, uint8 or int32 hop counts
+    (int32 on the non-fused path), under every invariant mode and key
+    schedule. Each refusal names the queue item that lifts it."""
     refusals = [
-        (cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0,
-         "subscription churn", 2),
-        (cfg.invariant_mode != "record",
-         f"invariant_mode={cfg.invariant_mode!r}", 2),
-        (cfg.key_schedule != "host", f"key_schedule={cfg.key_schedule!r}", 2),
         (cfg.state_precision != "f32",
          f"state_precision={cfg.state_precision!r}", 5),
         (cfg.degree_buckets is not None, "degree_buckets", 8),
@@ -110,12 +123,10 @@ def _iwant_answer_extras(state: SimState, cfg: SimConfig,
     return [answer_bits]
 
 
-def step(state: SimState, cfg: SimConfig, tp: TopicParams,
-         key: torch.Tensor, device=None) -> SimState:
-    """Advance the network one heartbeat on ``device`` (cuda unless the
-    caller passes ``device="cpu"``; the state must lie there)."""
-    check_on(state.tick.device, device)
-    check_slice(cfg)
+def _step(state: SimState, cfg: SimConfig, tp: TopicParams,
+          key: torch.Tensor) -> tuple[SimState, torch.Tensor | None]:
+    """One tick (engine.py:103-192): the next state and this tick's flag
+    word (violation | injected bits; None under ``invariant_mode="off"``)."""
     if cfg.fault_plan is not None:
         # the fault pass opens the tick; its key split exists only under a
         # plan, so plan-free configs keep their exact stream
@@ -123,7 +134,9 @@ def step(state: SimState, cfg: SimConfig, tp: TopicParams,
         state, fault = apply_faults(state, cfg, tp, k_fault)
     else:
         fault = None
-    k_pub, k_hb, k_fwd, k_churn, k_ign, _k_sub = rng.split(key, 6)
+    k_pub, k_hb, k_fwd, k_churn, k_ign, k_sub = rng.split(key, 6)
+    if cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0:
+        state = churn_subscriptions(state, cfg, tp, k_sub)
     peers, topics = choose_publishers(state, cfg, k_pub)
     if fault is not None and fault.corrupt is not None:
         # effective corruption: a draw on a malicious publisher corrupts
@@ -167,20 +180,146 @@ def step(state: SimState, cfg: SimConfig, tp: TopicParams,
                             scores_all=hb.scores_all,
                             forbid_up=fault.want_down if fault is not None
                             else None)
-    state = record_flags(state, cfg, injected=fault.injected
-                         if fault is not None else None)
-    return state._replace(tick=state.tick + 1)
+    flags = None
+    if cfg.invariant_mode != "off":
+        # the sentinel closes the tick: injected-fault bits and invariant
+        # violations OR into the sticky flag word
+        flags = tick_flags(state, cfg, injected=fault.injected
+                           if fault is not None else None)
+        state = state._replace(fault_flags=state.fault_flags | flags)
+    return state._replace(tick=state.tick + 1), flags
+
+
+def step(state: SimState, cfg: SimConfig, tp: TopicParams,
+         key: torch.Tensor, device=None) -> SimState:
+    """Advance the network one heartbeat on ``device`` (cuda unless the
+    caller passes ``device="cpu"``; the state must lie there). Under
+    ``invariant_mode="raise"`` it computes the ``"record"`` state; only
+    :func:`run_checked` and :func:`run_checked_keys` raise."""
+    check_on(state.tick.device, device)
+    check_slice(cfg)
+    return _step(state, cfg, tp, key)[0]
+
+
+def _ticks(state: SimState, cfg: SimConfig, tp: TopicParams, n_ticks: int,
+           key_of, checked: bool) -> SimState:
+    """Step ``n_ticks`` times, tick i under the key ``key_of(i, state)``.
+    ``checked`` under ``invariant_mode="raise"`` reads each tick's
+    violation bits on the host and raises at the first tick that sets
+    one."""
+    check_slice(cfg)
+    check = checked and cfg.invariant_mode == "raise"
+    for i in range(n_ticks):
+        state, flags = _step(state, cfg, tp, key_of(i, state))
+        if check:
+            viol = int(flags) & VIOLATION_MASK
+            if viol:
+                raise InvariantViolation(viol, int(state.tick) - 1)
+    return state
+
+
+def _plain(cfg: SimConfig, what: str) -> None:
+    """The reference's unchecked entry points cannot evaluate a checkify
+    check, so ``"raise"`` fails there; so it does here."""
+    if cfg.invariant_mode == "raise":
+        raise ValueError(
+            f"{what} under invariant_mode='raise': the raise mode escalates "
+            "through run_checked or run_checked_keys (use 'record' for a "
+            "plain run)")
+
+
+def _folded(key: torch.Tensor):
+    """Tick keys of the ``"fold_in"`` schedule: the master folded with the
+    state's absolute tick, on the state's device (no host read)."""
+    return lambda i, st: rng.fold_in(key, st.tick)
+
+
+def _rows(keys: torch.Tensor):
+    return lambda i, st: keys[i]
+
+
+def _schedule(state: SimState, cfg: SimConfig, key: torch.Tensor,
+              n_ticks: int):
+    """``key_of`` of a run of ``n_ticks`` from one master key under
+    ``cfg.key_schedule`` (engine.py:238-250): the host pre-split, or one
+    fold of the master with the state's tick before each step."""
+    key = key.to(state.tick.device)
+    if cfg.key_schedule == "fold_in":
+        return _folded(key)
+    if cfg.key_schedule != "host":
+        raise ValueError(f"unknown key_schedule {cfg.key_schedule!r}; "
+                         "expected 'host' or 'fold_in'")
+    return _rows(rng.split(key, n_ticks))
 
 
 def run(state: SimState, cfg: SimConfig, tp: TopicParams, key: torch.Tensor,
         n_ticks: int, device=None) -> SimState:
-    """Advance ``n_ticks`` heartbeats: one master key split into per-tick
-    keys (the reference's ``key_schedule="host"``)."""
+    """Advance ``n_ticks`` heartbeats from one master key under
+    ``cfg.key_schedule``."""
     check_on(state.tick.device, device)
-    keys = rng.split(key.to(state.tick.device), n_ticks)
-    for i in range(n_ticks):
-        state = step(state, cfg, tp, keys[i], device=state.tick.device)
-    return state
+    _plain(cfg, "run")
+    return _ticks(state, cfg, tp, n_ticks,
+                  _schedule(state, cfg, key, n_ticks), False)
+
+
+def run_keys(state: SimState, cfg: SimConfig, tp: TopicParams,
+             keys: torch.Tensor, telemetry: bool = False,
+             device=None) -> SimState:
+    """Advance one tick per row of ``keys`` ([C, 2]): the chunkable core of
+    ``run`` (engine.py:195-218). Any contiguous windows of ``run``'s own
+    keys (:func:`window_keys`) land on ``run``'s trajectory."""
+    check_on(state.tick.device, device)
+    _plain(cfg, "run_keys")
+    if telemetry:
+        raise NotImplementedError(
+            "run_keys(telemetry=True): the health records of "
+            f"sim/telemetry.py {_later(5)}")
+    return _ticks(state, cfg, tp, keys.shape[0],
+                  _rows(keys.to(state.tick.device)), False)
+
+
+def run_window(state: SimState, cfg: SimConfig, tp: TopicParams,
+               key: torch.Tensor, n_ticks: int, device=None) -> SimState:
+    """The ``key_schedule="fold_in"`` core (engine.py:221-235): each tick's
+    key is ``fold_in(key, state.tick)``, folded on the state's device, so
+    any chunking of a run, or a resume from a saved tick, lands on the
+    same trajectory."""
+    check_on(state.tick.device, device)
+    _plain(cfg, "run_window")
+    return _ticks(state, cfg, tp, n_ticks,
+                  _folded(key.to(state.tick.device)), False)
+
+
+def window_keys(cfg: SimConfig, key: torch.Tensor, start_tick: int,
+                lo: int, hi: int, n_ticks: int) -> torch.Tensor:
+    """The [hi - lo, 2] per-tick keys that a run of ``n_ticks`` from
+    ``start_tick`` consumes for its run-relative window ``[lo, hi)``
+    (engine.py:253-266): a slice of the one master split under ``"host"``,
+    folds of the absolute tick numbers under ``"fold_in"``."""
+    if cfg.key_schedule == "fold_in":
+        return rng.fold_in(key, torch.arange(start_tick + lo, start_tick + hi,
+                                             device=key.device))
+    return rng.split(key, n_ticks)[lo:hi]
+
+
+def run_checked(state: SimState, cfg: SimConfig, tp: TopicParams,
+                key: torch.Tensor, n_ticks: int, device=None) -> SimState:
+    """``run`` with the invariant sentinel escalated (engine.py:297-312):
+    under ``invariant_mode="raise"`` the first tick that sets a violation
+    bit raises :class:`~.invariants.InvariantViolation` with that tick's
+    violation bits. Under the other modes, a plain run."""
+    check_on(state.tick.device, device)
+    return _ticks(state, cfg, tp, n_ticks,
+                  _schedule(state, cfg, key, n_ticks), True)
+
+
+def run_checked_keys(state: SimState, cfg: SimConfig, tp: TopicParams,
+                     keys: torch.Tensor, device=None) -> SimState:
+    """``run_keys`` with the invariant sentinel escalated, as
+    :func:`run_checked` (engine.py:315-331)."""
+    check_on(state.tick.device, device)
+    return _ticks(state, cfg, tp, keys.shape[0],
+                  _rows(keys.to(state.tick.device)), True)
 
 
 def mesh_degrees(state: SimState) -> torch.Tensor:
@@ -202,3 +341,18 @@ def delivery_fraction(state: SimState, cfg: SimConfig,
         should = should & (state.msg_topic == topic)[None, :]
     got = unpack_have(state, cfg.msg_window) & should
     return got.sum() / torch.clamp(should.sum(), min=1)
+
+
+def delivery_latency_ticks(state: SimState, cfg: SimConfig) -> torch.Tensor:
+    """Mean ticks from publish to delivery over delivered (peer, message)
+    pairs in the live window (engine.py:372-391), the propagation-latency
+    metric of BASELINE config #5. The publisher's own zero-latency pair is
+    excluded by subtracting one pair per live message; 0 when nothing but
+    publishers delivered."""
+    alive = (state.msg_publish_tick < NEVER) & \
+        ((state.tick - state.msg_publish_tick) < cfg.history_length)
+    dlv = (state.deliver_tick < NEVER) & alive[None, :]
+    lat = (state.deliver_tick - state.msg_publish_tick[None, :]).float()
+    n_pairs = dlv.sum() - dlv.any(0).sum()
+    return torch.where(dlv, lat, torch.zeros_like(lat)).sum() \
+        / torch.clamp(n_pairs, min=1)

@@ -1,9 +1,20 @@
 """In-step invariant sentinel: the ``SimState.fault_flags`` bit word (port
-of sim/invariants.py, ``"record"`` mode).
+of sim/invariants.py).
 
 The bit layout is the reference's (flags version 2): the low half-word
 holds injected-fault bits (which faults of the plan fired, sim/faults.py),
 bits 16+ invariant violations that must never hold in a healthy run.
+
+``SimConfig.invariant_mode`` picks the escalation:
+
+- ``"record"`` (default): OR the tick's flags into ``state.fault_flags``;
+- ``"raise"``: the same state, and ``sim.engine.run_checked`` reads the
+  tick's violation bits on the host after every tick and raises
+  :class:`InvariantViolation` at the first tick that sets one (the
+  reference's checkify check; a device-side assert would poison the CUDA
+  context);
+- ``"off"``: no checks, no flag writes (the engine skips
+  :func:`record_flags`).
 """
 
 from __future__ import annotations
@@ -85,28 +96,79 @@ def violation_flags(state: SimState, cfg: SimConfig) -> torch.Tensor:
     return f
 
 
-def record_flags(state: SimState, cfg: SimConfig,
-                 injected: torch.Tensor | None = None) -> SimState:
-    """OR this tick's violation bits, and the fault plane's ``injected``
-    bits when given, into ``state.fault_flags``."""
-    if cfg.invariant_mode != "record":
-        raise NotImplementedError(
-            f"invariant_mode={cfg.invariant_mode!r}: the port records flags "
-            "only; 'raise' and 'off' are not ported yet (ROADMAP.md, "
-            "Queue 1 item 2)")
+class InvariantViolation(ValueError):
+    """A tick set an invariant-violation bit under ``invariant_mode=
+    "raise"`` (raised by ``sim.engine.run_checked``). ``flags`` holds the
+    violation bits of the first failing tick, ``tick`` that tick's
+    number; the message begins ``invariant violation: fault_flags=``, and
+    the class is a ValueError, as the reference's checkify error."""
+
+    def __init__(self, flags: int, tick: int):
+        self.flags, self.tick = flags, tick
+        super().__init__(f"invariant violation: fault_flags={flags} "
+                         f"(tick {tick}: {', '.join(decode_flags(flags))})")
+
+
+def tick_flags(state: SimState, cfg: SimConfig,
+               injected: torch.Tensor | None = None) -> torch.Tensor:
+    """This tick's (violation | injected) bits, the word
+    :func:`record_flags` ORs into the state."""
+    if cfg.invariant_mode not in ("record", "raise"):
+        raise ValueError(
+            f"invariant_mode={cfg.invariant_mode!r}: expected 'off', "
+            "'record', or 'raise'")
     flags = violation_flags(state, cfg)
     if injected is not None:
         flags = flags | injected
-    return state._replace(fault_flags=state.fault_flags | flags)
+    return flags
 
 
-def decode_violations(flags: int) -> list[str]:
-    """Names of the violation bits set in ``flags``."""
-    names = {FLAG_NONFINITE: "nonfinite_counter",
-             FLAG_NEG_COUNTER: "negative_counter",
-             FLAG_MESH_DEAD_EDGE: "mesh_dead_edge",
-             FLAG_GRAFT_IN_BACKOFF: "graft_in_backoff",
-             FLAG_SLOT_GARBAGE: "slot_garbage",
-             FLAG_DELIVER_FUTURE: "deliver_future",
-             FLAG_HALO_OVERFLOW: "halo_overflow"}
-    return [name for bit, name in sorted(names.items()) if flags & bit]
+def record_flags(state: SimState, cfg: SimConfig,
+                 injected: torch.Tensor | None = None) -> SimState:
+    """OR this tick's violation bits, and the fault plane's ``injected``
+    bits when given, into ``state.fault_flags`` (``"record"`` and
+    ``"raise"``; the engine skips the call under ``"off"``)."""
+    return state._replace(
+        fault_flags=state.fault_flags | tick_flags(state, cfg, injected))
+
+
+_NAMES = {
+    FAULT_LINK_DROP: "link_drop",
+    FAULT_LINK_DUP: "link_dup",
+    FAULT_PARTITION: "partition",
+    FAULT_OUTAGE: "outage",
+    FAULT_CORRUPT: "corrupt",
+    FAULT_STORM: "storm",
+    FAULT_SLOWLINK: "slowlink",
+    FAULT_ECLIPSE: "eclipse",
+    FAULT_CENSOR: "censor",
+    FAULT_WAVE: "wave",
+    FLAG_NONFINITE: "VIOLATION:nonfinite_counter",
+    FLAG_NEG_COUNTER: "VIOLATION:negative_counter",
+    FLAG_MESH_DEAD_EDGE: "VIOLATION:mesh_dead_edge",
+    FLAG_GRAFT_IN_BACKOFF: "VIOLATION:graft_in_backoff",
+    FLAG_SLOT_GARBAGE: "VIOLATION:slot_garbage",
+    FLAG_DELIVER_FUTURE: "VIOLATION:deliver_future",
+    FLAG_HALO_OVERFLOW: "VIOLATION:halo_overflow",
+}
+
+
+def decode_flags(flags: int, flags_version: int | None = None) -> list[str]:
+    """Names of the set bits, injected faults and violations (invariants.py
+    :100). ``flags_version`` is the layout the word was recorded under;
+    any version but :data:`FLAGS_VERSION` is refused, since version 1
+    kept violations at bits 8+, where this layout puts FAULT_CENSOR and
+    FAULT_WAVE. ``None`` decodes under the current layout."""
+    if flags_version is not None and int(flags_version) != FLAGS_VERSION:
+        raise ValueError(
+            f"fault_flags word was recorded under flags_version="
+            f"{int(flags_version)} but this build decodes "
+            f"flags_version={FLAGS_VERSION} — the bit layouts differ "
+            "(version 1 kept violations at bits 8+, where this layout "
+            "puts FAULT_CENSOR/FAULT_WAVE); decode it with the build "
+            "that wrote it instead of misreading the bits")
+    out = [name for bit, name in sorted(_NAMES.items()) if flags & bit]
+    unknown = flags & ~sum(_NAMES)
+    if unknown:
+        out.append(f"unknown:0x{unknown:x}")
+    return out

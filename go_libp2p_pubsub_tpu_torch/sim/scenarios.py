@@ -3,25 +3,45 @@ sim/scenarios.py; the scenarios the port runs so far).
 
 Each constructor returns ``(cfg, tp, state)`` ready for ``engine.run``, with
 the state on ``device`` (cuda unless the caller passes ``device="cpu"``),
-array-equal to the reference constructor's for the same arguments.
+array-equal to the reference constructor's for the same arguments. Each
+takes a prebuilt underlay as ``topo=`` (the O(N^2) ``topology.sparse``
+build at the scenario's arguments and seed).
 
-- ``churn_50k`` — BASELINE config #3: 50k peers, 4 topics with random 50%
-  subscription, full scoring, per-tick connection churn with PX-gated
-  reconnects and 30-tick score retention, and the peer gater with a
-  validation queue cap of 64 (scenarios.py:130-153). The gater and the
-  cap put it on the non-fused data path. Its 128-friendly size is 51200.
-- ``router_sweep_100k`` — BASELINE config #5: one 100k network per router
-  (floodsub, randomsub, gossipsub), scoring off (scenarios.py:193-203).
-  Floodsub and randomsub run no heartbeat; all three take the fused
-  kernels. Its 128-friendly size is 102400.
-- ``partition_50k`` — fault scenario 6: 2 topics at 70% subscription, full
-  scoring, a 2-way partition on ticks [start, heal) with RemovePeer cuts
-  and a redial at ``heal`` (scenarios.py:206-235); the fused kernels.
-- ``outage_10k`` — fault scenario 7: background churn with PX, and 20% of
-  the peers dark on ticks [start, heal) (scenarios.py:238-262); the fused
-  kernels, churn's exchanges through ``permutation_gather``.
-- ``partition_small`` / ``outage_small`` — the two at sweep scale (512
-  peers, K = 16, degree 6, window [8, 20); scenarios.py:453-467).
+The five BASELINE configs:
+
+1. ``single_topic_1k`` — 1k-peer single-topic gossipsub with the default
+   score params (scenarios.py:66-77). Its 128-friendly size is 1024.
+2. ``beacon_10k`` — 10k peers, an Ethereum beacon-chain-style set of 9
+   topics (5 joined by all, 4 attestation subnets joined by random 15%
+   committees), K = 48 slots and the beacon scoring shape
+   (scenarios.py:84-127). Its 128-friendly size is 10240.
+3. ``churn_50k`` — 50k peers, 4 topics with random 50% subscription, full
+   scoring, per-tick connection churn with PX-gated reconnects and 30-tick
+   score retention, and the peer gater with a validation queue cap of 64
+   (scenarios.py:130-153). The gater and the cap put it on the non-fused
+   data path. Its 128-friendly size is 51200.
+4. ``sybil_100k`` — 100k peers, 20% sybils sharing 64 IP groups (invalid
+   publishes, IHAVE floods, unanswered IWANTs) under full scoring with
+   colocation penalties, connection churn with PX and 600-tick score
+   retention (scenarios.py:156-190). Its 128-friendly size is 102400.
+5. ``router_sweep_100k`` — one 100k network per router (floodsub,
+   randomsub, gossipsub), scoring off (scenarios.py:193-203). Floodsub and
+   randomsub run no heartbeat; all three take the fused kernels.
+
+Fault scenarios: ``partition_50k`` (6: 2 topics at 70% subscription, full
+scoring, a 2-way partition on ticks [start, heal); scenarios.py:206-235),
+``outage_10k`` (7: background churn with PX, 20% of the peers dark on
+ticks [start, heal); scenarios.py:238-262), and at sweep scale (512 peers,
+K = 16, degree 6) ``sybil_small``, ``partition_small`` and
+``outage_small`` (scenarios.py:447-467).
+
+The frontier family (scenarios.py:274-370): ``frontier_cfg``,
+``frontier_spec`` (the host-side inputs, on ``topology.sparse_fast`` or,
+with ``rows=``, a shard of ``topology.sparse_hash``), ``frontier`` and
+``frontier_250k`` ... ``frontier_10m``. Its configs ask for
+``edge_gather_mode="sort"``, so stepping one is refused (ROADMAP.md,
+Queue 1 item 3); the two XL sizes default to the compact state precision,
+which ``init_state`` refuses (item 5).
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -60,6 +80,74 @@ def _topology(topo, n_peers, k_slots, degree):
     return topo
 
 
+def single_topic_1k(n_peers: int = 1024, k_slots: int = 32, degree: int = 12,
+                    device=None, topo: topology.Topology | None = None,
+                    ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Config 1: the gossipsub_test.go harness at 1k scale."""
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=1, msg_window=64,
+        publishers_per_tick=8, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_decay=0.999, gossip_threshold=-100.0,
+        publish_threshold=-200.0, graylist_threshold=-300.0)
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, default_topic_params(1, device=device), \
+        init_state(cfg, topo, device=device)
+
+
+# Beacon-chain-style topic roles: (name, joined-by-all, weight): one heavy
+# global block topic, a global aggregate topic, and per-subnet attestation
+# topics joined by rotating committees (the published Eth2 gossip scoring
+# shape; exact production constants are chain-config dependent)
+_BEACON_TOPICS = [
+    ("beacon_block", True, 0.5),
+    ("beacon_aggregate_and_proof", True, 0.5),
+    ("voluntary_exit", True, 0.05),
+    ("proposer_slashing", True, 0.05),
+    ("attester_slashing", True, 0.05),
+    ("beacon_attestation_0", False, 0.25),
+    ("beacon_attestation_1", False, 0.25),
+    ("beacon_attestation_2", False, 0.25),
+    ("beacon_attestation_3", False, 0.25),
+]
+
+
+def beacon_10k(n_peers: int = 10_000, k_slots: int = 48, degree: int = 16,
+               subnet_fraction: float = 0.15, device=None,
+               topo: topology.Topology | None = None,
+               ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Config 2: 10k peers over a beacon-style topic set with peer
+    scoring."""
+    rng = np.random.default_rng(SEED)
+    t = len(_BEACON_TOPICS)
+    subscribed = np.zeros((n_peers, t), dtype=bool)
+    for i, (_, global_topic, _) in enumerate(_BEACON_TOPICS):
+        if global_topic:
+            subscribed[:, i] = True
+        else:
+            subscribed[:, i] = rng.random(n_peers) < subnet_fraction
+    tp = TopicParams.from_topic_params([TopicScoreParams(
+        topic_weight=w, time_in_mesh_weight=0.03, time_in_mesh_quantum=1.0,
+        time_in_mesh_cap=300.0, first_message_deliveries_weight=1.0,
+        first_message_deliveries_decay=0.99, first_message_deliveries_cap=50.0,
+        mesh_message_deliveries_weight=-1.0, mesh_message_deliveries_decay=0.97,
+        mesh_message_deliveries_cap=100.0, mesh_message_deliveries_threshold=4.0,
+        mesh_message_deliveries_window=0.01, mesh_message_deliveries_activation=10.0,
+        mesh_failure_penalty_weight=-1.0, mesh_failure_penalty_decay=0.95,
+        invalid_message_deliveries_weight=-100.0, invalid_message_deliveries_decay=0.99,
+    ) for (_, _, w) in _BEACON_TOPICS], device=device)
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=t, msg_window=64,
+        publishers_per_tick=16, prop_substeps=8,
+        scoring_enabled=True, topic_score_cap=100.0,
+        behaviour_penalty_weight=-15.9, behaviour_penalty_threshold=6.0,
+        behaviour_penalty_decay=0.986, gossip_threshold=-4000.0,
+        publish_threshold=-8000.0, graylist_threshold=-16000.0)
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, tp, init_state(cfg, topo, subscribed=subscribed,
+                               device=device)
+
+
 def churn_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
               n_topics: int = 4, disconnect_prob: float = 0.02,
               reconnect_prob: float = 0.2, device=None,
@@ -84,6 +172,41 @@ def churn_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
     topo = _topology(topo, n_peers, k_slots, degree)
     return cfg, default_topic_params(n_topics, device=device), \
         init_state(cfg, topo, subscribed=subscribed, device=device)
+
+
+def sybil_100k(n_peers: int = 100_000, k_slots: int = 32, degree: int = 12,
+               sybil_fraction: float = 0.2, n_sybil_ips: int = 64,
+               device=None, topo: topology.Topology | None = None,
+               ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Config 4: 100k-peer mesh, 20% sybil attackers sharing few IPs. Sybils
+    publish invalid messages, advertise the whole window and never answer
+    IWANTs (the gossipsub_spam_test.go actor set); scoring must graylist
+    them (P4 + P7 + P6 colocation). Churn with PX lets honest peers
+    reconnect preferentially to peers they score above the PX threshold;
+    the long score retention keeps sybil history across their down-time."""
+    rng = np.random.default_rng(SEED)
+    malicious = rng.random(n_peers) < sybil_fraction
+    # honest peers get unique ip groups; sybils share n_sybil_ips groups
+    ip_group = np.arange(n_peers, dtype=np.int32)
+    ip_group[malicious] = n_peers + (rng.integers(
+        0, n_sybil_ips, malicious.sum())).astype(np.int32)
+    _, ip_group = np.unique(ip_group, return_inverse=True)
+    ip_group = ip_group.astype(np.int32)
+    cfg = SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=1, msg_window=32,
+        publishers_per_tick=8, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_threshold=2.0, behaviour_penalty_decay=0.99,
+        ip_colocation_factor_weight=-50.0, ip_colocation_factor_threshold=4,
+        n_ip_groups=int(ip_group.max()) + 1,
+        gossip_threshold=-10.0, publish_threshold=-50.0,
+        graylist_threshold=-100.0,
+        churn_disconnect_prob=0.01, churn_reconnect_prob=0.2,
+        px_enabled=True, accept_px_threshold=-5.0, retain_score_ticks=600)
+    topo = _topology(topo, n_peers, k_slots, degree)
+    return cfg, default_topic_params(1, device=device), \
+        init_state(cfg, topo, malicious=malicious, ip_group=ip_group,
+                   device=device)
 
 
 def router_sweep_100k(router: str, n_peers: int = 100_000, k_slots: int = 32,
@@ -148,6 +271,102 @@ def outage_10k(n_peers: int = 10_000, k_slots: int = 32, degree: int = 12,
     topo = _topology(topo, n_peers, k_slots, degree)
     return cfg, default_topic_params(1, device=device), \
         init_state(cfg, topo, device=device)
+
+
+# --- frontier family: the million-peer trajectory slot --------------------
+# A sparse random underlay (the vectorized builder: topology.sparse is
+# O(N^2) Python), K=32, a small topic set, full scoring, and the reference's
+# packed sharded configuration (edge_gather_mode="sort", sharded_route=
+# "halo"). Peer counts are powers of two.
+
+FRONTIER_NS = {"frontier_250k": 262_144, "frontier_500k": 524_288,
+               "frontier_1m": 1_048_576,
+               # XL tier: compact storage precision by construction
+               "frontier_4m": 4_194_304, "frontier_10m": 10_485_760}
+
+
+def frontier_cfg(n_peers: int, k_slots: int = 32, n_topics: int = 2,
+                 msg_window: int = 64,
+                 state_precision: str = "f32") -> SimConfig:
+    """The frontier SimConfig alone, with no topology build."""
+    return SimConfig(
+        n_peers=n_peers, k_slots=k_slots, n_topics=n_topics,
+        msg_window=msg_window, publishers_per_tick=16, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_decay=0.999, gossip_threshold=-100.0,
+        publish_threshold=-200.0, graylist_threshold=-300.0,
+        edge_gather_mode="sort", sharded_route="halo",
+        state_precision=state_precision)
+
+
+def frontier_spec(n_peers: int, k_slots: int = 32, degree: int = 8,
+                  n_topics: int = 2, msg_window: int = 64,
+                  subnet_fraction: float = 0.3,
+                  state_precision: str = "f32",
+                  rows: tuple[int, int] | None = None, device=None,
+                  ) -> tuple[SimConfig, TopicParams, topology.Topology,
+                             np.ndarray]:
+    """The frontier scenario without device state: ``(cfg, tp, topo,
+    subscribed)``. ``rows=(start, count)`` builds only those rows of the
+    seeded circulant underlay (``topology.sparse_hash``); without it the
+    underlay is ``topology.sparse_fast``. ``subscribed`` stays global (one
+    global topic, random subnets)."""
+    cfg = frontier_cfg(n_peers, k_slots=k_slots, n_topics=n_topics,
+                       msg_window=msg_window,
+                       state_precision=state_precision)
+    rng = np.random.default_rng(SEED)
+    subscribed = np.zeros((n_peers, n_topics), dtype=bool)
+    subscribed[:, 0] = True                      # one global topic
+    for t in range(1, n_topics):                 # random subnets
+        subscribed[:, t] = rng.random(n_peers) < subnet_fraction
+    if rows is None:
+        topo = topology.sparse_fast(n_peers, k_slots, degree=degree,
+                                    seed=SEED)
+    else:
+        topo = topology.sparse_hash(n_peers, k_slots, degree=degree,
+                                    seed=SEED, rows=rows)
+    return cfg, default_topic_params(n_topics, device=device), topo, \
+        subscribed
+
+
+def frontier(n_peers: int, device=None, **kw
+             ) -> tuple[SimConfig, TopicParams, SimState]:
+    """Single-process frontier constructor: the full ``init_state`` build
+    of :func:`frontier_spec`."""
+    cfg, tp, topo, subscribed = frontier_spec(n_peers, device=device, **kw)
+    return cfg, tp, init_state(cfg, topo, subscribed=subscribed,
+                               device=device)
+
+
+def frontier_250k(n_peers: int = FRONTIER_NS["frontier_250k"], **kw):
+    return frontier(n_peers, **kw)
+
+
+def frontier_500k(n_peers: int = FRONTIER_NS["frontier_500k"], **kw):
+    return frontier(n_peers, **kw)
+
+
+def frontier_1m(n_peers: int = FRONTIER_NS["frontier_1m"], **kw):
+    return frontier(n_peers, **kw)
+
+
+def frontier_4m(n_peers: int = FRONTIER_NS["frontier_4m"], **kw):
+    """XL frontier: compact storage precision by default."""
+    kw.setdefault("state_precision", "compact")
+    return frontier(n_peers, **kw)
+
+
+def frontier_10m(n_peers: int = FRONTIER_NS["frontier_10m"], **kw):
+    """The 10M-peer frontier: compact storage precision by default; pair it
+    with the sharded underlay (``frontier_spec(..., rows=...)``)."""
+    kw.setdefault("state_precision", "compact")
+    return frontier(n_peers, **kw)
+
+
+def sybil_small(n_peers: int = 512, k_slots: int = 16, degree: int = 6,
+                **kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """sybil_100k's 20%-sybil colocation attack at sweep scale."""
+    return sybil_100k(n_peers=n_peers, k_slots=k_slots, degree=degree, **kw)
 
 
 def partition_small(n_peers: int = 512, k_slots: int = 16, degree: int = 6,

@@ -238,8 +238,8 @@ def test_forward_tick_nonfused_equal(mid, budget):
 def test_edge_gather_equal(mid, gather):
     """The receiver view of per-edge bool masks through the packed
     exchange, one mask and two at once, on a state where churn has taken
-    edges down; the indexed gather of other dtypes is not ported and
-    raises."""
+    edges down; and of a float32 plane with a fill through the indexed
+    gather, equal to the reference's."""
     jcfg, jtp, jst = mid
     _, _, st = _port(jcfg, jtp, jst)
     rng_np = np.random.default_rng(11)
@@ -255,8 +255,9 @@ def test_edge_gather_equal(mid, gather):
     for i, (a, b) in enumerate(zip(want, got)):
         _same(a, b, f"packed mask {i}")
     vals = rng_np.standard_normal(shape).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        edge_gather(torch.from_numpy(vals), st, fill=-1.0, mode=gather)
+    _same(jedge_gather(jax.numpy.asarray(vals), jst, fill=-1.0, mode=gather),
+          edge_gather(torch.from_numpy(vals), st, fill=-1.0, mode=gather),
+          "float32 fill -1")
 
 
 @pytest.mark.parametrize("gather", ["pallas", "mxu"])

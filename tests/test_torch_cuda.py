@@ -422,3 +422,82 @@ def test_dataplane_trajectory_cuda_equals_cpu(case):
     flags = int(a["fault_flags"])
     assert a["delivered_total"] > 0 and not flags & VIOLATION_MASK
     assert (flags == 0x3FF) == (case == "every fault family")
+
+
+def _baseline_case(case, dev, topo):
+    """The BASELINE scenarios' card cases at 1024 peers: beacon_10k (T = 9,
+    K = 48) with subscription churn at 0.02, and sybil_small (K = 16)."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios
+    if case == "beacon, subscription churn":
+        cfg, tp, st = scenarios.beacon_10k(1024, device=dev, topo=topo)
+        return dataclasses.replace(cfg, sub_leave_prob=0.02,
+                                   sub_join_prob=0.02), tp, st
+    return scenarios.sybil_small(1024, device=dev, topo=topo)
+
+
+@pytest.mark.parametrize("case", ["beacon, subscription churn",
+                                  "sybil_small"])
+def test_baseline_trajectory_cuda_equals_cpu(case):
+    """8 ticks of each BASELINE card case at 1024 peers: the card's state
+    equals the CPU's after every tick (float32 within rtol 1e-6), with no
+    violation bit; the beacon network takes the fused kernels at K = 48."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, state_to_numpy, step
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
+    k, degree = (48, 16) if case.startswith("beacon") else (16, 6)
+    topo = topology.sparse(1024, k, degree=degree, seed=scenarios.SEED)
+    runs = [_baseline_case(case, dev, topo) for dev in ("cuda", "cpu")]
+    keys = [rng.split(rng.PRNGKey(0, device=dev), 8) for dev in ("cuda", "cpu")]
+    states = [r[2] for r in runs]
+    cudalib.reset_launches()
+    for tick in range(8):
+        states = [step(s, r[0], r[1], kk[tick], device=d) for s, r, kk, d
+                  in zip(states, runs, keys, ("cuda", "cpu"))]
+        a, b = (state_to_numpy(s) for s in states)
+        for f, x in a.items():
+            if x.dtype == np.float32:
+                np.testing.assert_allclose(x, b[f], rtol=1e-6, atol=0,
+                                           err_msg=f"{f}, tick {tick}")
+            else:
+                np.testing.assert_array_equal(x, b[f],
+                                              err_msg=f"{f}, tick {tick}")
+    assert a["delivered_total"] > 0
+    assert not int(a["fault_flags"]) & VIOLATION_MASK
+    for name in ("edge_table", "hop", "iwant_resolve", "emit"):
+        assert cudalib.LAUNCHES[name] > 0, name
+
+
+def test_run_checked_cuda_raises_as_on_cpu():
+    """run_checked under invariant_mode="raise" on the card: a clean run
+    passes and equals the CPU's; a state poisoned as tests/test_faults.py
+    poisons it (mesh_failure_penalty[0,0,0] = inf) raises with the same
+    violation bits and tick as on the CPU."""
+    _need_card()
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import (run_checked, scenarios,
+                                                state_to_numpy, topology)
+    from go_libp2p_pubsub_tpu_torch.sim.invariants import InvariantViolation
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    clean, raised = [], []
+    for dev in ("cuda", "cpu"):
+        cfg, tp, st = scenarios.single_topic_1k(512, device=dev, topo=topo)
+        cfg = dataclasses.replace(cfg, invariant_mode="raise")
+        clean.append(state_to_numpy(run_checked(
+            st, cfg, tp, rng.PRNGKey(0, device=dev), 4, device=dev)))
+        mfp = st.mesh_failure_penalty.clone()
+        mfp[0, 0, 0] = float("inf")
+        with pytest.raises(InvariantViolation,
+                           match="^invariant violation: fault_flags=") as e:
+            run_checked(st._replace(mesh_failure_penalty=mfp), cfg, tp,
+                        rng.PRNGKey(0, device=dev), 4, device=dev)
+        raised.append((e.value.flags, e.value.tick))
+    assert raised[0] == raised[1] and raised[0][0] != 0, raised
+    for f, a in clean[0].items():
+        b = clean[1][f]
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f)

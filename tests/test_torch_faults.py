@@ -455,8 +455,10 @@ def test_fault_scenario_over_its_heal(name):
 # --- the engine's refusals -------------------------------------------------
 
 def test_lifted_configs_run_and_refusals_name_their_item():
-    """Every config this slice ports runs a step; every refusal left names
-    the queue item that lifts it, and none names item 1."""
+    """Every config the port covers runs a step (the data plane's branches,
+    and since Queue 1 item 2 subscription churn, the raise and off
+    invariant modes and the fold_in key schedule); every refusal left
+    names the queue item that lifts it, and none names item 1 or 2."""
     from go_libp2p_pubsub_tpu_torch.sim import build_headline
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
@@ -465,14 +467,15 @@ def test_lifted_configs_run_and_refusals_name_their_item():
                  dict(flood_publish=True), dict(record_provenance=True),
                  dict(edge_queue_cap=2), dict(fault_plan=plan),
                  dict(fault_plan=plan, flood_publish=True, edge_queue_cap=1,
-                      record_provenance=True, edge_gather_mode="mxu")):
+                      record_provenance=True, edge_gather_mode="mxu"),
+                 dict(sub_leave_prob=0.1), dict(invariant_mode="raise"),
+                 dict(key_schedule="fold_in"),
+                 dict(sub_join_prob=0.2, invariant_mode="off",
+                      key_schedule="fold_in", fault_plan=plan)):
         out = step(st, dataclasses.replace(cfg, **over), tp, key,
                    device="cpu")
         assert int(out.tick) == 1
-    for over, item in ((dict(sub_leave_prob=0.1), 2),
-                       (dict(invariant_mode="raise"), 2),
-                       (dict(key_schedule="fold_in"), 2),
-                       (dict(state_precision="compact"), 5),
+    for over, item in ((dict(state_precision="compact"), 5),
                        (dict(degree_buckets=((64, 8),)), 8),
                        (dict(edge_gather_mode="sort"), 3)):
         with pytest.raises(NotImplementedError,

@@ -136,8 +136,9 @@ def test_state_round_trip(ref_run):
 
 def test_port_imports_no_jax():
     """The port imports and steps with jax unimportable (the headline, the
-    churn path, a fault plan with flood publish, randomsub), and neither it
-    nor chip_smoke.py imports the JAX package."""
+    churn path, a fault plan with flood publish, randomsub, subscription
+    churn on the beacon network, chunked ``run_window`` under the fold_in
+    schedule), and neither it nor chip_smoke.py imports the JAX package."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.path.insert(0, %r)\n"
         "import pkgutil, importlib, go_libp2p_pubsub_tpu_torch as p\n"
@@ -167,6 +168,17 @@ def test_port_imports_no_jax():
         "degree=4, device='cpu')\n"
         "assert int(run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, "
         "device='cpu').tick) == 2\n"
+        "from go_libp2p_pubsub_tpu_torch.sim import run_window\n"
+        "cfg, tp, st = scenarios.beacon_10k(64, k_slots=16, degree=4, "
+        "device='cpu')\n"
+        "cfg = dataclasses.replace(cfg, sub_leave_prob=0.2, sub_join_prob=0.2, "
+        "key_schedule='fold_in')\n"
+        "out = run_window(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 1, "
+        "device='cpu')\n"
+        "out = run_window(out, cfg, tp, rng.PRNGKey(0, device='cpu'), 1, "
+        "device='cpu')\n"
+        "assert int(out.tick) == 2 and not bool((out.subscribed == "
+        "st.subscribed).all())\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'go_libp2p_pubsub_tpu.'))"
         " or n == 'go_libp2p_pubsub_tpu' for n in sys.modules if sys.modules[n])\n"
         "print('ok')\n") % REPO
@@ -207,11 +219,11 @@ def test_step_refuses_configs_outside_the_slice():
 
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
-    for over in (dict(sub_leave_prob=0.1), dict(invariant_mode="raise"),
-                 dict(key_schedule="fold_in"),
-                 dict(edge_gather_mode="sort"),
-                 dict(edge_gather_mode="scalar")):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item [2-9]"):
+    for over, item in ((dict(edge_gather_mode="sort"), 3),
+                       (dict(edge_gather_mode="scalar"), 3),
+                       (dict(state_precision="compact"), 5)):
+        with pytest.raises(NotImplementedError,
+                           match=rf"Queue 1 item {item}\)"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
 
 
