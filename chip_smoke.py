@@ -79,6 +79,23 @@ Phases, each printing its own lines and its seconds:
    joined, sybil the share of honest peers' mesh edges that point at
    sybils after ticks 1 and 8; then one more tick whose every kernel call
    is recorded, checked and timed as in phase 3d;
+3f. the frontier at full size and the formulations: ``frontier_1m()``
+   (1,048,576 peers on ``topology.sparse_fast(n, 32, degree=8)``, T = 2,
+   M = 64, 16 publishers, scoring on, ``edge_gather_mode="sort"`` over the
+   fused hop, resolve and emit), 8 ticks of ``run`` with hb/s, delivery,
+   fault_flags (must be 0), the peak device memory beside the state's
+   bytes and its launches (hop, iwant_resolve and emit must launch, no
+   gather kernel may), then one more tick whose every kernel call is
+   recorded, checked and timed as in phase 3d; then the headline network
+   at 102400 under ``edge_gather_mode="sort"``, ``hop_mode="xla"`` (what
+   the reference's shipped table resolves to on a TPU: no hand kernel may
+   launch, and the IWANT answer table must ride the heartbeat's last
+   exchange every tick), 8 ticks; then, at both networks' shapes, each
+   formulation of the payload permute, the words gather and the packed
+   exchange (``rows`` up to 102400 peers only) and each selection
+   formulation timed by CUDA events (5 calls behind a spin kernel, median
+   of 5 rounds), every output equal to the ``pallas`` (``ranks``) one at
+   the valid slots;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
    within rtol 1e-6, checked after every tick;
@@ -96,13 +113,21 @@ Phases, each printing its own lines and its seconds:
    under ``invariant_mode="raise"``: a clean run passes, and a state
    poisoned with an infinite ``mesh_failure_penalty`` raises on the card
    with the violation bits and tick it raises with on the CPU;
+4e. the same for the formulations at 1024 peers: ``frontier(1024)`` under
+   its sort exchanges, the headline's non-fused path under ``scalar``,
+   ``rows`` and ``sort`` with flood publish, ``churn_50k(1024)`` under
+   ``sort``, and the headline under ``selection_mode="iter"`` and
+   ``"sort"``;
 5. the ``kernels`` JSON line, then the device JSON line last.
 
-The four underlays (102400, 51200 and 10240 peers at K = 32, and the
-beacon network's 10240 peers at K = 48; a pure-Python O(N^2) build) are
-made in child processes while the kernels are built and checked; phases
-3d and 3e reuse them (``topology.sparse`` at the scenarios' seed). Any
-failure exits non-zero without the last line. Imports nothing of JAX.
+Every path prints the formulation each of its seams runs
+(``ops.dispatch.resolved_formulations``). The five underlays (102400,
+51200 and 10240 peers at K = 32 and the beacon network's 10240 peers at
+K = 48, a pure-Python O(N^2) build at the scenarios' seed; the frontier's
+vectorized 1,048,576-peer ``sparse_fast``) are made in child processes
+while the kernels are built and checked; phases 3d, 3e and 3f reuse them.
+Any failure exits non-zero without the last line. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -176,6 +201,14 @@ PATH_KERNELS = {
                          "take_words"}),
     "sybil_100k": ({"edge_table", "hop", "iwant_resolve", "emit",
                     "permutation_gather"}, {"gather_words", "take_words"}),
+    # phase 3f: the frontier (sort exchanges over the fused hop, resolve
+    # and emit) and the reference's TPU resolution, which runs no kernel
+    "frontier_1m": ({"hop", "iwant_resolve", "emit"},
+                    {"edge_table", "gather_words", "permutation_gather",
+                     "take_words"}),
+    "sort path": (set(), {"edge_table", "hop", "iwant_resolve", "emit",
+                          "gather_words", "permutation_gather",
+                          "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -183,6 +216,12 @@ N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
 # chain's ~27-hour rotation
 ROTATION_PROB = 0.01
 N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
+N_FRONTIER = 1 << 20             # frontier_1m: 1,048,576 peers
+FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
+# the formulation cases of phase 4e, each at 1024 peers
+FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
+                     "headline, sort, flood publish", "churn_50k, sort",
+                     "selection iter", "selection sort")
 
 
 def row_sectors(idx, w):
@@ -249,6 +288,37 @@ def baseline_case(what, n, dev, topo):
                                sub_join_prob=0.02), tp, st
 
 
+def formulation_case(what, n, dev, topo):
+    """(cfg, tp, state) of a phase-4e case at ``n`` peers on ``dev``: the
+    frontier under its sort exchanges (its own ``sparse_fast`` underlay);
+    the headline's non-fused path (``hop_mode="xla"``) under scalar, rows,
+    and sort with flood publish (the answer table's ride-along and the
+    sender-side planes' shared sort); churn_50k under sort (churn's
+    payload exchange); the headline under the iter and sort selections."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    if what == "frontier, sort":
+        return scenarios.frontier(n, device=dev)
+    if what == "churn_50k, sort":
+        cfg, tp, st = scenarios.churn_50k(n_peers=n, device=dev, topo=topo)
+        return dataclasses.replace(cfg, hop_mode="xla",
+                                   edge_gather_mode="sort"), tp, st
+    over = {"headline, scalar": dict(hop_mode="xla", edge_gather_mode="scalar"),
+            "headline, rows": dict(hop_mode="xla", edge_gather_mode="rows"),
+            "headline, sort, flood publish": dict(
+                hop_mode="xla", edge_gather_mode="sort", flood_publish=True),
+            "selection iter": dict(selection_mode="iter"),
+            "selection sort": dict(selection_mode="sort")}[what]
+    cfg, tp, st = build_headline(n, device=dev, topo=topo)
+    return dataclasses.replace(cfg, **over), tp, st
+
+
+def formulations(cfg):
+    """The formulation each seam of ``cfg`` runs, as one JSON object."""
+    from go_libp2p_pubsub_tpu_torch.ops.dispatch import resolved_formulations
+    return json.dumps(resolved_formulations(cfg), sort_keys=True)
+
+
 def trajectory_topology(what, n):
     """The underlay of a phase-4 case: the scenario's own (K, degree) at
     the scenarios' seed."""
@@ -259,10 +329,15 @@ def trajectory_topology(what, n):
 
 
 def _build_topology(conn, n, k, degree):
-    """Child process: an underlay (a pure-Python O(N^2) build)."""
+    """Child process: an underlay (a pure-Python O(N^2) build; the
+    frontier's vectorized ``sparse_fast`` at degree 8)."""
     sys.path.insert(0, REPO)
-    from go_libp2p_pubsub_tpu_torch.sim import topology
-    conn.send(tuple(topology.sparse(n, k, degree=degree)))
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, topology
+    if n == N_FRONTIER:
+        topo = topology.sparse_fast(n, k, degree=degree, seed=scenarios.SEED)
+    else:
+        topo = topology.sparse(n, k, degree=degree)
+    conn.send(tuple(topo))
     conn.close()
 
 
@@ -777,7 +852,7 @@ class Smoke:
               f"delivered_total {delivered:.0f}; fault_flags 0x{flags:08x}",
               flush=True)
         print(f"main path launches: {json.dumps(launches)}", flush=True)
-        self.check_launches("headline", launches)
+        self.check_launches("headline", launches, cfg)
         if delivered <= 0:
             raise AssertionError("the main path delivered nothing")
         if flags & VIOLATION_MASK:
@@ -865,8 +940,10 @@ class Smoke:
         self.check_resolve("T=1,pull tick (prop_substeps=1)", args[:9],
                            args[9])
 
-    def check_launches(self, path, launches):
-        """Every kernel of ``path`` launched, and none it must not."""
+    def check_launches(self, path, launches, cfg):
+        """Every kernel of ``path`` launched, and none it must not; the
+        formulations ``cfg`` resolves to printed before."""
+        print(f"{path} formulations: {formulations(cfg)}", flush=True)
         must, must_not = PATH_KERNELS[path]
         zero = sorted(name for name in must if launches[name] == 0)
         if zero:
@@ -926,7 +1003,7 @@ class Smoke:
                   f"delivered_total {delivered:.0f}; fault_flags "
                   f"0x{flags:08x}", flush=True)
             print(f"{path} launches: {json.dumps(launches)}", flush=True)
-            self.check_launches(path, launches)
+            self.check_launches(path, launches, c)
             if delivered <= 0:
                 raise AssertionError(f"the {path} path delivered nothing")
             if flags & VIOLATION_MASK:
@@ -1010,7 +1087,7 @@ class Smoke:
               f"delivered_total {delivered:.0f}; fault_flags 0x{flags:08x}",
               flush=True)
         print(f"wide window launches: {json.dumps(launches)}", flush=True)
-        self.check_launches("wide window", launches)
+        self.check_launches("wide window", launches, cfg)
         if delivered <= 0:
             raise AssertionError("the wide-window path delivered nothing")
         if flags & VIOLATION_MASK:
@@ -1134,7 +1211,7 @@ class Smoke:
                   f"{delivered:.0f}; fault_flags 0x{flags:08x}", flush=True)
             print(f"data plane [{label}] launches: {json.dumps(launches)}",
                   flush=True)
-            self.check_launches(label, launches)
+            self.check_launches(label, launches, cfg)
             if delivered <= 0:
                 raise AssertionError(f"{label}: the path delivered nothing")
             if flags & VIOLATION_MASK:
@@ -1241,6 +1318,9 @@ class Smoke:
         elif what in BASELINE_CASES:
             runs = [baseline_case(what, n, d, topo) for d in devs]
             label = f"{what}, {n} peers"
+        elif what in FORMULATION_CASES:
+            runs = [formulation_case(what, n, d, topo) for d in devs]
+            label = f"{what}, {n} peers"
         else:
             runs = [dataplane_case(what, n, d, topo) for d in devs]
             label = f"{what}, {n} peers"
@@ -1279,7 +1359,8 @@ class Smoke:
         print(f"trajectory [{label}]: 8 ticks on {devs[0]} equal to the CPU "
               f"run (integer/bool/packed exact, float32 rtol 1e-6); "
               f"delivered_total {float(states[0].delivered_total):.0f}; "
-              f"fault_flags 0x{flags:08x}{extra}", flush=True)
+              f"fault_flags 0x{flags:08x}{extra}; formulations "
+              f"{formulations(runs[0][0])}", flush=True)
 
     # ---- phase 3e: the BASELINE configs at full size ---------------------
     def baseline_paths(self, topo_full, topo_beacon):
@@ -1369,13 +1450,177 @@ class Smoke:
                   f"0x{flags:08x}{extra}", flush=True)
             print(f"BASELINE [{label}] launches: {json.dumps(launches)}",
                   flush=True)
-            self.check_launches(label, launches)
+            self.check_launches(label, launches, cfg)
             if delivered <= 0:
                 raise AssertionError(f"{label}: the path delivered nothing")
             if flags:
                 raise AssertionError(f"{label}: fault_flags 0x{flags:x} "
                                      f"{decode_flags(flags)}")
             self.check_recorded(label, out, cfg, tp, phase="BASELINE")
+
+    # ---- phase 3f: the frontier at full size and the formulations -------
+    def run_path(self, label, cfg, tp, st, phase):
+        """8 ticks of ``run`` from PRNGKey(0), the counts reset just before
+        and read just after; hb/s, delivery, fault flags (must be 0) and
+        the launches against ``PATH_KERNELS[label]``. Returns the state."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import delivery_fraction, run
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import decode_flags
+        key = rng.PRNGKey(0, device=self.dev)
+        self.sync()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        out = run(st, cfg, tp, key, 8, device=self.dev)
+        self.sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        flags = int(out.fault_flags) & 0xFFFFFFFF
+        delivered = float(out.delivered_total)
+        print(f"{phase} [{label}]: {cfg.n_peers} peers, T={cfg.n_topics}, "
+              f"K={cfg.k_slots}, M={cfg.msg_window}; 8 ticks of run in "
+              f"{secs:.3f} s = {8 / secs:.3f} hb/s; delivery_fraction "
+              f"(age>=2) "
+              f"{float(delivery_fraction(out, cfg, min_age_ticks=2)):.6f}; "
+              f"delivered_total {delivered:.0f}; fault_flags 0x{flags:08x}",
+              flush=True)
+        print(f"{phase} [{label}] launches: {json.dumps(launches)}",
+              flush=True)
+        self.check_launches(label, launches, cfg)
+        if delivered <= 0:
+            raise AssertionError(f"{label}: the path delivered nothing")
+        if flags:
+            raise AssertionError(f"{label}: fault_flags 0x{flags:x} "
+                                 f"{decode_flags(flags)}")
+        return out
+
+    def phase_frontier(self, topo_frontier, topo_full):
+        """``scenarios.frontier_1m`` (1,048,576 peers on its own
+        ``sparse_fast`` underlay, T = 2, M = 64, sort exchanges, the fused
+        hop, resolve and emit): 8 ticks of ``run``, the peak device memory
+        beside the state's bytes, one more tick whose every kernel call is
+        recorded, checked and timed as in phase 3d. Then the headline
+        (102400) as the reference's shipped table resolves it on a TPU
+        (``edge_gather_mode="sort"``, ``hop_mode="xla"``: no hand kernel,
+        the IWANT answer table riding the heartbeat's last exchange), 8
+        ticks. Then the formulations of each gather seam and of the
+        selection timed side by side at both networks' shapes."""
+        import dataclasses
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, engine,
+                                                    scenarios)
+        cfg, tp, st = scenarios.frontier_1m(device=self.dev,
+                                            topo=topo_frontier)
+        state_bytes = sum(x.numel() * x.element_size() for x in st
+                          if isinstance(x, torch.Tensor))
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        out = self.run_path("frontier_1m", cfg, tp, st, "frontier")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"frontier [frontier_1m]: peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated over the 8 "
+              f"ticks), the state's tensors {state_bytes / 2 ** 30:.3f} GiB",
+              flush=True)
+        self.check_recorded("frontier_1m", out, cfg, tp, phase="frontier")
+        self.time_formulations("frontier_1m", out, cfg)
+        del out, st
+
+        cfg, tp, st = build_headline(N_FULL, device=self.dev, topo=topo_full)
+        cfg = dataclasses.replace(cfg, edge_gather_mode="sort",
+                                  hop_mode="xla")
+        want = {"edge_permute": "sort", "words": "sort",
+                "edge_packed": "sort", "hop": "xla", "emit": "xla"}
+        got = json.loads(formulations(cfg))
+        if {f: got[f] for f in want} != want:
+            raise AssertionError(f"sort path: formulations {got}")
+        rides = []
+        orig = engine._iwant_answer_extras
+
+        def spy(*a, **kw):
+            extra = orig(*a, **kw)
+            rides.append(extra is not None)
+            return extra
+
+        engine._iwant_answer_extras = spy
+        try:
+            out = self.run_path("sort path", cfg, tp, st, "frontier")
+        finally:
+            engine._iwant_answer_extras = orig
+        if rides != [True] * 8:
+            raise AssertionError(f"sort path: the answer table rode the "
+                                 f"heartbeat's exchange on ticks {rides}")
+        print("frontier [sort path]: the reference's TPU resolution (its "
+              "shipped table's tpu entry: sort for the three gather seams, "
+              "xla for hop and emit); the IWANT answer table rode the "
+              "heartbeat's last exchange on all 8 ticks", flush=True)
+        self.time_formulations("headline", out, cfg)
+
+    def time_formulations(self, label, st, cfg):
+        """Each formulation of the payload permute, the words gather, the
+        packed exchange (B = 2T and T planes) and the selection (at the
+        heartbeat's [N, T, K] masks, counts up to D) on ``st``'s own edge
+        involution, by CUDA events (5 calls behind a spin kernel, median
+        of 5 rounds); each output equal to the ``pallas`` (``ranks``) one
+        at every valid slot. ``rows`` only up to 102400 peers (its
+        [N, K, K] and [N, K, M] temporaries are 4 and 2 GiB at 1M)."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.ops import heartbeat as hb
+        from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+        from go_libp2p_pubsub_tpu_torch.ops import selection as sel
+        n, t, k = st.mesh.shape
+        m = cfg.msg_window
+        w = (m + 31) // 32
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(7)
+        nbr, rs = st.neighbors, st.reverse_slot
+        valid = (nbr >= 0) & (rs >= 0)
+        jn, rk = nbr.clamp(0, n - 1), rs.clamp(0, k - 1)
+        key_n = pg.edge_sort_key(nbr, rs, k_major=False)
+        key_k = pg.edge_sort_key(nbr, rs, k_major=True)
+        forms = FORMS if n <= N_FULL else tuple(f for f in FORMS
+                                                if f != "rows")
+
+        def compare(op, calls, same, ref="pallas", where=" at valid slots"):
+            want = calls[ref]()
+            times = {}
+            for form, fn in calls.items():
+                if not same(fn(), want):
+                    raise AssertionError(f"formulations [{label}] {op}: "
+                                         f"{form} differs from {ref}")
+                times[form] = self.time_ms(fn, reps=5)
+            best = min(times, key=times.get)
+            print(f"formulations [{label}] {op}: "
+                  + ", ".join(f"{f} {ms:.4f} ms" for f, ms in times.items())
+                  + f"; fastest {best}; each equal to {ref}{where}",
+                  flush=True)
+
+        payload = self.rand_words(gen, n, k)
+        compare(f"permutation_gather int32 [{n}, {k}]", {
+            f: (lambda f=f: pg.permutation_gather(payload, jn, rk, f,
+                                                  sort_key=key_n))
+            for f in forms}, lambda a, b: torch.equal(a[valid], b[valid]))
+        x_w = self.rand_words(gen, w, n)
+        vkn = valid.T
+        compare(f"gather_words [{w}, {n}], K={k}", {
+            f: (lambda f=f: pg.gather_words(x_w, jn, f, m=m, sort_key=key_k))
+            for f in forms}, lambda a, b: torch.equal(a[:, vkn], b[:, vkn]))
+        for b_planes in (2 * t, t):
+            masks = [torch.rand(n, t, k, generator=gen, device=self.dev)
+                     < 0.3 for _ in range(b_planes // t)]
+            compare(f"edge_gather_packed B={b_planes}, N={n}", {
+                f: (lambda f=f: hb.edge_gather_packed(masks, st, f)[0])
+                for f in forms},
+                lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+        mask = torch.rand(n, t, k, generator=gen, device=self.dev) < 0.4
+        noise = torch.rand(n, t, k, generator=gen, device=self.dev)
+        count = torch.randint(0, cfg.d + 1, (n, t), generator=gen,
+                              device=self.dev)
+        compare(f"select_random [{n}, {t}, {k}], count <= D={cfg.d}", {
+            f: (lambda f=f: sel.select_random(mask, count, None,
+                                              max_count=cfg.d, mode=f,
+                                              noise=noise))
+            for f in ("iter", "sort", "ranks")}, torch.equal, ref="ranks",
+            where="")
 
     # ---- phase 4d: the fold_in schedule and run_checked on the card -------
     def phase_fold_in(self):
@@ -1521,12 +1766,12 @@ def main() -> int:
         return 1
     smoke = Smoke()
 
-    # the four underlays build in child processes while the kernels are
+    # the five underlays build in child processes while the kernels are
     # built and checked
     ctx = mp.get_context("spawn")
     topo_jobs = {}
     for shape in ((smoke.n, K, 12), (N_CHURN, K, 12), (N_OUTAGE, K, 12),
-                  (N_BEACON, K_BEACON, 16)):
+                  (N_BEACON, K_BEACON, 16), (N_FRONTIER, K, 8)):
         parent, child = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=_build_topology, args=(child, *shape),
                            daemon=True)
@@ -1582,6 +1827,9 @@ def main() -> int:
             topology_of(N_OUTAGE)))
         timed("3e (BASELINE configs)", lambda: smoke.phase_baseline(
             topology_of(smoke.n), topology_of(N_BEACON, K_BEACON, 16)))
+        timed("3f (frontier_1m, sort path, formulations)",
+              lambda: smoke.phase_frontier(topology_of(N_FRONTIER, K, 8),
+                                           topology_of(smoke.n)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
@@ -1594,6 +1842,9 @@ def main() -> int:
                   smoke.phase_trajectory, case)
         timed("4d (fold_in schedule, run_window chunks)", smoke.phase_fold_in)
         timed("4d (run_checked)", smoke.phase_checked)
+        for case in FORMULATION_CASES:
+            timed(f"4e (formulation trajectory, {case})",
+                  smoke.phase_trajectory, case)
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)

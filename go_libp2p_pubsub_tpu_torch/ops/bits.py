@@ -99,12 +99,16 @@ def unpack_words(p: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def gather_words_rows(x_w: torch.Tensor, nbr: torch.Tensor,
-                      mode: str = "auto") -> torch.Tensor:
+                      mode: str = "auto", m: int | None = None,
+                      sort_key: torch.Tensor | None = None) -> torch.Tensor:
     """out[w, k, n] = x_w[w, nbr[n, k]]: the neighbour gather of packed
-    words (bits.py:80-93), in the formulation ``mode`` resolves to
-    (ops/permgather.resolve_gather_mode). ``nbr`` must be pre-clipped."""
-    from .permgather import gather_words, resolve_gather_mode
-    return gather_words(x_w, nbr, resolve_gather_mode(mode))
+    words of an ``m``-message window (bits.py:80-93; ``m`` defaults to
+    32 W), in the formulation ``mode`` resolves to
+    (ops/permgather.gather_words; ``sort_key`` is the k-major
+    ``edge_sort_key`` the sort formulation needs). ``nbr`` must be
+    pre-clipped."""
+    from .permgather import gather_words
+    return gather_words(x_w, nbr, mode, m=m, sort_key=sort_key)
 
 
 def reduce_or(x: torch.Tensor, axis: int) -> torch.Tensor:

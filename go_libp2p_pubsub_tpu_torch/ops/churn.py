@@ -8,8 +8,8 @@ dropped, and the score is retained. An edge coming back after more than
 ``retain_score_ticks`` has its per-slot counters reset (score.go:611-644).
 Both directions of an edge go down and up together: the lower-id
 endpoint's draw wins, exchanged through the reverse-edge permutation
-(``permutation_gather``, kernel 6, or the flat take under
-``edge_gather_mode="mxu"``). Subscription churn
+(``permutation_gather`` in the formulation ``edge_gather_mode``
+resolves to: kernel 6 under ``"pallas"``). Subscription churn
 (:func:`churn_subscriptions`) is the topic Join/Leave round. The sharded
 halo route is a later slice (ROADMAP.md, Queue 1 item 7).
 """
@@ -23,18 +23,23 @@ from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState, refresh_nbr_subscribed
 from .bits import pack_bool, to_i32
 from .heartbeat import edge_gather
-from .permgather import permutation_gather, resolve_gather_mode
+from .permgather import edge_sort_key, permutation_gather, resolve_mode
 from .score_ops import apply_prune_penalty, compute_scores
 
 
 def _edge_exchange(state: SimState, x: torch.Tensor,
                    mode: str = "auto") -> torch.Tensor:
     """One [N, K] 4-byte payload routed through the reverse-edge
-    involution: ``out[n, k] = x[jn, rk]`` (churn.py:39-61)."""
+    involution: ``out[n, k] = x[jn, rk]`` (churn.py:39-61), the sort
+    formulation by the n-major ``edge_sort_key``. The reference's sharded
+    halo route needs a kernel mesh: ROADMAP.md, Queue 1 item 7."""
     n, k = state.neighbors.shape
     nbr = state.neighbors.clamp(0, n - 1)
     rk = state.reverse_slot.clamp(0, k - 1)
-    return permutation_gather(x, nbr, rk, resolve_gather_mode(mode))
+    sk = edge_sort_key(state.neighbors, state.reverse_slot, k_major=False) \
+        if resolve_mode(mode, x.dtype, n, k, have_sort_key=True) == "sort" \
+        else None
+    return permutation_gather(x, nbr, rk, mode, sort_key=sk)
 
 
 def _mine_wins(state: SimState) -> torch.Tensor:

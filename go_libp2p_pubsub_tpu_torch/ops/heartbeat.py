@@ -20,8 +20,10 @@ import torch
 from .. import rng
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
-from .bits import I32, pack_bool, prefix_count
-from .permgather import _edge_table_mxu, edge_table, resolve_gather_mode
+from .bits import I32, pack_bool, prefix_count, to_i32
+from .permgather import (_edge_table_mxu, edge_sort_key, edge_table,
+                         permutation_gather, resolve_edge_packed_mode,
+                         sort_permutation)
 from .score_ops import (
     advance_active_latch,
     apply_prune_penalty,
@@ -58,36 +60,74 @@ def edge_gather(x: torch.Tensor, state: SimState, fill=False,
                        torch.tensor(fill, dtype=dtype, device=x.device))
 
 
+def _plane_payloads(planes: torch.Tensor) -> list[torch.Tensor]:
+    """[N, B, K] bool planes -> one [N, K] int32 payload per 32 planes, bit
+    i of group g holding plane 32 g + i (heartbeat.py:146-151), built one
+    plane at a time: packing the slots' bits in place would widen every
+    slot to a 32-bit int64 row."""
+    n, b, k = planes.shape
+    out = []
+    for w0 in range(0, b, 32):
+        acc = torch.zeros((n, k), dtype=torch.int64, device=planes.device)
+        for i in range(min(32, b - w0)):
+            acc = acc | (planes[:, w0 + i, :].to(torch.int64) << i)
+        out.append(to_i32(acc))
+    return out
+
+
 def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",
                        extra_words=()):
     """Gather several [N, T, K] boolean edge masks through the reverse-edge
     permutation: ``incoming[j, t, s] = x[neighbors[j,s], t,
-    reverse_slot[j,s]]``, invalid slots False (heartbeat.py:60-199). All B
-    planes x K slots pack into one [N, ceil(B*K/32)] bit-table, routed by
-    :func:`edge_table` under ``"auto"``/``"pallas"`` and by
-    ``_edge_table_mxu`` (the flat take) under ``"mxu"``.
+    reverse_slot[j,s]]``, invalid slots False (heartbeat.py:60-199), in the
+    formulation ``mode`` resolves to (ops/permgather.
+    resolve_edge_packed_mode). ``"pallas"`` packs all B planes x K slots
+    into one [N, ceil(B*K/32)] bit-table routed by :func:`edge_table`,
+    ``"mxu"`` routes that table through the flat take
+    (``_edge_table_mxu``); the others build one [N, K] payload per 32
+    planes: ``"scalar"``/``"rows"`` route each through
+    ``permutation_gather``, ``"sort"`` routes every group by ONE sort
+    permutation of the n-major ``edge_sort_key``.
 
-    ``extra_words``: [W_i, N] int32 word tables that ride the same take as
-    extra rows under ``"mxu"`` (any other formulation raises), returned as
-    [W_i, K, N] receiver views ``out[w, k, n] = tab[w, neighbors[n, k]]``
-    with invalid slots word-ANDed to 0. Returns ``(masks, extras)``, the
-    extras empty when none were passed."""
+    ``extra_words``: [W_i, N] int32 word tables that ride the same
+    exchange under ``"sort"`` (extra lanes of the sort's permutation) or
+    ``"mxu"`` (extra rows of the take); any other formulation raises.
+    They come back as [W_i, K, N] receiver views ``out[w, k, n] =
+    tab[w, neighbors[n, k]]`` with invalid slots word-ANDed to 0. Returns
+    ``(masks, extras)``, the extras empty when none were passed."""
     n, t, k = masks[0].shape
-    mode = resolve_gather_mode(mode)
     planes = torch.cat(masks, dim=1)                       # [N, B, K]
     b = planes.shape[1]
     jn = state.neighbors.clamp(0, n - 1)
     rk = state.reverse_slot.clamp(0, k - 1)
     valid = ((state.neighbors >= 0) & (state.reverse_slot >= 0))[:, None, :]
-    if extra_words and mode != "mxu":
-        raise ValueError(f"extra_words requires the mxu formulation "
-                         f"(resolved {mode!r})")
-    table = pack_bool(planes.reshape(n, b * k))            # [N, ceil(BK/32)]
-    if mode == "mxu":
-        groups, extras_views = _edge_table_mxu(table, jn, rk, b,
-                                               tuple(extra_words))
+    mode = resolve_edge_packed_mode(mode, n, k, b)
+    if extra_words and mode not in ("sort", "mxu"):
+        raise ValueError(f"extra_words requires the sort or mxu formulation "
+                         f"(resolved {mode!r}); callers gate on "
+                         f"resolve_edge_packed_mode")
+    extras_views = []
+    if mode in ("pallas", "mxu"):
+        table = pack_bool(planes.reshape(n, b * k))        # [N, ceil(BK/32)]
+        if mode == "mxu":
+            groups, extras_views = _edge_table_mxu(table, jn, rk, b,
+                                                   tuple(extra_words))
+        else:
+            groups = edge_table(table, jn, rk, b)
     else:
-        groups, extras_views = edge_table(table, jn, rk, b), []
+        payloads = _plane_payloads(planes)
+        if mode == "sort":
+            # the reference's sharded halo route (heartbeat.py:137-145)
+            # needs a kernel mesh: ROADMAP.md, Queue 1 item 7
+            perm = sort_permutation(edge_sort_key(
+                state.neighbors, state.reverse_slot, k_major=False))
+            groups = [p.reshape(-1)[perm].reshape(n, k) for p in payloads]
+            # an extra lane carries tab[w, j] on each of j's K slots
+            src = torch.div(perm, k, rounding_mode="floor")
+            extras_views = [tab[:, src].reshape(-1, n, k).transpose(1, 2)
+                            for tab in extra_words]        # [W_i, K, N]
+        else:
+            groups = [permutation_gather(p, jn, rk, mode) for p in payloads]
     parts = []
     for w0, g in zip(range(0, b, 32), groups):
         nb = min(32, b - w0)
@@ -107,8 +147,8 @@ class HeartbeatOut(NamedTuple):
     fwd_send: torch.Tensor    # [N, T, K] receiver view of eager-forward edges
     extra_routed: tuple = ()  # receiver views ([W_i, K, N]) of the caller's
                               # extra_words, routed on the final exchange
-                              # (edge_gather_mode="mxu" only; invalid slots
-                              # read 0); empty when none were passed
+                              # (the sort and mxu formulations; invalid
+                              # slots read 0); empty when none were passed
 
 
 def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
@@ -117,6 +157,7 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     n, t, k = state.mesh.shape
     tick = state.tick
     ks = rng.split(key, 8)
+    sel = cfg.selection_mode
 
     state = advance_active_latch(state, tp)
     scores_all = compute_scores(state, cfg, tp, mask_disconnected=False,
@@ -146,7 +187,8 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     n_mesh = mesh1.sum(-1)
     need = torch.where(n_mesh < cfg.dlo, cfg.d - n_mesh, 0)
     if bool(((need > 0) & candidate.any(-1)).any()):
-        graft1 = select_random(candidate, need, ks[0])
+        graft1 = select_random(candidate, need, ks[0], max_count=cfg.d,
+                               mode=sel)
     else:
         graft1 = torch.zeros_like(candidate)
     mesh2 = mesh1 | graft1
@@ -156,15 +198,18 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     n2 = mesh2.sum(-1)
     over = (n2 > cfg.dhi)[..., None]
     if bool(over.any()):
-        protected = select_top(sb, mesh2, cfg.dscore)
+        protected = select_top(sb, mesh2, cfg.dscore, max_count=cfg.dscore,
+                               mode=sel)
         rest = mesh2 & ~protected
-        keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1])
+        keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1],
+                                  max_count=cfg.d - cfg.dscore, mode=sel)
         kept = protected | keep_rand
         n_out_kept = (kept & out3).sum(-1)
         deficit_out = torch.clamp(cfg.dout - n_out_kept, min=0)
-        add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2])
+        add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2],
+                                max_count=cfg.dout, mode=sel)
         remove_nonout = select_random(keep_rand & ~out3, add_out.sum(-1),
-                                      ks[3])
+                                      ks[3], max_count=cfg.dout, mode=sel)
         kept = (kept | add_out) & ~remove_nonout
     else:
         kept = mesh2
@@ -178,7 +223,8 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
                            cfg.dout - n_out, 0)
     out_cand = candidate & out3 & ~mesh3
     if bool(((need_out > 0) & out_cand.any(-1)).any()):
-        graft_out = select_random(out_cand, need_out, ks[4])
+        graft_out = select_random(out_cand, need_out, ks[4],
+                                  max_count=cfg.dout, mode=sel)
     else:
         graft_out = torch.zeros_like(mesh3)
     mesh4 = mesh3 | graft_out
@@ -190,7 +236,9 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
         og_cond = (mesh4.sum(-1) > 1) & (med < cfg.opportunistic_graft_threshold)
         og_need = torch.where(og_cond, cfg.opportunistic_graft_peers, 0)
         og_sel = select_random(candidate & (sb > med[..., None]) & ~mesh4,
-                               og_need, ks[5])
+                               og_need, ks[5],
+                               max_count=cfg.opportunistic_graft_peers,
+                               mode=sel)
     else:
         og_sel = torch.zeros_like(mesh4)
     mesh5 = mesh4 | og_sel
@@ -249,7 +297,7 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
         add_f = select_random(
             conn & nbr_sub & ~keep_f & ~direct3
             & (s >= cfg.publish_threshold) & fa3,
-            need_f, ks[7])
+            need_f, ks[7], max_count=cfg.d, mode=sel)
         new_fanout = keep_f | add_f
     else:
         new_fanout = torch.zeros_like(state.fanout)
@@ -274,7 +322,12 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     factor = torch.tensor(np.float32(cfg.gossip_factor), device=n_cand.device)
     target = torch.clamp(torch.floor(factor * n_cand.float()).to(I32),
                          min=cfg.dlazy)
-    gossip_sel = select_random(gossip_cand, target, ks[6])
+    # the static bound on target, in the same float32 arithmetic
+    # (heartbeat.py:460-465)
+    gossip_bound = max(cfg.dlazy, int(np.floor(
+        np.float32(cfg.gossip_factor) * np.float32(k))))
+    gossip_sel = select_random(gossip_cand, target, ks[6],
+                               max_count=gossip_bound, mode=sel)
 
     # one shared exchange hands forward_tick its receiver views: who gossips
     # to me, and whose eager forwarding reaches me (gossipsub.go:1020-1035)

@@ -97,42 +97,47 @@ def _words(cfg) -> int:
     return (cfg.msg_window + 31) // 32
 
 
+def _fused(cfg, op: str, feasible: bool) -> str:
+    """``"pallas"`` (the fused kernels) or ``"xla"`` for ``op`` ("hop" or
+    "emit"): ``"auto"`` walks ops/dispatch.py's ranking and takes the first
+    candidate that can run (``"xla"`` always can, the two fused modes when
+    ``feasible``); ``"pallas"`` and ``"pallas-mxu"`` take the kernels when
+    ``feasible``; ``"xla"`` never does."""
+    mode = cfg.hop_mode
+    if mode not in _HOP_MODES:
+        raise ValueError(f"unknown hop_mode {mode!r}")
+    if mode == "auto":
+        from .dispatch import choose
+        w, n, k = _words(cfg), cfg.n_peers, cfg.k_slots
+        for cand in choose(op, w=w, n=n, k=k):
+            if cand == "xla" or feasible:
+                return "xla" if cand == "xla" else "pallas"
+        return "xla"
+    return "pallas" if mode != "xla" and feasible else "xla"
+
+
 def resolve_hop_mode(cfg) -> str:
     """The forwarding hop and IWANT resolve: ``"pallas"`` (the fused
-    kernels) or ``"xla"`` (the non-fused data path of ops/propagate.py).
-    ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused kernels
+    kernels) or ``"xla"`` (the non-fused data path of ops/propagate.py),
+    from the config alone, never the device, so the CPU runs the
+    formulation the card runs (hopkernel.py:112-140). The kernels can run
     when :func:`_hop_config_ok` holds and the config's shapes fit them
     (:func:`_fused_shape_ok` of W = ceil(msg_window / 32), n_topics and
-    k_slots), else the non-fused path; ``"xla"`` always takes the
-    non-fused path. The choice reads the config alone, never the device,
-    so the CPU runs the formulation the card runs.
-
-    The reference sends ``"auto"`` to its dispatch table, which ships
-    ``"xla"`` (hopkernel.py:112-140); the port's ``"auto"`` takes the
-    fused kernels where they fit. The two paths are bit-identical
-    (hopkernel.py:15-17), so the trajectories agree. ``"pallas-mxu"``
-    differs from ``"pallas"`` in the reference only by the in-kernel
-    gather formulation, so it runs the same kernels."""
-    if cfg.hop_mode not in _HOP_MODES:
-        raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
-    if cfg.hop_mode != "xla" and _hop_config_ok(cfg) \
-            and _fused_shape_ok(_words(cfg), cfg.n_topics, cfg.k_slots):
-        return "pallas"
-    return "xla"
+    k_slots); ``"auto"`` ranks through ops/dispatch.py, whose ``"cuda"``
+    entry quarantines ``"xla"``, so it takes the kernels wherever they can
+    run. The two paths are bit-identical (hopkernel.py:15-17).
+    ``"pallas-mxu"`` differs from ``"pallas"`` in the reference only by the
+    in-kernel gather formulation, so it runs the same kernels."""
+    return _fused(cfg, "hop", _hop_config_ok(cfg) and _fused_shape_ok(
+        _words(cfg), cfg.n_topics, cfg.k_slots))
 
 
 def resolve_emit_mode(cfg) -> str:
-    """The IHAVE->IWANT chooser: the fused :func:`emit` kernel under every
-    hop_mode but ``"xla"`` where W = ceil(msg_window / 32) fits its
+    """The IHAVE->IWANT chooser (hopkernel.py:143-169): the fused
+    :func:`emit` kernel can run wherever W = ceil(msg_window / 32) fits its
     registers (M <= 32 W always holds), whatever the rest of the config;
-    else the non-fused emit (hopkernel.py:143-169). As for the hop, the
-    choice reads the config alone, and the port's ``"auto"`` takes the
-    kernel where the reference's dispatch table ships ``"xla"``."""
-    if cfg.hop_mode not in _HOP_MODES:
-        raise ValueError(f"unknown hop_mode {cfg.hop_mode!r}")
-    if cfg.hop_mode == "xla" or _words(cfg) > _MAXW:
-        return "xla"
-    return "pallas"
+    the modes resolve as for :func:`resolve_hop_mode`."""
+    return _fused(cfg, "emit", _words(cfg) <= _MAXW)
 
 
 def _expand_topic(planes_u8: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:

@@ -108,3 +108,58 @@ def take_payload(payload: torch.Tensor, jn: torch.Tensor,
     words = payload.contiguous().view(I32).reshape(n * k, 1)
     idx = (jn * k + rk).reshape(-1)
     return take_rows(words, idx).reshape(jn.shape).view(payload.dtype)
+
+
+# --- the host-side cost models (mxutake.py:72 and :223-280) ------------------
+# ops/dispatch.py prices the reference's two-level one-hot take (the ``mxu``
+# formulation) with these, operation for operation, so that the port's
+# ranking equals the reference's to the last bit. They describe the TPU
+# kernel's bytes and FLOPs, not csrc/take_words.cu's.
+
+LANES = 128
+DEFAULT_BLOCK_G = 1024
+_PAYLOAD_PLANES_BYTES = 4 * 1024 * 1024
+
+
+def payload_w_tile(n: int, k: int) -> int:
+    """Word-tile size of the reference's blocked payload take: how many of
+    the K word planes one two-level take may carry."""
+    n_pad = -(-n // LANES) * LANES
+    return max(1, min(k, _PAYLOAD_PLANES_BYTES // (8 * n_pad)))
+
+
+def cost_model(n: int, r: int, w: int, block_g: int = DEFAULT_BLOCK_G) -> dict:
+    """Bytes-touched and FLOP inventory of one two-level take of ``r``
+    indices over a [w, n] word table (mxutake.py:223-260)."""
+    nb = -(-n // LANES)
+    bg = min(max(r, 1), block_g)
+    n_blocks = -(-r // bg)
+    table_bytes = w * 4 * nb * LANES * 2
+    onehot_tile = bg * nb * 2
+    onehot_bytes = n_blocks * onehot_tile * 4 * w
+    lane_bytes = 2 * r * LANES * 4 * 4 * w
+    out_bytes = w * r * 4
+    flops = r * (2 * nb + 2 * LANES) * 4 * w
+    return {
+        "table_bytes": table_bytes,
+        "vmem_bytes": table_bytes + onehot_tile + bg * LANES * 4,
+        "onehot_bytes": onehot_bytes,
+        "lane_bytes": lane_bytes,
+        "out_bytes": out_bytes,
+        "flops": flops,
+    }
+
+
+def cost_model_payload(n: int, k: int,
+                       block_g: int = DEFAULT_BLOCK_G) -> dict:
+    """Bytes/FLOP inventory of one blocked payload take over an [n, k]
+    payload (mxutake.py:263-280): a K-word take over all N*K edges plus the
+    K-wide slot select (``select_bytes``)."""
+    m = cost_model(n, n * k, k, block_g)
+    m["select_bytes"] = k * (n * k) * 4 + n * k * 4
+    wt = payload_w_tile(n, k)
+    nb = -(-n // LANES)
+    m["vmem_bytes"] = (wt * 4 * nb * LANES * 2
+                       + min(n * k, block_g) * nb * 2
+                       + min(n * k, block_g) * LANES * 4)
+    return m

@@ -10,22 +10,44 @@ raises:
   is table bit ``b * K + rk[n, k]`` of row ``jn[n, k]``: B sender-side bool
   planes over K slots, packed b-major / slot-minor into one
   ``[N, ceil(B*K/32)]`` word table, routed through the (sender, slot) ->
-  (receiver, reverse_slot) permutation. It carries the heartbeat's three
-  packed exchanges (ops/heartbeat.edge_gather_packed).
+  (receiver, reverse_slot) permutation. It carries the heartbeat's packed
+  exchanges (ops/heartbeat.edge_gather_packed) under ``"pallas"``.
 - :func:`gather_words` (``_gather_words_pallas``, csrc/gather_words.cu):
   ``out[w, k, n] = x_w[w, nbr[n, k]]``, the non-fused data path's
   neighbour gather of a packed message table.
 - :func:`permutation_gather` (``_gather_pallas``,
   csrc/permutation_gather.cu): ``out[n, k] = payload[jn[n, k], rk[n, k]]``
-  for a 4-byte payload, behind churn's symmetric exchanges.
+  for a 4-byte payload, behind churn's symmetric exchanges and flood
+  publish's sender-side planes.
 
-``edge_gather_mode`` picks the formulation (:func:`resolve_gather_mode`):
-``"auto"`` and ``"pallas"`` mean the three kernels above; ``"mxu"`` routes
-every words, bit-table and payload gather through the flat take of
-ops/mxutake.py (the reference's ``take_words_twolevel``), with the bit
-extraction of :func:`_edge_table_mxu` as plain tensor ops. The reference's
-scalar, rows and sort formulations, its sort keys and its VMEM gates are
-not ported.
+``edge_gather_mode`` picks one of the reference's five formulations for
+each seam (:func:`resolve_mode`, :func:`resolve_words_mode`,
+:func:`resolve_edge_packed_mode`; ``"auto"`` ranks them through
+ops/dispatch.py under its ``"cuda"`` entry, which takes the kernels above):
+
+- ``"pallas"``: the three kernels;
+- ``"mxu"``: the flat take of ops/mxutake.py (the reference's
+  ``take_words_twolevel``) for every words, bit-table and payload gather,
+  with the bit extraction of :func:`_edge_table_mxu` as plain tensor ops;
+- ``"scalar"``: the direct advanced-index gather;
+- ``"rows"``: whole neighbour rows gathered, then the reverse slot (or the
+  message bits) picked from them, through [N, K, K] and [N, K, M]
+  temporaries;
+- ``"sort"``: the (sender, slot) -> (receiver, reverse_slot) map is an
+  involution of the N*K edge slots, so routing per-slot values to their
+  receivers applies a permutation: ONE ``torch.sort`` of the destination
+  keys (:func:`edge_sort_key`) gives it, and every payload lane of a call
+  takes that same permutation (:func:`sort_permutation`), as the
+  reference's one variadic ``lax.sort`` carries many lanes.
+
+The formulations agree at every valid slot; at invalid slots (no
+neighbour) ``scalar``/``rows`` read ``payload[clip(jn), clip(rk)]`` and
+``sort`` leaves the source's own value, which every caller masks.
+
+Eligibility follows the port's kernels, not the reference's TPU VMEM
+budgets: the Hopper kernels take every shape the paths run, so an explicit
+``"pallas"`` does not degrade to ``"rows"`` at large N as the reference's
+does (permgather.py:353-367). The output is the same either way.
 """
 
 from __future__ import annotations
@@ -35,19 +57,132 @@ import torch
 from . import cudalib
 from .bits import I32
 
-def resolve_gather_mode(mode: str) -> str:
-    """The port's formulation for ``SimConfig.edge_gather_mode``: ``"auto"``
-    and ``"pallas"`` -> ``"pallas"`` (kernels 4-6), ``"mxu"`` -> ``"mxu"``
-    (the flat take, kernel 7). The reference's other formulations raise."""
-    if mode in ("auto", "pallas"):
-        return "pallas"
-    if mode == "mxu":
-        return "mxu"
-    if mode in ("scalar", "rows", "sort"):
-        raise NotImplementedError(
-            f"edge_gather_mode={mode!r} is not ported yet: the port has the "
-            "pallas and mxu formulations only (ROADMAP.md, Queue 1 item 3)")
-    raise ValueError(f"unknown edge_gather_mode {mode!r}")
+
+_FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
+
+
+def _known(mode: str) -> None:
+    if mode not in ("auto",) + _FORMS:
+        raise ValueError(f"unknown edge_gather_mode {mode!r}")
+
+
+def _payload_eligible(mode: str, itemsize: int, have_sort_key: bool) -> str:
+    """``mode`` if it can run a payload of ``itemsize`` bytes, else the
+    formulation it degrades to (permgather.py:485-505 without the VMEM
+    gates): the flat take and the kernel move 4-byte words."""
+    if mode == "mxu" and itemsize != 4:
+        return "scalar"
+    if mode == "sort" and not have_sort_key:
+        return "scalar"
+    if mode == "pallas" and itemsize < 4:
+        return "rows"
+    return mode
+
+
+def resolve_mode(mode: str, payload_dtype, n: int, k: int,
+                 have_sort_key: bool = False) -> str:
+    """The payload permute's formulation (permgather.py:508-532): ``"auto"``
+    walks ops/dispatch.py's ranking and takes the first eligible one."""
+    _known(mode)
+    itemsize = payload_dtype.itemsize
+    if mode == "auto":
+        from .dispatch import choose
+        for cand in choose("edge_permute", n=n, k=k, itemsize=itemsize,
+                           have_sort_key=have_sort_key):
+            if _payload_eligible(cand, itemsize, have_sort_key) == cand:
+                return cand
+        return "scalar"
+    return _payload_eligible(mode, itemsize, have_sort_key)
+
+
+def _words_eligible(mode: str, itemsize: int, have_sort_key: bool) -> str:
+    if mode == "sort" and not have_sort_key:
+        return "rows"
+    if mode in ("mxu", "pallas") and itemsize != 4:
+        return "rows"
+    return mode
+
+
+def resolve_words_mode(mode: str, w: int, n: int, k: int,
+                       itemsize: int = 4,
+                       have_sort_key: bool = False) -> str:
+    """The words gather's formulation (permgather.py:407-427): ``"auto"``
+    walks ops/dispatch.py's ranking and takes the first eligible one; a
+    ``"sort"`` without the caller's keys degrades to ``"rows"``."""
+    _known(mode)
+    if mode == "auto":
+        from .dispatch import choose
+        for cand in choose("words", w=w, n=n, k=k, itemsize=itemsize,
+                           have_sort_key=have_sort_key):
+            if _words_eligible(cand, itemsize, have_sort_key) == cand:
+                return cand
+        return "scalar"
+    return _words_eligible(mode, itemsize, have_sort_key)
+
+
+def resolve_edge_packed_mode(mode: str, n: int, k: int,
+                             b_planes: int) -> str:
+    """The packed edge exchange's formulation (permgather.py:370-390):
+    ``"auto"`` takes ops/dispatch.py's first candidate (every formulation
+    takes every shape here, so the reference's ride-along width
+    ``extra_w``, which prices its VMEM gate, has no counterpart)."""
+    _known(mode)
+    if mode == "auto":
+        from .dispatch import choose
+        return choose("edge_packed", n=n, k=k, b=b_planes)[0]
+    return mode
+
+
+# --- the sort formulation (permgather.py:87-126) ----------------------------
+
+def edge_sort_key(neighbors: torch.Tensor, reverse_slot: torch.Tensor,
+                  k_major: bool) -> torch.Tensor:
+    """Destination key of each SOURCE edge slot for the sort routes
+    (permgather.py:87-118), flat n-major over the [N, K] slots.
+
+    A valid slot (n, k) sends to its receiver's slot (jn, rk); an invalid
+    one keeps its own index, so the keys stay a bijection of [0, N*K) (the
+    edge map is an involution: valid slots map valid <-> valid) and the
+    sort never sees a duplicate key. ``k_major``: True -> destination flat
+    order ``k * N + n`` (for [W, K, N] outputs), False -> ``n * K + k``
+    (for [N, K] outputs). int32 while N*K < 2**31, else int64."""
+    n, k = neighbors.shape
+    dt = I32 if n * k < 2 ** 31 else torch.int64
+    dev = neighbors.device
+    valid = (neighbors >= 0) & (reverse_slot >= 0)
+    jn = neighbors.clamp(0, n - 1).to(dt)
+    rk = reverse_slot.clamp(0, k - 1).to(dt)
+    ar_n = torch.arange(n, dtype=dt, device=dev)[:, None]
+    ar_k = torch.arange(k, dtype=dt, device=dev)[None, :]
+    if k_major:
+        dest, own = rk * n + jn, ar_k * n + ar_n
+    else:
+        dest, own = jn * k + rk, ar_n * k + ar_k
+    return torch.where(valid, dest, own).reshape(-1)
+
+
+def sort_permutation(sort_key: torch.Tensor) -> torch.Tensor:
+    """The permutation one sort of the destination keys gives:
+    ``out_flat[d] = in_flat[perm[d]]`` moves every source slot's value to
+    its destination. The keys are distinct, so any sort gives this
+    order; the reference's ``lax.sort`` gives the same."""
+    return torch.sort(sort_key, stable=True).indices
+
+
+def _gather_sort(payload, sort_key):
+    """``out_flat[dest] = payload_flat[src]`` by the sort's permutation,
+    n-major destination keys -> [N, K]."""
+    n, k = payload.shape
+    return payload.reshape(-1)[sort_permutation(sort_key)].reshape(n, k)
+
+
+def _gather_scalar(payload, jn, rk):
+    return payload[jn.long(), rk.long()]
+
+
+def _gather_rows(payload, jn, rk):
+    rows = payload[jn.long()]                              # [N, K, K] rows
+    return torch.gather(rows, -1, rk.long()[..., None])[..., 0]
 
 
 # --- the bit-table edge exchange (permgather.py:_edge_table_pallas) ---------
@@ -159,27 +294,44 @@ def gather_words_plain(x_w: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
 
 
 def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
-                 mode: str = "pallas") -> torch.Tensor:
+                 mode: str = "pallas", m: int | None = None,
+                 sort_key: torch.Tensor | None = None) -> torch.Tensor:
     """``out[w, k, n] = x_w[w, nbr[n, k]]``: ``x_w`` [W, N_src] int32 packed
     words, ``nbr`` [N, K] int32 pre-clipped to [0, N_src); returns the
-    k-major receiver view [W, K, N]. On the card the kernel reads the table
-    interleaved into n-major rows (``x_w.T.contiguous()``, 0.4 MB at [2,
-    51200]), a source's W words in one 32-byte L2 sector, and stages
-    ``nbr`` in chunks of slots, so it takes any K. ``mode="mxu"``
-    routes it through the flat take at k-major ``idx = nbr.T.reshape(-1)``
-    (permgather.py:462-470)."""
-    if mode == "mxu":
-        from .mxutake import take_words
-        _check_words(x_w, nbr)
-        n, k = nbr.shape
-        return take_words(x_w, nbr.T.reshape(-1)).reshape(x_w.shape[0], k, n)
-    if mode != "pallas":
-        raise ValueError(f"gather_words: unknown mode {mode!r}")
-    if not cudalib.use_kernel("gather_words", x_w, nbr):
-        return gather_words_plain(x_w, nbr)
+    k-major receiver view [W, K, N] in the formulation ``mode`` resolves to
+    (:func:`resolve_words_mode`; permgather.py:430-481).
+
+    ``"pallas"``: the kernel. On the card it reads the table interleaved
+    into n-major rows (``x_w.T.contiguous()``, 0.4 MB at [2, 51200]), a
+    source's W words in one 32-byte L2 sector, and stages ``nbr`` in
+    chunks of slots, so it takes any K. ``"mxu"``: the flat take at
+    k-major ``idx = nbr.T.reshape(-1)``. ``"scalar"``: one indexed gather
+    per word. ``"rows"``: the window unpacked to [N_src, m] bools (``m``
+    messages, default 32 W), whole rows gathered, repacked. ``"sort"``:
+    each source's words carried along its K slots by the permutation of
+    the k-major ``sort_key`` (:func:`edge_sort_key`; needs N_src = N)."""
     _check_words(x_w, nbr)
     w, n_src = x_w.shape
     n, k = nbr.shape
+    mode = resolve_words_mode(mode, w, n, k, x_w.element_size(),
+                              have_sort_key=sort_key is not None)
+    if mode == "sort":
+        # source slot s = n * K + k carries x_w[:, n]; out[:, d] takes the
+        # slot the permutation brings to d
+        src = torch.div(sort_permutation(sort_key), k, rounding_mode="floor")
+        return x_w[:, src].reshape(w, k, n)
+    if mode == "scalar":
+        return x_w[:, nbr.T.long()]
+    if mode == "rows":
+        from .bits import pack_bool, unpack_words
+        planes = unpack_words(x_w, 32 * w if m is None else m)
+        rows = planes[nbr.long()]                          # [N, K, M]
+        return pack_bool(rows).permute(2, 1, 0)            # [W, K, N]
+    if mode == "mxu":
+        from .mxutake import take_words
+        return take_words(x_w, nbr.T.reshape(-1)).reshape(w, k, n)
+    if not cudalib.use_kernel("gather_words", x_w, nbr):
+        return gather_words_plain(x_w, nbr)
     cudalib.check_args("gather_words", [("x_w", x_w, I32, (w, n_src)),
                                         ("nbr", nbr, I32, (n, k))])
     rows = x_w.T.contiguous()                              # [N_src, W]
@@ -211,17 +363,29 @@ def permutation_gather_plain(payload: torch.Tensor, jn: torch.Tensor,
 
 
 def permutation_gather(payload: torch.Tensor, jn: torch.Tensor,
-                       rk: torch.Tensor, mode: str = "pallas") -> torch.Tensor:
-    """``out[n, k] = payload[jn[n, k], rk[n, k]]`` for a [N_src, K_src]
-    payload of any 4-byte dtype; ``jn``/``rk`` [N, K] int32 pre-clipped to
-    valid range (callers mask invalid slots on the result). The kernel moves
-    the payload's bits as int32, so a float32 payload comes back bit for
-    bit. ``mode="mxu"`` takes :func:`~.mxutake.take_payload`."""
+                       rk: torch.Tensor, mode: str = "pallas",
+                       sort_key: torch.Tensor | None = None) -> torch.Tensor:
+    """``out[n, k] = payload[jn[n, k], rk[n, k]]``; ``jn``/``rk`` [N, K]
+    int32 pre-clipped to valid range (callers mask invalid slots on the
+    result), in the formulation ``mode`` resolves to
+    (:func:`resolve_mode`; permgather.py:535-569). ``"pallas"``: the
+    kernel, for a [N_src, K_src] payload of any 4-byte dtype, whose bits it
+    moves as int32 (a float32 payload comes back bit for bit). ``"mxu"``:
+    :func:`~.mxutake.take_payload`. ``"scalar"``, ``"rows"``: the indexed
+    and the row gathers, any dtype. ``"sort"``: the permutation of the
+    n-major ``sort_key`` (:func:`edge_sort_key`) applied to an [N, K]
+    payload."""
+    mode = resolve_mode(mode, payload.dtype, *payload.shape,
+                        have_sort_key=sort_key is not None)
+    if mode == "sort":
+        return _gather_sort(payload, sort_key)
+    if mode == "scalar":
+        return _gather_scalar(payload, jn, rk)
+    if mode == "rows":
+        return _gather_rows(payload, jn, rk)
     if mode == "mxu":
         from .mxutake import take_payload
         return take_payload(payload, jn, rk)
-    if mode != "pallas":
-        raise ValueError(f"permutation_gather: unknown mode {mode!r}")
     if not cudalib.use_kernel("permutation_gather", payload, jn, rk):
         return permutation_gather_plain(payload, jn, rk)
     _check_payload(payload, jn, rk)

@@ -14,8 +14,8 @@ resolve_emit_mode exactly where the reference chooses:
   provenance or flood publish, at W = ceil(msg_window / 32) <= 8 words;
 - the non-fused path: the reference's XLA formulation op for op — the
   per-slot ask sets of ``_slot_bitplanes``, one words gather per hop
-  (``gw``: ops/bits.gather_words_rows, kernel ``gather_words`` or the flat
-  take under ``edge_gather_mode="mxu"``), the validation-queue cap, the
+  (``gw``: ops/bits.gather_words_rows in the formulation
+  ``edge_gather_mode`` resolves to), the validation-queue cap, the
   peer gater's admission and stats, and the emit through
   ``_bits_to_slot`` / ``_budgeted_iwant``.
 
@@ -57,7 +57,8 @@ from .gater import accept_data
 from .heartbeat import edge_gather
 from .hopkernel import emit, hop, iwant_resolve, resolve_emit_mode, \
     resolve_hop_mode
-from .permgather import permutation_gather, resolve_gather_mode
+from .permgather import (edge_sort_key, permutation_gather, resolve_mode,
+                         resolve_words_mode, sort_permutation)
 from .score_ops import decayed
 from .selection import select_random
 
@@ -163,12 +164,13 @@ def _edge_forward_mask(state: SimState, cfg: SimConfig, key: torch.Tensor,
     if cfg.router == "randomsub":
         # to max(D, ceil(sqrt N)) random subscribed neighbours, drawn
         # sender-side (randomsub.go:124-143) and seen through the edge
-        # permutation; the rank selection takes every candidate when the
-        # target exceeds K, as the reference's max_count=min(target, K) does
+        # permutation; every candidate is chosen when the target exceeds K
         target = max(cfg.d, math.ceil(math.sqrt(cfg.n_peers)))
         cand = conn & state.nbr_subscribed                     # sender view
         sel = select_random(cand, torch.full((n, t), target,
-                                             device=cand.device), key)
+                                             device=cand.device), key,
+                            max_count=min(target, cfg.k_slots),
+                            mode=cfg.selection_mode)
         return edge_gather(sel, state, mode=cfg.edge_gather_mode) \
             & conn & my_sub
     raise ValueError(f"unknown router {cfg.router!r}")
@@ -306,16 +308,25 @@ def _flood_offer(state: SimState, cfg: SimConfig, tb: _Tables,
     scores it >= publish_threshold (direct peers bypass the gate). The
     sender-side planes, its score of me and its direct flag for me, come
     through the edge permutation (``permutation_gather``: a float32 and an
-    int32 payload); with scoring off the gate is open and neither is
-    gathered."""
+    int32 payload; under ``"sort"`` both take one sort's permutation,
+    propagate.py:500-530); with scoring off the gate is open and neither
+    is gathered."""
     n, t, k = state.mesh.shape
     w = tb.topic_bits.shape[1]
-    mode = resolve_gather_mode(cfg.edge_gather_mode)
+    mode = cfg.edge_gather_mode
     rk = state.reverse_slot.clamp(0, k - 1)
     if cfg.scoring_enabled:
-        sender_scores_me = permutation_gather(scores, nbr, rk, mode)
-        sender_direct_me = permutation_gather(
-            state.direct.to(I32), nbr, rk, mode) != 0
+        if resolve_mode(mode, torch.float32, n, k,
+                        have_sort_key=True) == "sort":
+            # both sender-side planes take one sort's permutation
+            perm = sort_permutation(edge_sort_key(
+                state.neighbors, state.reverse_slot, k_major=False))
+            sender_scores_me = scores.reshape(-1)[perm].reshape(n, k)
+            sender_direct_me = state.direct.reshape(-1)[perm].reshape(n, k)
+        else:
+            sender_scores_me = permutation_gather(scores, nbr, rk, mode)
+            sender_direct_me = permutation_gather(
+                state.direct.to(I32), nbr, rk, mode) != 0
         score_gate = sender_direct_me \
             | (sender_scores_me >= cfg.publish_threshold)
     else:
@@ -522,10 +533,18 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     mal = state.malicious
     zero = torch.zeros((), dtype=I32, device=dev)
 
+    # the k-major destination keys of the sort formulation, made once a
+    # tick and only when the words gathers resolve to it
+    # (propagate.py:289-308)
+    sk_w = edge_sort_key(state.neighbors, state.reverse_slot, k_major=True) \
+        if resolve_words_mode(cfg.edge_gather_mode, w, n, k,
+                              have_sort_key=True) == "sort" else None
+
     def gw(table):
-        """The tick's words gather (kernel ``gather_words``, or the flat
-        take under edge_gather_mode="mxu")."""
-        return gather_words_rows(table, nbr, cfg.edge_gather_mode)
+        """The tick's words gather, in the formulation
+        ``edge_gather_mode`` resolves to."""
+        return gather_words_rows(table, nbr, cfg.edge_gather_mode, m=m,
+                                 sort_key=sk_w)
 
     # --- per-tick packed masks ---
     age_pub = tick - state.msg_publish_tick

@@ -4,16 +4,19 @@
         [--out profile_step.json]
     python -m go_libp2p_pubsub_tpu_torch.profile_step --scenario churn_50k \
         [--gather pallas|mxu] [--n 51200]
+    python -m go_libp2p_pubsub_tpu_torch.profile_step --scenario frontier_1m
 
-Builds the headline network (``build_headline(n)``, n=102400 by default)
-or the churn + peer-gater scenario (``scenarios.churn_50k(n)``, n=51200 by
-default, run with ``hop_mode="xla"`` and ``edge_gather_mode=--gather``) on
-cuda, warms up two ticks, then
+Builds the headline network (``build_headline(n)``, n=102400 by default),
+the churn + peer-gater scenario (``scenarios.churn_50k(n)``, n=51200 by
+default, run with ``hop_mode="xla"`` and ``edge_gather_mode=--gather``) or
+the frontier (``scenarios.frontier(n)``, n=1048576 by default, its own
+``sort`` exchanges) on cuda, warms up two ticks, then
 
 1. times each stage of ``engine.step`` (publishers + publish, the gater's
    decay, heartbeat, forward_tick, connection churn, invariant flags) on
    the host clock with a device sync after each stage, over ``--ticks``
-   ticks;
+   ticks, and takes each stage's peak device memory above what was
+   allocated when it began (``max_memory_allocated`` after a reset);
 2. keeps a copy of the state and runs ``--ticks`` more ticks of ``step``
    as a user would (no added syncs), timed by CUDA events around the
    window and on the host clock;
@@ -54,12 +57,14 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scenario", choices=("headline", "churn_50k"),
+    ap.add_argument("--scenario",
+                    choices=("headline", "churn_50k", "frontier_1m"),
                     default="headline")
     ap.add_argument("--gather", choices=("pallas", "mxu"), default="pallas",
                     help="edge_gather_mode of the churn_50k run")
     ap.add_argument("--n", type=int, default=None,
-                    help="peers (102400 headline, 51200 churn_50k)")
+                    help="peers (102400 headline, 51200 churn_50k, "
+                    "1048576 frontier_1m)")
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -83,12 +88,17 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     churn = args.scenario == "churn_50k"
-    n = args.n or (51200 if churn else 102400)
+    frontier = args.scenario == "frontier_1m"
+    n = args.n or {"churn_50k": 51200, "frontier_1m": 1 << 20}.get(
+        args.scenario, 102400)
     t0 = time.perf_counter()
-    topo = topology.sparse(n, 32, degree=12)
-    print(f"topology.sparse({n}, 32, degree=12): "
+    topo = topology.sparse_fast(n, 32, degree=8, seed=scenarios.SEED) \
+        if frontier else topology.sparse(n, 32, degree=12)
+    print(f"{args.scenario}'s underlay ({n} peers): "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
-    if churn:
+    if frontier:
+        cfg, tp, st = scenarios.frontier(n, device="cuda", topo=topo)
+    elif churn:
         cfg, tp, st = scenarios.churn_50k(n_peers=n, device="cuda", topo=topo)
         cfg = dataclasses.replace(cfg, hop_mode="xla",
                                   edge_gather_mode=args.gather)
@@ -102,15 +112,21 @@ def main(argv=None) -> int:
         st = step(st, cfg, tp, keys[i])
     torch.cuda.synchronize()
 
-    # 1. stage wall times (host clock, device sync after each stage)
+    # 1. stage wall times (host clock, device sync after each stage) and
+    # peak device memory above the stage's start
     stages = defaultdict(list)
+    peaks = defaultdict(int)
     tick_s = []
 
     def timed(name, fn):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         stages[name].append(time.perf_counter() - t)
+        peaks[name] = max(peaks[name],
+                          torch.cuda.max_memory_allocated() - base)
         return out
 
     for i in range(warm, warm + args.ticks):
@@ -137,6 +153,10 @@ def main(argv=None) -> int:
     print("stage ms per tick (host clock, synced): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()),
           flush=True)
+    print(f"stage peak device memory above its start, MiB (state "
+          f"{sum(x.numel() * x.element_size() for x in st) / 2 ** 20:.1f} "
+          f"MiB): " + ", ".join(f"{k} {v / 2 ** 20:.1f}"
+                                for k, v in peaks.items()), flush=True)
 
     # 2. the window as a user runs it; the kernels update some state
     # tensors in place, so each run starts from its own copy
@@ -201,6 +221,7 @@ def main(argv=None) -> int:
                   edge_gather_mode=cfg.edge_gather_mode, ticks=args.ticks,
                   device=smi,
                   tick_ms=[1e3 * s for s in tick_s], stage_ms=stage_ms,
+                  stage_peak_mib={k: v / 2 ** 20 for k, v in peaks.items()},
                   window_wall_ms=wall_ms, window_host_ms=host_ms,
                   device_kernel_ms=device_ms,
                   busy_share=device_ms / wall_ms, host_syncs=syncs,

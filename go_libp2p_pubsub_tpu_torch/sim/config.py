@@ -6,9 +6,14 @@
 reference's own; the port runs the subset of knobs its engine implements
 (sim/engine.step raises NotImplementedError for the rest).
 
-How the port resolves the two formulation knobs (ops/hopkernel.
-resolve_hop_mode / resolve_emit_mode, ops/permgather.resolve_gather_mode;
-the reference's explicit-mode rules with no TPU shape gate):
+How the port resolves the formulation knobs (ops/hopkernel.
+resolve_hop_mode / resolve_emit_mode, ops/permgather.resolve_mode /
+resolve_words_mode / resolve_edge_packed_mode, ops/selection.
+resolve_selection_mode; ``ops.dispatch.resolved_formulations(cfg)`` lists
+what each seam runs). ``"auto"`` ranks the candidates through
+ops/dispatch.py under its ``"cuda"`` table entry on every device, so the
+CPU runs the formulation the card runs; an explicit mode is taken where it
+can run:
 
 - ``hop_mode``: ``"auto"``, ``"pallas"`` and ``"pallas-mxu"`` take the fused
   hop and IWANT-resolve kernels when ``_hop_config_ok(cfg)`` holds (no
@@ -17,17 +22,21 @@ the reference's explicit-mode rules with no TPU shape gate):
   <= 8 and (2 n_topics + 1) k_slots <= 32768), and the non-fused data path
   of ops/propagate.py otherwise; the IHAVE emit is the fused kernel under
   all three wherever W <= 8, whatever the rest of the config. ``"xla"``
-  takes the non-fused resolve, hops and emit. The choice reads the config
-  alone, never the device. ``"pallas-mxu"`` differs from
-  ``"pallas"`` in the reference only by its in-kernel gather, so on Hopper
-  it runs the same kernels.
-- ``edge_gather_mode``: ``"auto"`` and ``"pallas"`` route the bit-table
-  exchanges, the words gathers and the payload permute through the kernels
+  takes the non-fused resolve, hops and emit. ``"pallas-mxu"`` differs
+  from ``"pallas"`` in the reference only by its in-kernel gather, so on
+  Hopper it runs the same kernels.
+- ``edge_gather_mode`` (the packed edge exchanges, the words gathers and
+  the payload permute): ``"auto"`` and ``"pallas"`` take the kernels
   ``edge_table``, ``gather_words`` and ``permutation_gather``; ``"mxu"``
-  routes every one of them through the flat take ``take_words``, with the
-  IWANT answer table riding the heartbeat's last exchange when the resolve
-  is non-fused. ``"scalar"``, ``"rows"`` and ``"sort"`` raise
-  NotImplementedError.
+  the flat take ``take_words``; ``"scalar"`` the indexed gathers;
+  ``"rows"`` the row gathers; ``"sort"`` one sort permutation of the
+  ``edge_sort_key`` destination keys per exchange. Under ``"sort"`` and
+  ``"mxu"`` the IWANT answer table rides the heartbeat's last exchange
+  when the resolve is non-fused.
+- ``selection_mode``: ``"auto"`` and ``"ranks"`` take the comparison-count
+  rank; ``"sort"`` the per-row sort and threshold; ``"iter"`` the
+  ``max_count`` argmax passes (each call site passes the reference's
+  bound). The three select the same slots.
 
 ``TopicParams`` holds the per-topic score parameters as [T]-shaped float32
 tensors on the run's device (score_params.go:117-170 vectorized over topics).

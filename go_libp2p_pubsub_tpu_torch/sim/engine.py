@@ -43,10 +43,11 @@ from .. import rng
 from ..device import check_on
 from ..ops.bits import pack_words
 from ..ops.churn import churn_edges, churn_subscriptions
+from ..ops.dispatch import resolved_formulations
 from ..ops.gater import gater_decay
 from ..ops.heartbeat import HeartbeatOut, heartbeat
 from ..ops.hopkernel import resolve_hop_mode
-from ..ops.permgather import resolve_gather_mode
+from ..ops.permgather import resolve_edge_packed_mode
 from ..ops.propagate import forward_tick, publish
 from .config import SimConfig, TopicParams
 from .faults import apply_faults, censor_word_mask, storm_publishers
@@ -65,10 +66,11 @@ def check_slice(cfg: SimConfig) -> None:
     randomsub), flood publish, the peer gater, the validation and edge
     queue caps, provenance, every fault-plan family, connection churn
     with PX and subscription churn, on the fused kernels or the non-fused
-    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in the
-    ``pallas`` or ``mxu`` gather formulation, uint8 or int32 hop counts
-    (int32 on the non-fused path), under every invariant mode and key
-    schedule. Each refusal names the queue item that lifts it."""
+    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in
+    every gather formulation (``auto``, ``pallas``, ``mxu``, ``scalar``,
+    ``rows``, ``sort``) and selection formulation, uint8 or int32 hop
+    counts (int32 on the non-fused path), under every invariant mode and
+    key schedule. Each refusal names the queue item that lifts it."""
     refusals = [
         (cfg.state_precision != "f32",
          f"state_precision={cfg.state_precision!r}", 5),
@@ -77,8 +79,7 @@ def check_slice(cfg: SimConfig) -> None:
     for refused, what, item in refusals:
         if refused:
             raise NotImplementedError(f"{what} {_later(item)}")
-    resolve_hop_mode(cfg)
-    resolve_gather_mode(cfg.edge_gather_mode)
+    resolved_formulations(cfg)
 
 
 def choose_publishers(state: SimState, cfg: SimConfig, key: torch.Tensor
@@ -105,15 +106,16 @@ def choose_publishers(state: SimState, cfg: SimConfig, key: torch.Tensor
 def _iwant_answer_extras(state: SimState, cfg: SimConfig,
                          censor_bits: torch.Tensor | None = None
                          ) -> list | None:
-    """The IWANT answer table, to ride the heartbeat's final exchange as
-    extra word rows (engine.py:64-100): it reads only deliver_tick and
-    malicious, which the heartbeat never writes, and censors withhold the
-    victim's messages from it as forward_tick does. In the port the
-    carrier is the flat take of ``edge_gather_mode="mxu"``, for the
-    non-fused resolve only (the fused resolve kernel gathers the table
-    itself); otherwise None."""
-    if resolve_hop_mode(cfg) == "pallas" \
-            or resolve_gather_mode(cfg.edge_gather_mode) != "mxu":
+    """The IWANT answer table, to ride the heartbeat's final exchange
+    (engine.py:64-100): it reads only deliver_tick and malicious, which the
+    heartbeat never writes, and censors withhold the victim's messages
+    from it as forward_tick does. The carriers are the exchange's ``sort``
+    (extra lanes of its permutation) and ``mxu`` (extra rows of the take)
+    formulations, for the non-fused resolve only (the fused resolve
+    kernel gathers the table itself); otherwise None."""
+    n, t, k = state.mesh.shape
+    if resolve_hop_mode(cfg) == "pallas" or resolve_edge_packed_mode(
+            cfg.edge_gather_mode, n, k, 2 * t) not in ("sort", "mxu"):
         return None
     zero = torch.zeros((), dtype=torch.int32, device=state.tick.device)
     answer_bits = torch.where(state.malicious[None, :], zero,

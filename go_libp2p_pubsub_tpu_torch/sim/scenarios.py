@@ -39,9 +39,10 @@ The frontier family (scenarios.py:274-370): ``frontier_cfg``,
 ``frontier_spec`` (the host-side inputs, on ``topology.sparse_fast`` or,
 with ``rows=``, a shard of ``topology.sparse_hash``), ``frontier`` and
 ``frontier_250k`` ... ``frontier_10m``. Its configs ask for
-``edge_gather_mode="sort"``, so stepping one is refused (ROADMAP.md,
-Queue 1 item 3); the two XL sizes default to the compact state precision,
-which ``init_state`` refuses (item 5).
+``edge_gather_mode="sort"`` (every exchange by one sort permutation) over
+the fused hop, resolve and emit; the two XL sizes default to the compact
+state precision, which ``init_state`` refuses (ROADMAP.md, Queue 1 item
+5); under an explicit ``state_precision="f32"`` they run.
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -304,13 +305,16 @@ def frontier_spec(n_peers: int, k_slots: int = 32, degree: int = 8,
                   subnet_fraction: float = 0.3,
                   state_precision: str = "f32",
                   rows: tuple[int, int] | None = None, device=None,
+                  topo: topology.Topology | None = None,
                   ) -> tuple[SimConfig, TopicParams, topology.Topology,
                              np.ndarray]:
     """The frontier scenario without device state: ``(cfg, tp, topo,
     subscribed)``. ``rows=(start, count)`` builds only those rows of the
     seeded circulant underlay (``topology.sparse_hash``); without it the
-    underlay is ``topology.sparse_fast``. ``subscribed`` stays global (one
-    global topic, random subnets)."""
+    underlay is ``topology.sparse_fast``, or ``topo`` when the caller
+    built it (``topology.sparse_fast(n_peers, k_slots, degree=degree,
+    seed=SEED)``). ``subscribed`` stays global (one global topic, random
+    subnets)."""
     cfg = frontier_cfg(n_peers, k_slots=k_slots, n_topics=n_topics,
                        msg_window=msg_window,
                        state_precision=state_precision)
@@ -319,10 +323,10 @@ def frontier_spec(n_peers: int, k_slots: int = 32, degree: int = 8,
     subscribed[:, 0] = True                      # one global topic
     for t in range(1, n_topics):                 # random subnets
         subscribed[:, t] = rng.random(n_peers) < subnet_fraction
-    if rows is None:
+    if topo is None and rows is None:
         topo = topology.sparse_fast(n_peers, k_slots, degree=degree,
                                     seed=SEED)
-    else:
+    elif topo is None:
         topo = topology.sparse_hash(n_peers, k_slots, degree=degree,
                                     seed=SEED, rows=rows)
     return cfg, default_topic_params(n_topics, device=device), topo, \

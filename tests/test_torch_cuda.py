@@ -501,3 +501,116 @@ def test_run_checked_cuda_raises_as_on_cpu():
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=f)
         else:
             np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def _formulation_case(case, dev, topo):
+    """The formulation card cases at 1024 peers: the frontier under its
+    sort exchanges; the headline's non-fused path under scalar, rows and
+    sort (with flood publish under sort); churn_50k under sort; the
+    headline under the iter and sort selections."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    if case == "frontier":
+        return scenarios.frontier(1024, device=dev)
+    if case == "churn, sort":
+        cfg, tp, st = scenarios.churn_50k(n_peers=1024, device=dev,
+                                          topo=topo)
+        return dataclasses.replace(cfg, hop_mode="xla",
+                                   edge_gather_mode="sort"), tp, st
+    cfg, tp, st = build_headline(1024, device=dev, topo=topo)
+    over = {"headline, scalar": dict(hop_mode="xla", edge_gather_mode="scalar"),
+            "headline, rows": dict(hop_mode="xla", edge_gather_mode="rows"),
+            "headline, sort, flood publish": dict(
+                hop_mode="xla", edge_gather_mode="sort", flood_publish=True),
+            "selection iter": dict(selection_mode="iter"),
+            "selection sort": dict(selection_mode="sort")}[case]
+    return dataclasses.replace(cfg, **over), tp, st
+
+
+@pytest.mark.parametrize("case", ["frontier", "headline, scalar",
+                                  "headline, rows",
+                                  "headline, sort, flood publish",
+                                  "churn, sort", "selection iter",
+                                  "selection sort"])
+def test_formulation_trajectory_cuda_equals_cpu(case):
+    """8 ticks of each formulation case at 1024 peers: the card's state
+    equals the CPU's after every tick (float32 within rtol 1e-6), with no
+    violation bit; the sort paths launch no gather kernel."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, state_to_numpy, step
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
+    topo = topology.sparse(1024, K, degree=12, seed=scenarios.SEED)
+    runs = [_formulation_case(case, dev, topo) for dev in ("cuda", "cpu")]
+    keys = [rng.split(rng.PRNGKey(0, device=dev), 8) for dev in ("cuda", "cpu")]
+    states = [r[2] for r in runs]
+    cudalib.reset_launches()
+    for tick in range(8):
+        states = [step(s, r[0], r[1], kk[tick], device=d) for s, r, kk, d
+                  in zip(states, runs, keys, ("cuda", "cpu"))]
+        a, b = (state_to_numpy(s) for s in states)
+        for f, x in a.items():
+            if x.dtype == np.float32:
+                np.testing.assert_allclose(x, b[f], rtol=1e-6, atol=0,
+                                           err_msg=f"{f}, tick {tick}")
+            else:
+                np.testing.assert_array_equal(x, b[f],
+                                              err_msg=f"{f}, tick {tick}")
+    assert a["delivered_total"] > 0
+    assert not int(a["fault_flags"]) & VIOLATION_MASK
+    if "sort" in case and not case.startswith("selection"):
+        for name in ("edge_table", "gather_words", "permutation_gather",
+                     "take_words"):
+            assert cudalib.LAUNCHES[name] == 0, name
+
+
+@pytest.mark.parametrize("mode", ["scalar", "rows", "sort"])
+def test_formulations_cuda_equal_cpu(mode):
+    """Each gather formulation's output on the card equals the CPU's, on a
+    real edge involution with empty slots: the payload permute, the words
+    gather and the packed exchange (with an extra table under sort); and
+    each selection formulation on keys with exact ties."""
+    _need_card()
+    from types import SimpleNamespace
+    from go_libp2p_pubsub_tpu_torch.ops import heartbeat as hb
+    from go_libp2p_pubsub_tpu_torch.ops import selection as sel
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    n, k, m = 4096, 32, 64
+    topo = topology.sparse(n, k, degree=12, seed=1)
+    g = torch.Generator().manual_seed(5)
+    nbr_full = torch.from_numpy(topo.neighbors)
+    rs = torch.from_numpy(topo.reverse_slot)
+    inputs = dict(
+        nbr_full=nbr_full, rs=rs, jn=nbr_full.clamp(0, n - 1),
+        rk=rs.clamp(0, k - 1),
+        payload=torch.randint(-2 ** 31, 2 ** 31 - 1, (n, k), generator=g,
+                              dtype=torch.int32),
+        x_w=torch.randint(-2 ** 31, 2 ** 31 - 1, (2, n), generator=g,
+                          dtype=torch.int32),
+        masks=torch.rand(n, 40, k, generator=g) < 0.4)
+
+    def run(d):
+        x = {name: t.to(d) for name, t in inputs.items()}
+        key_n = pg.edge_sort_key(x["nbr_full"], x["rs"], k_major=False)
+        key_k = pg.edge_sort_key(x["nbr_full"], x["rs"], k_major=True)
+        state = SimpleNamespace(neighbors=x["nbr_full"], reverse_slot=x["rs"])
+        extra = [x["x_w"]] if mode == "sort" else []
+        masks, extras = hb.edge_gather_packed(
+            [x["masks"][:, :20], x["masks"][:, 20:]], state, mode,
+            extra_words=extra)
+        return [pg.permutation_gather(x["payload"], x["jn"], x["rk"], mode,
+                                      sort_key=key_n),
+                pg.gather_words(x["x_w"], x["jn"], mode, m=m, sort_key=key_k),
+                *masks, *extras]
+
+    for got, want in zip(run("cuda"), run("cpu")):
+        assert torch.equal(got.cpu(), want), mode
+    sel_mode = {"scalar": "iter", "rows": "sort", "sort": "ranks"}[mode]
+    mask = torch.rand(n, 2, k, generator=g) < 0.7
+    noise = torch.randint(0, 4, (n, 2, k), generator=g).float() / 4
+    count = torch.randint(0, k, (n, 2), generator=g)
+    outs = [sel.select_random(mask.to(d), count.to(d), None,
+                              max_count=k - 1, mode=sel_mode,
+                              noise=noise.to(d)) for d in ("cuda", "cpu")]
+    assert torch.equal(outs[0].cpu(), outs[1]), sel_mode

@@ -456,9 +456,10 @@ def test_fault_scenario_over_its_heal(name):
 
 def test_lifted_configs_run_and_refusals_name_their_item():
     """Every config the port covers runs a step (the data plane's branches,
-    and since Queue 1 item 2 subscription churn, the raise and off
-    invariant modes and the fold_in key schedule); every refusal left
-    names the queue item that lifts it, and none names item 1 or 2."""
+    since Queue 1 item 2 subscription churn, the raise and off invariant
+    modes and the fold_in key schedule, and since item 3 the sort and
+    scalar gathers and the iter selection); every refusal left names the
+    queue item that lifts it, and none names item 1, 2 or 3."""
     from go_libp2p_pubsub_tpu_torch.sim import build_headline
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
@@ -471,13 +472,15 @@ def test_lifted_configs_run_and_refusals_name_their_item():
                  dict(sub_leave_prob=0.1), dict(invariant_mode="raise"),
                  dict(key_schedule="fold_in"),
                  dict(sub_join_prob=0.2, invariant_mode="off",
-                      key_schedule="fold_in", fault_plan=plan)):
+                      key_schedule="fold_in", fault_plan=plan),
+                 dict(edge_gather_mode="sort"),
+                 dict(edge_gather_mode="scalar", fault_plan=plan,
+                      selection_mode="iter")):
         out = step(st, dataclasses.replace(cfg, **over), tp, key,
                    device="cpu")
         assert int(out.tick) == 1
     for over, item in ((dict(state_precision="compact"), 5),
-                       (dict(degree_buckets=((64, 8),)), 8),
-                       (dict(edge_gather_mode="sort"), 3)):
+                       (dict(degree_buckets=((64, 8),)), 8)):
         with pytest.raises(NotImplementedError,
                            match=rf"Queue 1 item {item}\)"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")

@@ -192,14 +192,50 @@ def test_gather_words_rows_equals_reference(mode):
 
 
 def test_gather_modes_resolve_and_refuse():
-    assert pg.resolve_gather_mode("auto") == "pallas"
-    assert pg.resolve_gather_mode("pallas") == "pallas"
-    assert pg.resolve_gather_mode("mxu") == "mxu"
+    """``"auto"`` takes the kernels (the dispatch table's ``cuda`` entry),
+    each explicit formulation resolves to itself, an unknown one raises;
+    the scalar, rows and sort gathers equal the reference's same
+    formulations on a real edge involution."""
+    from go_libp2p_pubsub_tpu.ops import permgather as jpg
+    from go_libp2p_pubsub_tpu_torch.sim import topology
+    for n, k in ((256, 16), (102400, 32), (1 << 20, 32)):
+        assert pg.resolve_mode("auto", torch.int32, n, k,
+                               have_sort_key=True) == "pallas"
+        assert pg.resolve_words_mode("auto", 2, n, k,
+                                     have_sort_key=True) == "pallas"
+        assert pg.resolve_edge_packed_mode("auto", n, k, 2) == "pallas"
+        for mode in ("scalar", "rows", "sort", "pallas", "mxu"):
+            assert pg.resolve_mode(mode, torch.int32, n, k,
+                                   have_sort_key=True) == mode
+            assert pg.resolve_words_mode(mode, 2, n, k,
+                                         have_sort_key=True) == mode
+            assert pg.resolve_edge_packed_mode(mode, n, k, 2) == mode
+    for fn in (lambda: pg.resolve_mode("bogus", torch.int32, 8, 4),
+               lambda: pg.resolve_words_mode("bogus", 1, 8, 4),
+               lambda: pg.resolve_edge_packed_mode("bogus", 8, 4, 2)):
+        with pytest.raises(ValueError):
+            fn()
+    n, k, m = 256, 16, 64
+    topo = topology.sparse(n, k, degree=6)
+    rng = np.random.default_rng(5)
+    jn = np.clip(topo.neighbors, 0, n - 1)
+    rk = np.clip(topo.reverse_slot, 0, k - 1)
+    payload = _words(rng, n, k)
+    x_w = _words(rng, 2, n)
     for mode in ("scalar", "rows", "sort"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            pg.resolve_gather_mode(mode)
-    with pytest.raises(ValueError):
-        pg.resolve_gather_mode("bogus")
+        jk = [jpg.edge_sort_key(jnp.asarray(topo.neighbors),
+                                jnp.asarray(topo.reverse_slot), k_major=km)
+              for km in (False, True)]
+        tk = [pg.edge_sort_key(_t(topo.neighbors), _t(topo.reverse_slot),
+                               k_major=km) for km in (False, True)]
+        want = jpg.permutation_gather(jnp.asarray(payload), jnp.asarray(jn),
+                                      jnp.asarray(rk), mode, sort_key=jk[0])
+        _same(want, pg.permutation_gather(_t(payload), _t(jn), _t(rk), mode,
+                                          sort_key=tk[0]), f"perm[{mode}]")
+        want = jpg.gather_words(jnp.asarray(x_w), jnp.asarray(jn), m, mode,
+                                sort_key=jk[1])
+        _same(want, pg.gather_words(_t(x_w), _t(jn), mode, m=m,
+                                    sort_key=tk[1]), f"words[{mode}]")
 
 
 def test_gather_wrappers_refuse_other_devices_and_types():

@@ -116,8 +116,8 @@ def test_router_sweep_scenario_array_equal():
 def test_randomsub_selection_equal(size, mode):
     """randomsub's sender-side draw: the reference's
     ``select_random(cand, target, key, max_count=min(target, K), mode)``
-    in each formulation equals the port's rank selection, which takes no
-    max_count. Above K every candidate is chosen."""
+    in each formulation equals the port's with the same ``max_count`` and
+    ``mode``. Above K every candidate is chosen."""
     n, k = SIZES[size]
     _, _, jst = _sweep("randomsub", size)
     target = max(6, int(np.ceil(np.sqrt(n))))
@@ -128,7 +128,8 @@ def test_randomsub_selection_equal(size, mode):
                               max_count=min(target, k), mode=mode))
     got = select_random(torch.from_numpy(np.array(cand)),
                         torch.full((n, 1), target),
-                        rng.PRNGKey(11, device="cpu")).numpy()
+                        rng.PRNGKey(11, device="cpu"),
+                        max_count=min(target, k), mode=mode).numpy()
     np.testing.assert_array_equal(got, want)
     per_row = want.sum(-1)
     n_cand = np.asarray(cand).sum(-1)

@@ -12,8 +12,8 @@ scenarios.py) with the JAX package's on the CPU.
   path (the two are bit-identical in the reference).
 - The frontier family: ``frontier_spec(4096)``'s underlay and
   subscriptions equal to the reference's, whole and as ``rows=`` shards;
-  stepping a frontier config is refused (ROADMAP.md, Queue 1 item 3), and
-  its compact XL form at ``init_state`` (item 5)."""
+  one step of ``frontier(512)`` equal to the reference's; its compact XL
+  form refused at ``init_state`` (ROADMAP.md, Queue 1 item 5)."""
 
 import dataclasses
 
@@ -127,10 +127,14 @@ def test_frontier_spec_equal():
 
 
 def test_frontier_step_is_refused_naming_its_item():
+    """Since Queue 1 item 3 a frontier config steps (under its ``sort``
+    exchanges), equal to the reference's jitted step; the compact XL form
+    is still refused at ``init_state``, naming item 5."""
     jcfg, jtp, jst = jscenarios.frontier(512)
     cfg, tp, st = scenarios.frontier(512, device="cpu")
     _assert_equal(_arrays(jst), state_to_numpy(st))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\)"):
-        step(st, cfg, tp, rng.PRNGKey(0, device="cpu"), device="cpu")
+    want = jstep(jst, cfg=jcfg, tp=jtp, key=jax.random.PRNGKey(0))
+    got = step(st, cfg, tp, rng.PRNGKey(0, device="cpu"), device="cpu")
+    _assert_equal(_arrays(want), state_to_numpy(got), "after one tick")
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 5\)"):
         scenarios.frontier_4m(512, device="cpu")

@@ -138,7 +138,9 @@ def test_port_imports_no_jax():
     """The port imports and steps with jax unimportable (the headline, the
     churn path, a fault plan with flood publish, randomsub, subscription
     churn on the beacon network, chunked ``run_window`` under the fold_in
-    schedule), and neither it nor chip_smoke.py imports the JAX package."""
+    schedule, a frontier config under its ``sort`` exchanges, the
+    dispatch table's ``resolved_formulations``), and neither it nor
+    chip_smoke.py imports the JAX package."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.path.insert(0, %r)\n"
         "import pkgutil, importlib, go_libp2p_pubsub_tpu_torch as p\n"
@@ -179,6 +181,11 @@ def test_port_imports_no_jax():
         "device='cpu')\n"
         "assert int(out.tick) == 2 and not bool((out.subscribed == "
         "st.subscribed).all())\n"
+        "from go_libp2p_pubsub_tpu_torch.ops import dispatch\n"
+        "cfg, tp, st = scenarios.frontier(256, device='cpu')\n"
+        "assert dispatch.resolved_formulations(cfg)['edge_packed'] == 'sort'\n"
+        "assert int(run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, "
+        "device='cpu').tick) == 2\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'go_libp2p_pubsub_tpu.'))"
         " or n == 'go_libp2p_pubsub_tpu' for n in sys.modules if sys.modules[n])\n"
         "print('ok')\n") % REPO
@@ -219,9 +226,12 @@ def test_step_refuses_configs_outside_the_slice():
 
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
-    for over, item in ((dict(edge_gather_mode="sort"), 3),
-                       (dict(edge_gather_mode="scalar"), 3),
-                       (dict(state_precision="compact"), 5)):
+    # lifted by Queue 1 item 3: every gather formulation steps
+    for gather in ("sort", "scalar", "rows"):
+        out = step(st, dataclasses.replace(cfg, edge_gather_mode=gather), tp,
+                   key, device="cpu")
+        assert int(out.tick) == 1
+    for over, item in ((dict(state_precision="compact"), 5),):
         with pytest.raises(NotImplementedError,
                            match=rf"Queue 1 item {item}\)"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
