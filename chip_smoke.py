@@ -118,7 +118,22 @@ Phases, each printing its own lines and its seconds:
    ``rows`` and ``sort`` with flood publish, ``churn_50k(1024)`` under
    ``sort``, and the headline under ``selection_mode="iter"`` and
    ``"sort"``;
-5. the ``kernels`` JSON line, then the device JSON line last.
+5. captured chunks (parallel/compile_plan.py): the paths phases 3-3f
+   left states for (the headline, churn under ``pallas`` and ``mxu``,
+   single_topic_1k, beacon_10k, sybil_100k, the combined fault plan on
+   the non-fused hop, and frontier_1m last), each from that state: one
+   eager tick under ``torch.cuda.set_sync_debug_mode("error")`` (it must
+   not raise), then 8 eager ticks of ``run_keys`` and a donated
+   ``engine_chunk`` of C = 8 (on the headline also ``run_window`` against
+   ``engine_window``) replayed from the same state and keys, every field
+   equal exactly; eager and captured hb/s by CUDA events, the
+   synchronizations each makes (sync debug mode "warn") and the peak
+   device memory of each, and the kernels recorded into the graph,
+   counted at capture time, against the path's set (busy shares:
+   go_libp2p_pubsub_tpu_torch/profile_step.py --captured). The eager run's cached blocks
+   are released before each capture (at 1,048,576 peers two pools would
+   not fit);
+6. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -217,6 +232,7 @@ N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
 ROTATION_PROB = 0.01
 N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
 N_FRONTIER = 1 << 20             # frontier_1m: 1,048,576 peers
+CAPTURE_TICKS = 8                # phase 5's chunk length C
 FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
 # the formulation cases of phase 4e, each at 1024 peers
 FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
@@ -349,6 +365,9 @@ class Smoke:
         self.n = N_FULL
         self.results = {}
         self.path_launches = {}
+        # label -> (cfg, tp, state): the paths phase 5 captures, each held
+        # from its own phase
+        self.capture_paths = {}
 
     # ---- helpers ---------------------------------------------------------
     def sync(self):
@@ -858,6 +877,7 @@ class Smoke:
         if flags & VIOLATION_MASK:
             raise AssertionError(f"invariant violations: "
                                  f"{decode_flags(flags)}")
+        self.capture_paths["headline"] = (cfg, tp, out)
         self.real_fused_kernels(out, cfg, tp)
 
     def real_fused_kernels(self, st, cfg, tp):
@@ -1013,6 +1033,7 @@ class Smoke:
                 raise AssertionError(f"{path}: no edge changed state")
             if float(out.gater_validate.sum()) <= 0:
                 raise AssertionError(f"{path}: the gater counted nothing")
+            self.capture_paths.setdefault(path, (c, tp, out))
             got = state_to_numpy(out)
             if first is None:
                 first = got
@@ -1223,6 +1244,8 @@ class Smoke:
             if cuts and not (max(down) > down[-1] and max(down) > down[0]):
                 raise AssertionError(f"{label}: the plan's edges did not go "
                                      f"down and come back: {down}")
+            if label == "combined plan":
+                self.capture_paths[label] = (cfg, tp, st)
             self.check_recorded(label, st, cfg, tp)
 
     def check_recorded(self, label, st, cfg, tp, phase="data plane"):
@@ -1456,6 +1479,8 @@ class Smoke:
             if flags:
                 raise AssertionError(f"{label}: fault_flags 0x{flags:x} "
                                      f"{decode_flags(flags)}")
+            if label != "beacon rotation":
+                self.capture_paths[label] = (cfg, tp, out)
             self.check_recorded(label, out, cfg, tp, phase="BASELINE")
 
     # ---- phase 3f: the frontier at full size and the formulations -------
@@ -1523,6 +1548,7 @@ class Smoke:
               flush=True)
         self.check_recorded("frontier_1m", out, cfg, tp, phase="frontier")
         self.time_formulations("frontier_1m", out, cfg)
+        self.capture_paths["frontier_1m"] = (cfg, tp, out)
         del out, st
 
         cfg, tp, st = build_headline(N_FULL, device=self.dev, topo=topo_full)
@@ -1723,6 +1749,161 @@ class Smoke:
               f"fault_flags=0x{raised[0][0]:08x} {decode_flags(raised[0][0])}"
               f" (card: {raised[0][2]!r})", flush=True)
 
+    # ---- phase 5: the captured engine plane (parallel/compile_plan.py) ----
+    def phase_captured(self):
+        """Each path held in :attr:`capture_paths` (the headline, churn
+        under ``pallas`` and ``mxu``, single_topic_1k, beacon_10k,
+        sybil_100k, the combined fault plan and, last, frontier_1m) from
+        the state its own phase left: :meth:`captured_path`. Each path's
+        state and executables are dropped before the next."""
+        order = ["headline", "churn[pallas]", "churn[mxu]",
+                 "single_topic_1k", "beacon_10k", "sybil_100k",
+                 "combined plan", "frontier_1m"]
+        if sorted(order) != sorted(self.capture_paths):
+            raise AssertionError(f"phase 5 holds {sorted(self.capture_paths)}"
+                                 f", expected {sorted(order)}")
+        for label in order:
+            cfg, tp, st = self.capture_paths.pop(label)
+            t0 = time.perf_counter()
+            self.captured_path(label, cfg, tp, st, "chunk")
+            if label == "headline":
+                self.captured_path(label, cfg, tp, st, "window")
+            del st
+            print(f"phase 5 [{label}]: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+    def sync_warnings(self, fn):
+        """``fn()`` between two CUDA events, under
+        ``torch.cuda.set_sync_debug_mode("warn")`` while it enqueues: (its
+        result, the events' milliseconds, the synchronizations it made)."""
+        import warnings
+
+        from go_libp2p_pubsub_tpu_torch.profile_step import SYNC_WARNING
+        torch = self.torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        self.sync()
+        a.record()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        b.record()
+        b.synchronize()
+        return (out, a.elapsed_time(b),
+                sum(SYNC_WARNING in str(w.message) for w in caught))
+
+    def captured_path(self, label, cfg, tp, st, schedule):
+        """One path of phase 5 under ``schedule`` ("chunk": ``engine_chunk``
+        over C rows of ``rng.split`` against ``run_keys``; "window":
+        ``engine_window`` under ``key_schedule="fold_in"`` against
+        ``run_window``):
+
+        - one eager tick under ``torch.cuda.set_sync_debug_mode("error")``:
+          no synchronizing call may happen;
+        - the eager C = 8 ticks from ``st``, timed by CUDA events, with the
+          synchronizations counted while they enqueue (sync debug mode
+          "warn"), and their peak device memory;
+        - the eager run's cached blocks released, then the donated
+          executable built (warm-up, capture) and replayed from ``st`` with
+          the same keys: every field equal to the eager run's exactly (the
+          same card and kernels: the tolerance is zero); then replayed
+          again, chained on its own result (no copy in), timed and counted
+          the same way; the peak device memory of building and replaying,
+          and the allocator's reserve (the graph's pool included);
+        - the kernels launched into the graph, counted once at capture time
+          (cudalib.LAUNCHES counts Python-side launches; a replay repeats
+          them without passing through the wrappers), against the path's
+          must and must-not sets."""
+        import dataclasses
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import (run_keys, run_window,
+                                                    step)
+        c = CAPTURE_TICKS
+        dev = self.dev
+        key = rng.PRNGKey(11, device=dev)
+        if schedule == "window":
+            cfg = dataclasses.replace(cfg, key_schedule="fold_in")
+            keys = key
+
+            def eager(s):
+                return run_window(s, cfg, tp, key, c, device=dev)
+        else:
+            keys = rng.split(key, c)
+
+            def eager(s):
+                return run_keys(s, cfg, tp, keys, device=dev)
+        name = f"{label}, {schedule}"
+        tick_key = rng.PRNGKey(12, device=dev)
+        self.sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(st, cfg, tp, tick_key, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.sync()
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want, eager_ms, eager_syncs = self.sync_warnings(lambda: eager(st))
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if schedule == "window":
+            exe = compile_plan.engine_window(cfg, st, tp, key, c, donate=True)
+        else:
+            exe = compile_plan.engine_chunk(cfg, st, tp, keys, donate=True)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        got = exe(st, tp, keys)
+        self.sync()
+        differ = []
+        for f, a, b in zip(st._fields, want, got):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                differ.append(f)
+        if differ:
+            raise AssertionError(f"phase 5 [{name}]: the replayed chunk "
+                                 f"differs from the eager run in {differ}")
+        del want
+        got, cap_ms, cap_syncs = self.sync_warnings(lambda: exe(got, tp, keys))
+        cap_peak = torch.cuda.max_memory_allocated() - base
+        reserved = torch.cuda.memory_reserved()
+        must, must_not = PATH_KERNELS[label]
+        missing = sorted(k for k in must if not exe.launches.get(k))
+        stray = sorted(k for k in must_not if exe.launches.get(k))
+        if missing or stray:
+            raise AssertionError(f"phase 5 [{name}]: the graph holds "
+                                 f"{exe.launches}; missing {missing}, stray "
+                                 f"{stray}")
+
+        print(f"phase 5 [{name}]: {cfg.n_peers} peers; eager {c} ticks "
+              f"{eager_ms:.3f} ms = {1e3 * c / eager_ms:.3f} hb/s, "
+              f"{eager_syncs} synchronizations (sync debug warnings) = "
+              f"{eager_syncs / c:.3f} a tick, peak "
+              f"{eager_peak / 2 ** 30:.3f} GiB above the state; captured "
+              f"{c} ticks {cap_ms:.3f} ms = {1e3 * c / cap_ms:.3f} hb/s, "
+              f"{cap_syncs} synchronizations; build {build_s:.3f} s (warm-up "
+              f"{compile_plan.WARMUP_TICKS} ticks + capture); peak "
+              f"{cap_peak / 2 ** 30:.3f} GiB above the state over build "
+              f"and replay, {reserved / 2 ** 30:.3f} GiB reserved; replay "
+              f"equal to the eager run in every field", flush=True)
+        print(f"phase 5 [{name}] launches recorded into the graph at "
+              f"capture time (each replay repeats them): "
+              f"{json.dumps(exe.launches)}", flush=True)
+        del exe, got
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -1830,6 +2011,7 @@ def main() -> int:
         timed("3f (frontier_1m, sort path, formulations)",
               lambda: smoke.phase_frontier(topology_of(N_FRONTIER, K, 8),
                                            topology_of(smoke.n)))
+        timed("5 (captured chunks)", smoke.phase_captured)
         timed("4 (trajectory)", smoke.phase_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,

@@ -5,9 +5,16 @@ The reference's round semantics hold unchanged: decisions read the
 pre-round state, GRAFT/PRUNE exchange resolves in the same round through
 the packed edge exchange, and receiver-side GRAFT vetting serializes
 acceptance lowest-slot-first (ops/heartbeat.py module docstring). The
-``lax.cond`` gates of the reference become Python ``if``s on the same
-conditions; a skipped block equals selecting with count 0 and consumes no
-randomness (the keys are pre-split), so results are unchanged.
+reference's ``lax.cond``-gated blocks run unconditionally here, in their
+ungated form, which the reference states is bit-identical
+(heartbeat.py:260-265): a skipped block equals selecting with count 0,
+and the keys are split up front, so running a block uses no extra
+randomness. A row a block leaves alone keeps the block's else value:
+a zero count selects nothing, the over block merges by ``over``, the
+fanout block masks its rows by ``fanout_alive``, and the opportunistic
+block takes a ``torch.where`` on the device's tick test. So the
+heartbeat reads nothing on the host and a tick can be captured in a CUDA
+graph (parallel/compile_plan.py).
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ def edge_gather(x: torch.Tensor, state: SimState, fill=False,
     else:
         dtype = y.dtype
     return torch.where(valid, y.to(dtype),
-                       torch.tensor(fill, dtype=dtype, device=x.device))
+                       torch.full((), fill, dtype=dtype, device=x.device))
 
 
 def _plane_payloads(planes: torch.Tensor) -> list[torch.Tensor]:
@@ -186,33 +193,28 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     # 2. undersubscribed: graft random candidates up to D
     n_mesh = mesh1.sum(-1)
     need = torch.where(n_mesh < cfg.dlo, cfg.d - n_mesh, 0)
-    if bool(((need > 0) & candidate.any(-1)).any()):
-        graft1 = select_random(candidate, need, ks[0], max_count=cfg.d,
-                               mode=sel)
-    else:
-        graft1 = torch.zeros_like(candidate)
+    # rows with need 0 or no candidate select nothing
+    graft1 = select_random(candidate, need, ks[0], max_count=cfg.d, mode=sel)
     mesh2 = mesh1 | graft1
 
     # 3. oversubscribed: keep top-Dscore by score + random rest to D, then
     # bubble up to Dout outbound among the kept (gossipsub.go:1430-1490)
     n2 = mesh2.sum(-1)
     over = (n2 > cfg.dhi)[..., None]
-    if bool(over.any()):
-        protected = select_top(sb, mesh2, cfg.dscore, max_count=cfg.dscore,
-                               mode=sel)
-        rest = mesh2 & ~protected
-        keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1],
-                                  max_count=cfg.d - cfg.dscore, mode=sel)
-        kept = protected | keep_rand
-        n_out_kept = (kept & out3).sum(-1)
-        deficit_out = torch.clamp(cfg.dout - n_out_kept, min=0)
-        add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2],
-                                max_count=cfg.dout, mode=sel)
-        remove_nonout = select_random(keep_rand & ~out3, add_out.sum(-1),
-                                      ks[3], max_count=cfg.dout, mode=sel)
-        kept = (kept | add_out) & ~remove_nonout
-    else:
-        kept = mesh2
+    protected = select_top(sb, mesh2, cfg.dscore, max_count=cfg.dscore,
+                           mode=sel)
+    rest = mesh2 & ~protected
+    keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1],
+                              max_count=cfg.d - cfg.dscore, mode=sel)
+    kept = protected | keep_rand
+    n_out_kept = (kept & out3).sum(-1)
+    deficit_out = torch.clamp(cfg.dout - n_out_kept, min=0)
+    add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2],
+                            max_count=cfg.dout, mode=sel)
+    remove_nonout = select_random(keep_rand & ~out3, add_out.sum(-1),
+                                  ks[3], max_count=cfg.dout, mode=sel)
+    kept = (kept | add_out) & ~remove_nonout
+    # rows that are not over keep mesh2
     mesh3 = torch.where(over, kept, mesh2)
     prune_over = mesh2 & ~mesh3
 
@@ -222,25 +224,21 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     need_out = torch.where((n3 >= cfg.dlo) & ~over[..., 0] & (n_out < cfg.dout),
                            cfg.dout - n_out, 0)
     out_cand = candidate & out3 & ~mesh3
-    if bool(((need_out > 0) & out_cand.any(-1)).any()):
-        graft_out = select_random(out_cand, need_out, ks[4],
-                                  max_count=cfg.dout, mode=sel)
-    else:
-        graft_out = torch.zeros_like(mesh3)
+    graft_out = select_random(out_cand, need_out, ks[4], max_count=cfg.dout,
+                              mode=sel)
     mesh4 = mesh3 | graft_out
 
     # 5. opportunistic grafting every OpportunisticGraftTicks when the median
-    # mesh score sags below the threshold (gossipsub.go:1521-1552)
-    if int(tick) % cfg.opportunistic_graft_ticks == 0:
-        med = masked_median(sb, mesh4)                        # [N, T]
-        og_cond = (mesh4.sum(-1) > 1) & (med < cfg.opportunistic_graft_threshold)
-        og_need = torch.where(og_cond, cfg.opportunistic_graft_peers, 0)
-        og_sel = select_random(candidate & (sb > med[..., None]) & ~mesh4,
-                               og_need, ks[5],
-                               max_count=cfg.opportunistic_graft_peers,
-                               mode=sel)
-    else:
-        og_sel = torch.zeros_like(mesh4)
+    # mesh score sags below the threshold (gossipsub.go:1521-1552); off
+    # the graft tick every row's count is 0
+    og_tick = (tick % cfg.opportunistic_graft_ticks) == 0
+    med = masked_median(sb, mesh4)                            # [N, T]
+    og_cond = (mesh4.sum(-1) > 1) & (med < cfg.opportunistic_graft_threshold) \
+        & og_tick
+    og_need = torch.where(og_cond, cfg.opportunistic_graft_peers, 0)
+    og_sel = select_random(candidate & (sb > med[..., None]) & ~mesh4,
+                           og_need, ks[5],
+                           max_count=cfg.opportunistic_graft_peers, mode=sel)
     mesh5 = mesh4 | og_sel
 
     grafts = graft1 | graft_out | og_sel
@@ -289,18 +287,17 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     fanout_alive = (state.fanout_lastpub < NEVER) & \
         (tick <= state.fanout_lastpub + cfg.fanout_ttl_ticks) & ~state.subscribed
     fa3 = fanout_alive[..., None]
-    if bool(fanout_alive.any()):
-        keep_f = state.fanout & conn & nbr_sub & \
-            (s >= cfg.publish_threshold) & fa3
-        need_f = torch.where(fanout_alive,
-                             torch.clamp(cfg.d - keep_f.sum(-1), min=0), 0)
-        add_f = select_random(
-            conn & nbr_sub & ~keep_f & ~direct3
-            & (s >= cfg.publish_threshold) & fa3,
-            need_f, ks[7], max_count=cfg.d, mode=sel)
-        new_fanout = keep_f | add_f
-    else:
-        new_fanout = torch.zeros_like(state.fanout)
+    # rows with no live fanout keep nothing and add nothing (all zeros, the
+    # reference's else value)
+    keep_f = state.fanout & conn & nbr_sub & \
+        (s >= cfg.publish_threshold) & fa3
+    need_f = torch.where(fanout_alive,
+                         torch.clamp(cfg.d - keep_f.sum(-1), min=0), 0)
+    add_f = select_random(
+        conn & nbr_sub & ~keep_f & ~direct3
+        & (s >= cfg.publish_threshold) & fa3,
+        need_f, ks[7], max_count=cfg.d, mode=sel)
+    new_fanout = keep_f | add_f
     fanout_lastpub = torch.where(fanout_alive, state.fanout_lastpub,
                                  torch.full_like(state.fanout_lastpub, NEVER))
 
@@ -319,8 +316,9 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     gossip_cand = conn & nbr_sub & ~new_mesh & ~new_fanout & ~direct3 & \
         (s >= cfg.gossip_threshold) & (joined | fa3)
     n_cand = gossip_cand.sum(-1)
-    factor = torch.tensor(np.float32(cfg.gossip_factor), device=n_cand.device)
-    target = torch.clamp(torch.floor(factor * n_cand.float()).to(I32),
+    # the float32 factor as a Python float (exact), multiplied in float32
+    factor = float(np.float32(cfg.gossip_factor))
+    target = torch.clamp(torch.floor(n_cand.float() * factor).to(I32),
                          min=cfg.dlazy)
     # the static bound on target, in the same float32 arithmetic
     # (heartbeat.py:460-465)

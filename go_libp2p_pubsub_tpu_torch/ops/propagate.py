@@ -3,8 +3,10 @@
 
 The model is the reference's (ops/propagate.py module docstring): the
 message window lives in [W, N] packed words, a tick runs last tick's IWANT
-resolution, up to ``prop_substeps`` forwarding hops that stop early on an
-empty frontier, the P2/P3/P4 counter folds, and the IHAVE->IWANT emit.
+resolution, ``prop_substeps`` forwarding hops (the reference stops early
+on an empty frontier, where a hop is a no-op; the port runs them all, so
+it reads nothing on the host), the P2/P3/P4 counter folds, and the
+IHAVE->IWANT emit.
 
 Two formulations, chosen by ops/hopkernel.resolve_hop_mode and
 resolve_emit_mode exactly where the reference chooses:
@@ -109,23 +111,22 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     msg_publisher[slots] = publishers.to(I32)
     deliver_from = state.deliver_from
     if cfg.record_provenance:
-        deliver_from = deliver_from.clone()
-        deliver_from[:, slots] = -1
+        deliver_from = deliver_from.index_fill(1, slots, -1)
     # reset recycled slots (word-AND), then set the publisher's slot bit
     # (a scatter-add: the bits were just cleared and the slots of one batch
     # are distinct, so added bits never carry)
-    recycled = torch.zeros((1, m), dtype=torch.bool, device=dev)
-    recycled[0, slots] = True
+    recycled = torch.zeros((1, m), dtype=torch.bool,
+                           device=dev).index_fill_(1, slots, True)
     clear_w = pack_bool(recycled)[0]
     have = state.have & ~clear_w[None, :]
     bit = (torch.ones_like(slots) << (slots % 32))
     bit = torch.where(bit >= 2 ** 31, bit - 2 ** 32, bit).to(I32)
     have = have.index_put((pub, slots // 32), bit, accumulate=True)
-    deliver_tick = state.deliver_tick.clone()
-    deliver_tick[:, slots] = NEVER
+    # the scalar fills are index_fill's (a Python scalar assigned through
+    # indexing would be made into a tensor from host data first)
+    deliver_tick = state.deliver_tick.index_fill(1, slots, NEVER)
     deliver_tick[pub, slots] = tick
-    iwant_pending = state.iwant_pending.clone()
-    iwant_pending[:, slots] = -1
+    iwant_pending = state.iwant_pending.index_fill(1, slots, -1)
     # fanout lastpub for non-subscribed publishers
     sub_pub = state.subscribed[pub, top]
     cur_lp = state.fanout_lastpub[pub, top]
@@ -287,17 +288,17 @@ def _fused_traffic(state: SimState, cfg: SimConfig, tb: _Tables,
     h_dlv_new = r.got_valid_any.clone()
     nv, ni = r.nv, r.ni
     dup = torch.zeros((t, k, n), dtype=U8, device=nbr.device)
-    i = 0
-    # the early exit reads the frontier on the host once per hop (a device
-    # sync in eager mode); a hop with an empty frontier is a no-op
-    while i < cfg.prop_substeps and bool((frontier != 0).any()):
+    # exactly prop_substeps hops, with no host read: the reference's
+    # while_loop exits once the frontier empties (propagate.py:717-723),
+    # and a hop with an empty frontier is a no-op (it offers nothing, so
+    # every plane and count it updates stays as it was)
+    for _ in range(cfg.prop_substeps):
         h = hop(frontier, have_bits, dlv_bits, h_dlv_new, tb.vm, tb.inv_n,
                 tb.window_old, valid_msg, nbr, fwd_u8, mesh_u8,
                 tb.topic_bits, nv, ni, dup)
         frontier, have_bits, dlv_bits, h_dlv_new = h.new_valid, h.have, \
             h.dlv, h.dlv_new
         nv, ni, dup = h.nv, h.ni, h.dup
-        i += 1
     return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup, None)
 
 
@@ -425,17 +426,24 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     if gater:
         ig = popcount_sum(got_k & tb.ign_n[:, None, :], axis=0, dtype=cdt)
         gdup = torch.zeros((k, n), dtype=cdt, device=have_bits.device)
-    i = 0
-    # the early exit reads the frontier on the host once per hop
-    while i < cfg.prop_substeps and bool((frontier != 0).any()):
+    # exactly prop_substeps hops, with no host read. The reference's
+    # while_loop runs no hop at all when the frontier starts empty, so
+    # hop 0's extra offers ride only a non-empty frontier (a device-side
+    # word mask). Past hop 0 an empty frontier offers nothing, so such a
+    # hop adds zero to every count, as the loop's exit leaves them:
+    # the edge budget and arrivals grow by 0, throttled and validated by
+    # 0, the gater's ig and gdup by 0, provenance ORs in nothing.
+    extras = [x for x in (flood_offer, dup_offer) if x is not None]
+    if extras:
+        started = torch.where((frontier != 0).any(), -1, 0).to(I32)
+    for i in range(cfg.prop_substeps):
         # censors hold censored messages out of their offers; they did
         # receive them, so have and frontier keep them
         src = frontier if censor is None else frontier & ~censor
         offered = gw(src) & allowed                            # [W, K, N]
         if i == 0:
-            for extra in (flood_offer, dup_offer):
-                if extra is not None:
-                    offered = offered | extra
+            for extra in extras:
+                offered = offered | (extra & started)
         if ecap > 0:
             # drop-on-full, whole-RPC granularity (comm.go:156-191): the
             # hop's RPC on an edge fits the remaining budget or drops
@@ -483,7 +491,6 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
         have_bits = have_bits | new_any
         dlv_bits = dlv_bits | new_valid
         dlv_new = dlv_new | new_valid
-        i += 1
     stats = dict(ig=ig, gdup=gdup, validated=validated,
                  throttled=throttled) if gater else None
     return _Traffic(have_bits, dlv_bits, behaviour_penalty, nv, ni, dup,
@@ -498,8 +505,8 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                  link_ok: torch.Tensor | None = None,
                  dup_edges: torch.Tensor | None = None,
                  censor_bits: torch.Tensor | None = None) -> SimState:
-    """One tick of data-plane traffic: resolve last tick's IWANTs, run up
-    to ``prop_substeps`` forwarding hops, fold the counters, emit this
+    """One tick of data-plane traffic: resolve last tick's IWANTs, run
+    ``prop_substeps`` forwarding hops, fold the counters, emit this
     tick's IHAVE/IWANT (propagate.py:229-853).
 
     ``scores`` is the heartbeat's [N, K] score cache; ``inc_gossip`` and

@@ -78,8 +78,14 @@ def compute_scores(state: SimState, cfg: SimConfig, tp: TopicParams,
         score = score + cfg.app_specific_weight * state.app_score[nbr]
     # P6: IP colocation surplus^2 (score.go:329-331, 344-385)
     if cfg.ip_colocation_factor_weight != 0.0:
-        counts = torch.bincount(state.ip_group.long(),
-                                minlength=cfg.n_ip_groups)[:cfg.n_ip_groups]
+        # a scatter into the static bound (torch.bincount reads the
+        # input's maximum on the host); groups outside [0, n_ip_groups)
+        # are dropped, not clamped
+        g = state.ip_group.long()
+        inside = (g >= 0) & (g < cfg.n_ip_groups)
+        counts = torch.zeros(cfg.n_ip_groups, dtype=torch.int64,
+                             device=g.device).index_add_(
+            0, torch.where(inside, g, 0), inside.long())
         surplus = (counts[state.ip_group.long()]
                    - cfg.ip_colocation_factor_threshold).float()
         p6 = torch.where(surplus > 0, surplus * surplus, zero)

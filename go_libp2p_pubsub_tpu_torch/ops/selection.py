@@ -28,7 +28,8 @@ NEG_INF = float(np.float32(-1e30))
 # Guard for the count <= max_count precondition of the iterative
 # formulation: set it to make a silent truncation raise AssertionError.
 # Under the flag every iterative selection reads its counts on the host;
-# off (the default) it reads nothing.
+# off (the default) it reads nothing. A debugging switch: the captured
+# executables of parallel/compile_plan.py refuse to build under it.
 CHECK_COUNT_BOUND = False
 
 
@@ -115,8 +116,12 @@ def _select_by_keys(keys: torch.Tensor, mask: torch.Tensor,
     """Top-``count`` by key per row, masked, in the formulation ``mode``
     resolves to (identical results)."""
     k = keys.shape[-1]
-    count = torch.as_tensor(count, device=mask.device).expand(
-        mask.shape[:-1])
+    if isinstance(count, torch.Tensor):
+        count = count.expand(mask.shape[:-1])
+    else:
+        # a static count is filled on the device: no host-to-device copy
+        count = torch.full(mask.shape[:-1], int(count), dtype=torch.int64,
+                           device=mask.device)
     mode = resolve_selection_mode(mode, k, max_count)
     if mode == "iter":
         _check_count_bound(count, max_count)

@@ -5,6 +5,7 @@
     python -m go_libp2p_pubsub_tpu_torch.profile_step --scenario churn_50k \
         [--gather pallas|mxu] [--n 51200]
     python -m go_libp2p_pubsub_tpu_torch.profile_step --scenario frontier_1m
+    python -m go_libp2p_pubsub_tpu_torch.profile_step ... --captured
 
 Builds the headline network (``build_headline(n)``, n=102400 by default),
 the churn + peer-gater scenario (``scenarios.churn_50k(n)``, n=51200 by
@@ -19,16 +20,31 @@ the frontier (``scenarios.frontier(n)``, n=1048576 by default, its own
    allocated when it began (``max_memory_allocated`` after a reset);
 2. keeps a copy of the state and runs ``--ticks`` more ticks of ``step``
    as a user would (no added syncs), timed by CUDA events around the
-   window and on the host clock;
+   window and on the host clock, with ``torch.cuda.set_sync_debug_mode(
+   "warn")`` on while they enqueue: each synchronization they make warns;
 3. runs the same ticks again from the copy, with the same keys, under
    ``torch.profiler``, checks that they end in the same state, and prints
-   the device time by kernel name (the port's CUDA kernels and the
-   rest) and the count of host reads of device values
-   (``aten::_local_scalar_dense``: each one a sync).
+   the device time by kernel name (the port's CUDA kernels and the rest)
+   and the window's synchronizations counted two more ways: host reads of
+   device values (``aten::_local_scalar_dense``) and the profiler's
+   synchronizing runtime calls (``cudaStreamSynchronize``,
+   ``cudaDeviceSynchronize``, ``cudaEventSynchronize``, synchronous
+   ``cudaMemcpy``; a pageable host-to-device copy is a
+   ``cudaMemcpyAsync`` followed by a stream sync, so it counts), less
+   those of an empty profiled window. CUPTI's "Command Buffer Full"
+   records (the host waiting on a full launch queue: it ran ahead of the
+   card) are counted apart, not as device time;
+4. with ``--captured``: ``parallel/compile_plan.engine_chunk`` of the same
+   ticks (donated; warm-up and capture timed on the host clock), replayed
+   from the copy with the same keys, equal in every field to the timed
+   window of 2; then replayed again, chained on its own result, timed by
+   CUDA events, and once more under the profiler (busy share, sync
+   calls); peak device memory of the build and replays.
 
 The device-busy share is the device time of 3 over the event-timed wall
 of 2: the same work, so the profiler's own host cost, which stretches its
-window, does not enter it.
+window, does not enter it. The captured one is the profiled replay's
+device time over the timed replay's wall.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -40,8 +56,17 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from collections import defaultdict
 
+# the profiler's names of the runtime calls that block the host on the
+# device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+QUEUE_FULL = "Command Buffer Full"
+# the warning torch.cuda.set_sync_debug_mode("warn") gives at each sync (its
+# one-time notice that the mode is a prototype is not one)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 OWN_KERNELS = ("edge_table_kernel", "hop_kernel", "iwant_resolve_kernel",
                "emit_kernel", "gather_words_kernel",
                "permutation_gather_kernel", "take_words_kernel")
@@ -67,6 +92,9 @@ def main(argv=None) -> int:
                     "1048576 frontier_1m)")
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--captured", action="store_true",
+                    help="also time the replayed engine_chunk of the "
+                    "window against the eager step")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -172,12 +200,20 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t_win = time.perf_counter()
     ev0.record()
-    for i in window:
-        plain = step(plain, cfg, tp, keys[i])
+    # the sync debug mode warns at each synchronization the ticks make
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in window:
+                plain = step(plain, cfg, tp, keys[i])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     ev1.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t_win) * 1e3
     wall_ms = ev0.elapsed_time(ev1)
+    sync_warnings = sum(SYNC_WARNING in str(w.message) for w in caught)
 
     # 3. the same ticks under the profiler
     act = [torch.profiler.ProfilerActivity.CPU,
@@ -188,22 +224,16 @@ def main(argv=None) -> int:
         for i in window:
             traced = step(traced, cfg, tp, keys[i])
         torch.cuda.synchronize()
+    base_calls = _harness_syncs(act)
     for f, a, b in zip(plain._fields, plain, traced):
         same = (torch.allclose(a, b, rtol=1e-6, atol=0.0)
                 if a.is_floating_point() else torch.equal(a, b))
         if not same:
             raise AssertionError(f"the traced window differs from the "
                                  f"timed one in {f}")
-    by_name = defaultdict(float)
-    calls = defaultdict(int)
-    syncs = 0
-    for e in prof.key_averages():
-        us = _device_us(e)
-        if e.key == "aten::_local_scalar_dense":
-            syncs += e.count
-        if us > 0 and not e.key.startswith("aten::"):
-            by_name[e.key] += us
-            calls[e.key] += e.count
+    del traced
+    by_name, calls, syncs, sync_calls, queue_full = _tally(prof)
+    sync_calls -= base_calls
     device_ms = sum(by_name.values()) / 1e3
     own_ms = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
               for k in OWN_KERNELS}
@@ -211,8 +241,11 @@ def main(argv=None) -> int:
     print(f"window: {args.ticks} ticks in {wall_ms:.3f} ms by CUDA events "
           f"({host_ms:.3f} ms host clock) = {args.ticks / wall_ms * 1e3:.3f} "
           f"hb/s; device time of the same ticks (profiler) {device_ms:.3f} "
-          f"ms = {100 * device_ms / wall_ms:.2f}% busy; host reads of device "
-          f"values (syncs): {syncs}", flush=True)
+          f"ms = {100 * device_ms / wall_ms:.2f}% busy; synchronizations: "
+          f"host reads of device values {syncs}, synchronizing runtime "
+          f"calls {sync_calls}, sync debug warnings {sync_warnings}; the "
+          f"launch queue full {queue_full} times (the host ran ahead)",
+          flush=True)
     print("own kernels ms in window: " + ", ".join(
         f"{k} {v:.3f}" for k, v in own_ms.items()), flush=True)
     for name, us in top:
@@ -225,15 +258,114 @@ def main(argv=None) -> int:
                   window_wall_ms=wall_ms, window_host_ms=host_ms,
                   device_kernel_ms=device_ms,
                   busy_share=device_ms / wall_ms, host_syncs=syncs,
+                  sync_calls=sync_calls, sync_warnings=sync_warnings,
+                  queue_full=queue_full,
                   own_kernel_ms=own_ms,
                   top=[dict(name=n, ms=us / 1e3, calls=calls[n])
                        for n, us in top])
+    if args.captured:
+        result["captured"] = _captured(cfg, tp, snapshot, plain,
+                                       keys[window.start:window.stop],
+                                       wall_ms, act, base_calls)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(json.dumps({k: result[k] for k in ("stage_ms", "busy_share",
-                                             "host_syncs", "own_kernel_ms")}))
+    print(json.dumps({k: result[k] for k in (
+        "stage_ms", "busy_share", "host_syncs", "sync_calls",
+        "sync_warnings", "own_kernel_ms", "captured") if k in result}))
     return 0
+
+
+def _harness_syncs(act) -> int:
+    """The synchronizing runtime calls of a profiled window that holds
+    nothing but its closing synchronize (the profiler's own and the
+    window's): subtracted from every profiled count."""
+    import torch
+    with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+    return _tally(prof)[3]
+
+
+def _tally(prof):
+    """(device us by kernel name, calls by name, host reads, synchronizing
+    runtime calls, full launch queues). CUPTI's "Command Buffer Full"
+    records carry the time the host waited on a full launch queue, not
+    device work: they are counted apart."""
+    by_name = defaultdict(float)
+    calls = defaultdict(int)
+    syncs = sync_calls = queue_full = 0
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if e.key == "aten::_local_scalar_dense":
+            syncs += e.count
+        if e.key in SYNC_CALLS:
+            sync_calls += e.count
+        if e.key == QUEUE_FULL:
+            queue_full += e.count
+        elif us > 0 and not e.key.startswith("aten::"):
+            by_name[e.key] += us
+            calls[e.key] += e.count
+    return by_name, calls, syncs, sync_calls, queue_full
+
+
+def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
+              base_calls) -> dict:
+    """The window as one captured chunk (step 4 of the module docstring)."""
+    import torch
+
+    from .parallel import compile_plan
+    n_ticks = keys.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exe = compile_plan.engine_chunk(cfg, snapshot, tp, keys, donate=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = exe(snapshot, tp, keys)
+    for f, a, b in zip(plain._fields, plain, got):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"the replayed chunk differs from the "
+                                 f"eager window in {f}")
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    got = exe(got, tp, keys)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_ms = ev0.elapsed_time(ev1)
+    with torch.profiler.profile(activities=act) as prof:
+        got = exe(got, tp, keys)
+        torch.cuda.synchronize()
+    by_name, _, syncs, sync_calls, queue_full = _tally(prof)
+    sync_calls -= base_calls
+    device_ms = sum(by_name.values()) / 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    out = dict(build_s=build_s, wall_ms=wall_ms,
+               hbs=n_ticks / wall_ms * 1e3, eager_hbs=n_ticks / eager_ms * 1e3,
+               device_kernel_ms=device_ms,
+               busy_share=device_ms / wall_ms if device_ms > 0 else None,
+               host_syncs=syncs, sync_calls=sync_calls, queue_full=queue_full,
+               peak_gib=peak / 2 ** 30,
+               reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+               launches=exe.launches)
+    busy = (f"{100 * device_ms / wall_ms:.2f}% busy" if device_ms > 0
+            else "busy share not measured (no device time in the trace)")
+    print(f"captured: engine_chunk of {n_ticks} ticks built in {build_s:.3f} "
+          f"s (warm-up and capture), replay equal to the eager window in "
+          f"every field; a chained replay {wall_ms:.3f} ms by CUDA events "
+          f"= {out['hbs']:.3f} hb/s (eager {out['eager_hbs']:.3f}); device "
+          f"time {device_ms:.3f} ms, {busy}; synchronizing runtime calls "
+          f"{sync_calls}, host reads {syncs}; peak {out['peak_gib']:.3f} GiB "
+          f"above the start, {out['reserved_gib']:.3f} GiB reserved; "
+          f"launches recorded at capture {json.dumps(exe.launches)}",
+          flush=True)
+    compile_plan.clear_caches()
+    return out
 
 
 if __name__ == "__main__":

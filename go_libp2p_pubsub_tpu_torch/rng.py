@@ -71,9 +71,14 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for 32-bit ``data``: a Python int
-    or an integer tensor on the key's device (a tick counter folds with
-    no host read). A tensor of shape S gives keys of shape S + [2]."""
-    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
+    (filled on the key's device, no host copy) or an integer tensor on the
+    key's device (a tick counter folds with no host read). A tensor of
+    shape S gives keys of shape S + [2]."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _M32
+    else:
+        d = torch.full((), int(data) & _M32, dtype=torch.int64,
+                       device=key.device)
     b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
     return torch.stack([b1, b2], dim=-1)
 
@@ -86,20 +91,21 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return b1 ^ b2
 
 
-def _f32(x: float) -> torch.Tensor:
-    return torch.tensor(np.float32(x), dtype=torch.float32)
-
-
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` (float32): 23 random mantissa bits with a unit
-    exponent, minus one, scaled and shifted in float32, floored at minval."""
+    exponent, minus one, scaled and shifted in float32, floored at minval.
+
+    ``lo`` and ``span`` are Python floats holding float32 values exactly
+    (``span`` is the float32 difference, as jax takes it), so each scalar
+    op casts them back to the same float32 and computes in float32: the
+    same bits as float32 tensor operands, with no host-to-device copy."""
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = _f32(minval).to(key.device)
-    span = _f32(np.float32(maxval) - np.float32(minval)).to(key.device)
-    return torch.maximum(lo, floats * span + lo)
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp(floats * span + lo, min=lo)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:

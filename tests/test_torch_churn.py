@@ -47,6 +47,18 @@ from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams, run,
                                             scenarios, state_from_reference,
                                             state_to_numpy)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU kernels on one thread while this module runs (the
+    suite runs in several worker processes; see
+    tests/test_torch_engine_modes.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, TICKS = 1024, 8
 
 

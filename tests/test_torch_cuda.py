@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the card's 4-tick trajectory against the CPU's. Every test here needs an
+the card's 4-tick trajectory against the CPU's, and the captured engine
+plane (parallel/compile_plan.py) against the eager run, with an eager tick
+that makes no synchronization. Every test here needs an
 NVIDIA GPU and nvcc, and skips without them. This file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -614,3 +616,78 @@ def test_formulations_cuda_equal_cpu(mode):
                               max_count=k - 1, mode=sel_mode,
                               noise=noise.to(d)) for d in ("cuda", "cpu")]
     assert torch.equal(outs[0].cpu(), outs[1]), sel_mode
+
+
+# --- the captured engine plane (parallel/compile_plan.py) ------------------
+
+def _captured_case(case, dev, topo):
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    if case == "headline":
+        return build_headline(512, device=dev, topo=topo)
+    cfg, tp, st = scenarios.churn_50k(512, device=dev, topo=topo)
+    return (dataclasses.replace(cfg, hop_mode="xla",
+                                edge_gather_mode=case.split(", ")[1]),
+            tp, st)
+
+
+@pytest.mark.parametrize("case", ["headline", "churn, pallas", "churn, mxu"])
+def test_eager_tick_makes_no_sync(case):
+    """One eager tick raises nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read, no
+    synchronous host-to-device copy."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, step, topology
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = _captured_case(case, "cuda", topo)
+    key = rng.PRNGKey(0, device="cuda")
+    st = step(st, cfg, tp, key, device="cuda")        # first use, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, cfg, tp, key, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("schedule", ["chunk", "window"])
+@pytest.mark.parametrize("case", ["headline", "churn, pallas", "churn, mxu"])
+def test_captured_chunks_equal_eager(case, schedule, donate):
+    """Two replayed chunks of 4 ticks, the second fed the first's result,
+    equal the eager 8-tick ``run_keys``/``run_window`` from the same state
+    and keys in every field, exactly (the same card and kernels): the
+    replay draws fresh numbers for every tick, and a plain executable
+    leaves the caller's state as it was."""
+    _need_card()
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (run_keys, run_window,
+                                                scenarios, state_to_numpy,
+                                                topology)
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = _captured_case(case, "cuda", topo)
+    before = state_to_numpy(st)
+    key = rng.PRNGKey(7, device="cuda")
+    try:
+        if schedule == "chunk":
+            keys = rng.split(key, 8)
+            want = run_keys(st, cfg, tp, keys, device="cuda")
+            exe = compile_plan.engine_chunk(cfg, st, tp, keys[:4],
+                                            donate=donate)
+            got = exe(exe(st, tp, keys[:4]), tp, keys[4:])
+        else:
+            cfg = dataclasses.replace(cfg, key_schedule="fold_in")
+            want = run_window(st, cfg, tp, key, 8, device="cuda")
+            exe = compile_plan.engine_window(cfg, st, tp, key, 4,
+                                             donate=donate)
+            got = exe(exe(st, tp, key), tp, key)
+        assert exe.graph is not None and exe.launches
+        want, got = state_to_numpy(want), state_to_numpy(got)
+        for f, a in want.items():
+            np.testing.assert_array_equal(got[f], a, err_msg=f)
+        for f, a in state_to_numpy(st).items():
+            np.testing.assert_array_equal(a, before[f], err_msg=f)
+    finally:
+        compile_plan.clear_caches()

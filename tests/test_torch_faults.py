@@ -10,7 +10,8 @@ against the JAX package's sim/faults.py on the CPU.
   is a broken promise, a graylist/gater drop is not);
 - an 8-tick ``engine.run`` per fault family and one with every family,
   ``fault_flags`` included, on the port's fused kernels where the plan
-  allows them and on its non-fused path;
+  allows them and on its non-fused path; the every-family plan also under
+  the ``sort``, ``rows``, ``scalar`` and ``mxu`` gathers (6 ticks);
 - ``partition_small`` and ``outage_small`` over their heal.
 
 The network is ``partition_small`` at 256 peers (2 topics, full scoring,
@@ -38,6 +39,18 @@ from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams, faults,
                                             invariants, run, scenarios,
                                             state_from_reference,
                                             state_to_numpy, step)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU kernels on one thread while this module runs (the
+    suite runs in several worker processes; see
+    tests/test_torch_engine_modes.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N, TICKS = 256, 8
 # one plan per family, each active inside the 8 ticks, and one with all
@@ -412,6 +425,20 @@ def test_fault_family_run_equal(ref_runs, fam, hop):
     fused = resolve_hop_mode(cfg) == "pallas"
     assert fused == (hop == "auto" and fam in (
         "corrupt", "partition", "outage", "eclipse", "storm", "wave"))
+
+
+@pytest.mark.parametrize("gather", ["sort", "rows", "scalar", "mxu"])
+def test_every_family_plan_under_each_formulation(ref_runs, gather):
+    """The every-family plan (20 sybils, the censor victim) under each
+    gather formulation besides the default, 6 ticks, every field exact
+    after every tick against the reference's jitted step."""
+    jcfg, jtp, jst, _, ticks = ref_runs["every family"]
+    cfg, tp, st = _port(jcfg, jtp, jst)
+    cfg = dataclasses.replace(cfg, hop_mode="auto", edge_gather_mode=gather)
+    keys = rng.split(rng.PRNGKey(0, device="cpu"), TICKS)
+    for i, want in enumerate(ticks[:6]):
+        st = step(st, cfg, tp, keys[i], device="cpu")
+        _assert_equal(want, state_to_numpy(st), f"{gather}, after tick {i}")
 
 
 @pytest.mark.parametrize("fam", ["censor", "eclipse", "storm", "wave",

@@ -25,6 +25,18 @@ from go_libp2p_pubsub_tpu_torch.ops import cudalib
 from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
 from go_libp2p_pubsub_tpu_torch.ops.bits import popcount
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU kernels on one thread while this module runs (the
+    suite runs in several worker processes; see
+    tests/test_torch_engine_modes.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 I32 = torch.int32
 LANE = torch.arange(32)
 EMIT_BR = 32                          # csrc/emit.cu BR: receivers per block

@@ -32,6 +32,18 @@ from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
                                             state_from_reference,
                                             state_to_numpy, step)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU kernels on one thread while this module runs (the
+    suite runs in several worker processes; see
+    tests/test_torch_engine_modes.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (T, K): the headline's, and (2T+1) * K at and just above the 32768 counts
 # of the resolve's tile
 TK = [(1, 32), (1, 10922), (1, 10923), (128, 128)]
