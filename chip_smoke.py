@@ -96,9 +96,26 @@ Phases, each printing its own lines and its seconds:
    formulation timed by CUDA events (5 calls behind a spin kernel, median
    of 5 rounds), every output equal to the ``pallas`` (``ranks``) one at
    the valid slots;
+3g. compact storage (``state_precision="compact"``), telemetry and
+   checkpoints: the headline (102400, kernels 1-4) in f32 and compact from
+   one build, 8 ticks of ``run_keys`` each, twice, in turns (hb/s, peak
+   memory, the compact runs' launches against their set, the stored
+   bytes equal to ``state_nbytes``), the codec's device time (decode,
+   encode, the encode's ``pack_bool``) beside the tick's; 8 ticks with the
+   telemetry lane, its last record equal to ``health_record`` of the
+   final state; a ``.npz`` checkpoint after tick 4, restored and run 4
+   more ticks, equal to the 8 uninterrupted ticks; then compact
+   ``frontier_1m`` (kernels 1-3) with telemetry, its stored bytes, peak
+   memory, hb/s and codec share; then ``frontier_4m`` and
+   ``frontier_10m`` priced under both precisions against the card's
+   memory (``check_hbm_budget``), not allocated;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
-   within rtol 1e-6, checked after every tick;
+   within rtol 1e-6, checked after every tick; then the same network
+   under compact storage, each tick decoded, stepped and encoded on both
+   devices: int8, int16 and packed planes exact, each bf16 plane exact
+   where the float32 inputs to its encode agree bitwise and within one
+   bf16 ulp where they differ (within rtol 1e-6);
 4b. the same for ``churn_50k(n_peers=1024)`` with the validation queue cap
    cut to 4 (throttle and RED drop live), under both gather formulations;
 4c. the same for the data plane's branches at 1024 peers: floodsub,
@@ -118,10 +135,13 @@ Phases, each printing its own lines and its seconds:
    ``rows`` and ``sort`` with flood publish, ``churn_50k(1024)`` under
    ``sort``, and the headline under ``selection_mode="iter"`` and
    ``"sort"``;
-5. captured chunks (parallel/compile_plan.py): the paths phases 3-3f
-   left states for (the headline, churn under ``pallas`` and ``mxu``,
-   single_topic_1k, beacon_10k, sybil_100k, the combined fault plan on
-   the non-fused hop, and frontier_1m last), each from that state: one
+5. captured chunks (parallel/compile_plan.py): the paths phases 3-3g
+   left states for (the headline, the compact headline, churn under
+   ``pallas`` and ``mxu``, single_topic_1k, beacon_10k, sybil_100k, the
+   combined fault plan on the non-fused hop, frontier_1m and compact
+   frontier_1m last; the compact paths with the telemetry lane, whose C
+   records the replay must equal too, and the compact headline also
+   without it, for the lane's cost), each from that state: one
    eager tick under ``torch.cuda.set_sync_debug_mode("error")`` (it must
    not raise), then 8 eager ticks of ``run_keys`` and a donated
    ``engine_chunk`` of C = 8 (on the headline also ``run_window`` against
@@ -140,7 +160,7 @@ Every path prints the formulation each of its seams runs
 51200 and 10240 peers at K = 32 and the beacon network's 10240 peers at
 K = 48, a pure-Python O(N^2) build at the scenarios' seed; the frontier's
 vectorized 1,048,576-peer ``sparse_fast``) are made in child processes
-while the kernels are built and checked; phases 3d, 3e and 3f reuse them.
+while the kernels are built and checked; phases 3d-3g reuse them.
 Any failure exits non-zero without the last line. Imports nothing of
 JAX.
 """
@@ -224,6 +244,13 @@ PATH_KERNELS = {
     "sort path": (set(), {"edge_table", "hop", "iwant_resolve", "emit",
                           "gather_words", "permutation_gather",
                           "take_words"}),
+    # phase 3g: compact storage on the headline and the frontier
+    "compact headline": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                         {"gather_words", "permutation_gather",
+                          "take_words"}),
+    "compact frontier_1m": ({"hop", "iwant_resolve", "emit"},
+                            {"edge_table", "gather_words",
+                             "permutation_gather", "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -1385,6 +1412,70 @@ class Smoke:
               f"fault_flags 0x{flags:08x}{extra}; formulations "
               f"{formulations(runs[0][0])}", flush=True)
 
+    # ---- phase 4: the compact trajectory on the card against the CPU -----
+    def phase_compact_trajectory(self):
+        """The 1024-peer headline under compact storage, 8 ticks on the
+        card and on the CPU from one stored state and one key, held
+        together after every tick: each tick is decoded, stepped in the
+        compute layout (``engine._tick``) and encoded on both devices; the
+        integer, bool, int8, int16 and packed planes of the stored states
+        exactly equal, the float32 ones within rtol 1e-6, and each bf16
+        plane exact where the two devices' float32 inputs to its encode
+        are bit-equal, and within one bf16 ulp where they differ (within
+        rtol 1e-6)."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline,
+                                                    decode_state,
+                                                    encode_state, engine,
+                                                    state_to_numpy)
+        from go_libp2p_pubsub_tpu_torch.sim.state import _COMPACT_CODECS
+        n = 1024
+        topo = trajectory_topology("headline", n)
+        devs = (self.dev, torch.device("cpu"))
+        runs = [build_headline(n, device=d, topo=topo) for d in devs]
+        cfg = dataclasses.replace(runs[0][0], state_precision="compact")
+        states = [encode_state(r[2], cfg) for r in runs]
+        keys = [rng.split(rng.PRNGKey(0, device=d), 8) for d in devs]
+        bf16 = [f for f, c in _COMPACT_CODECS.items() if c == "bf16"]
+        inputs_apart = ulps = 0
+        for tick in range(8):
+            pre = [engine._tick(decode_state(s, cfg), cfg, r[1], kk[tick])[0]
+                   for s, r, kk in zip(states, runs, keys)]
+            states = [encode_state(p, cfg) for p in pre]
+            a, b = (state_to_numpy(s) for s in states)
+            pa, pb = (state_to_numpy(p) for p in pre)
+            for f in a:
+                x, y = a[f], b[f]
+                if f in bf16:
+                    fx, fy = pa[f], pb[f]
+                    apart = fx.view(np.uint32) != fy.view(np.uint32)
+                    step = np.abs(x.astype(np.int32) - y.astype(np.int32))
+                    same = (np.allclose(fx, fy, rtol=1e-6, atol=0.0)
+                            and not (step[~apart] != 0).any()
+                            and not (step[apart] > 1).any())
+                    inputs_apart += int(apart.sum())
+                    ulps += int((step != 0).sum())
+                elif x.dtype == np.float32:
+                    same = np.allclose(x, y, rtol=1e-6, atol=0.0)
+                else:
+                    same = np.array_equal(x, y)
+                if not same:
+                    raise AssertionError(
+                        f"compact trajectory: field {f} ({x.dtype}) differs "
+                        f"between {devs[0]} and cpu after tick {tick}")
+        if float(states[0].delivered_total) <= 0:
+            raise AssertionError("compact trajectory: nothing delivered")
+        print(f"compact trajectory [{n} peers]: 8 ticks on {devs[0]} equal "
+              f"to the CPU run (int/bool/int8/int16/packed exact, float32 "
+              f"rtol 1e-6, bf16 exact where the float32 inputs agree "
+              f"bitwise); float32 inputs to the bf16 encodes apart in "
+              f"{inputs_apart} values, bf16 planes one ulp apart in {ulps}; "
+              f"delivered_total {float(states[0].delivered_total):.0f}",
+              flush=True)
+
     # ---- phase 3e: the BASELINE configs at full size ---------------------
     def baseline_paths(self, topo_full, topo_beacon):
         """The four paths of phase 3e: (label, (cfg, tp, state)).
@@ -1749,6 +1840,232 @@ class Smoke:
               f"fault_flags=0x{raised[0][0]:08x} {decode_flags(raised[0][0])}"
               f" (card: {raised[0][2]!r})", flush=True)
 
+    # ---- phase 3g: compact storage, telemetry, checkpoint ----------------
+    def stored_bytes(self, label, cfg, st):
+        """The stored state's device bytes, which must equal
+        ``state_nbytes(cfg)["total"]`` (the reference's pricing)."""
+        from go_libp2p_pubsub_tpu_torch.sim import state_nbytes
+        got = sum(x.numel() * x.element_size() for x in st)
+        want = state_nbytes(cfg)["total"]
+        if got != want:
+            raise AssertionError(f"{label}: the stored state holds {got} "
+                                 f"bytes, state_nbytes prices {want}")
+        return got
+
+    def timed_run(self, label, cfg, tp, st, keys, check=True, **kw):
+        """``run_keys`` over ``keys`` (``kw``: ``telemetry=True``), the
+        counts reset just before and read just after, checked against
+        ``PATH_KERNELS[label]`` when ``check``: (result, seconds, peak
+        device bytes above the memory held before)."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import run_keys
+        self.sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        out = run_keys(st, cfg, tp, keys, device=self.dev, **kw)
+        self.sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        if check:
+            print(f"compact [{label}] launches: {json.dumps(launches)}",
+                  flush=True)
+            self.check_launches(label, launches, cfg)
+        return out, secs, peak
+
+    def codec_share(self, label, cfg, st, tick_ms):
+        """Device time of the step's decode (at entry) and encode (at
+        exit) of ``st``, and of the encode's bit packing alone, by CUDA
+        events, beside the tick's ``tick_ms``."""
+        from go_libp2p_pubsub_tpu_torch.ops.bits import pack_bool
+        from go_libp2p_pubsub_tpu_torch.sim import decode_state, encode_state
+        from go_libp2p_pubsub_tpu_torch.sim.state import _COMPACT_CODECS
+        dec = decode_state(st, cfg)
+        packed = [getattr(dec, f) for f, c in _COMPACT_CODECS.items()
+                  if c == "packK"]
+        dec_ms = self.time_ms(lambda: decode_state(st, cfg), reps=3,
+                              rounds=3)
+        enc_ms = self.time_ms(lambda: encode_state(dec, cfg), reps=3,
+                              rounds=3)
+        pack_ms = self.time_ms(lambda: [pack_bool(x) for x in packed],
+                               reps=3, rounds=3)
+        print(f"compact [{label}]: decode {dec_ms:.3f} ms + encode "
+              f"{enc_ms:.3f} ms a tick (device time, CUDA events) = "
+              f"{100 * (dec_ms + enc_ms) / tick_ms:.2f}% of the {tick_ms:.3f} "
+              f"ms compact tick; the encode's pack_bool of the "
+              f"{len(packed)} packed planes {pack_ms:.3f} ms = "
+              f"{100 * pack_ms / tick_ms:.2f}%", flush=True)
+        del dec, packed
+
+    def phase_compact(self, topo_full, topo_frontier):
+        """Compact storage on the two paths, each on its own underlay:
+
+        - the headline (102400 peers, fused kernels 1-4): the f32 and the
+          compact state from one build, 8 ticks of ``run_keys`` each,
+          twice, in turns (f32, compact, compact, f32), with launches,
+          hb/s and peak memory; the stored bytes against ``state_nbytes``;
+          the codec's device time beside the tick's; ``run_keys(...,
+          telemetry=True)``, whose last record must equal
+          ``health_record`` of its final state; a checkpoint of the state
+          after 4 ticks, saved, restored and run 4 more ticks, equal in
+          every field to the 8 uninterrupted ticks;
+        - ``frontier_1m`` under compact storage (1,048,576 peers, sort
+          exchanges, kernels 1-3): 8 ticks with telemetry, launches, hb/s,
+          peak memory, stored bytes and the codec's share;
+        - ``frontier_4m`` and ``frontier_10m`` priced under both
+          precisions (``state_nbytes``, ``check_hbm_budget`` against the
+          card's memory), not allocated.
+
+        Both compact paths go on to phase 5's captured chunks."""
+        import dataclasses
+        import tempfile
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline,
+                                                    check_hbm_budget,
+                                                    checkpoint,
+                                                    delivery_fraction,
+                                                    encode_state, scenarios,
+                                                    state_nbytes, telemetry)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
+        gib = 2 ** 30
+        dev = self.dev
+        keys = rng.split(rng.PRNGKey(0, device=dev), 8)
+
+        cfg, tp, st = build_headline(N_FULL, device=dev, topo=topo_full)
+        ccfg = dataclasses.replace(cfg, state_precision="compact")
+        cst = encode_state(st, ccfg)
+        f32_bytes = self.stored_bytes("headline", cfg, st)
+        c_bytes = self.stored_bytes("compact headline", ccfg, cst)
+        runs = {"f32": [], "compact": []}
+        for prec in ("f32", "compact", "compact", "f32"):
+            c, s = (cfg, st) if prec == "f32" else (ccfg, cst)
+            runs[prec].append(self.timed_run(
+                "compact headline" if prec == "compact" else "headline",
+                c, tp, s, keys, check=prec == "compact"))
+        out = runs["compact"][0][0]
+        for f, a, b in zip(out._fields, out, runs["compact"][1][0]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"compact headline: two runs differ in "
+                                     f"{f}")
+        if int(out.fault_flags) & VIOLATION_MASK or \
+                float(out.delivered_total) <= 0:
+            raise AssertionError("compact headline: violation bits or no "
+                                 "delivery")
+        hbs = {p: [8 / r[1] for r in rs] for p, rs in runs.items()}
+        peaks = {p: max(r[2] for r in rs) / gib for p, rs in runs.items()}
+        print(f"compact [headline]: {N_FULL} peers, 8 ticks of run_keys, "
+              f"f32 {hbs['f32'][0]:.3f} / {hbs['f32'][1]:.3f} hb/s, compact "
+              f"{hbs['compact'][0]:.3f} / {hbs['compact'][1]:.3f} hb/s "
+              f"(runs in turns f32, compact, compact, f32); stored state "
+              f"f32 {f32_bytes / gib:.4f} GiB, compact {c_bytes / gib:.4f} "
+              f"GiB (= state_nbytes); peak above the stored state f32 "
+              f"{peaks['f32']:.3f} GiB, compact {peaks['compact']:.3f} GiB; "
+              f"delivery_fraction (age>=2) f32 "
+              f"{float(delivery_fraction(runs['f32'][0][0], cfg, min_age_ticks=2)):.6f}"
+              f", compact "
+              f"{float(delivery_fraction(out, ccfg, min_age_ticks=2)):.6f}",
+              flush=True)
+        tick_ms = 1e3 * min(r[1] for r in runs["compact"]) / 8
+        self.codec_share("headline", ccfg, out, tick_ms)
+        del runs
+
+        (tout, rec), secs, _ = self.timed_run("compact headline", ccfg, tp,
+                                              cst, keys, telemetry=True)
+        post = telemetry.health_record(tout, ccfg, tp)
+        for f, a, b in zip(rec._fields, rec, post):
+            if not torch.equal(a[-1], b):
+                raise AssertionError(f"compact headline: the streamed "
+                                     f"record's {f} differs from "
+                                     f"health_record of the final state")
+        for f, a, b in zip(out._fields, out, tout):
+            if not torch.equal(a, b):
+                raise AssertionError(f"compact headline: the telemetry run "
+                                     f"differs in {f}")
+        rows = telemetry.rows_to_dicts(*telemetry.records_to_rows(rec))
+        print(f"compact [headline] telemetry: 8 ticks of run_keys(telemetry="
+              f"True) {8 / secs:.3f} hb/s; the last record equals "
+              f"health_record of the final state; last row "
+              f"{json.dumps(rows[-1])}", flush=True)
+
+        half = self.timed_run("compact headline", ccfg, tp, cst, keys[:4],
+                              check=False)[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "compact_headline.npz")
+            t0 = time.perf_counter()
+            checkpoint.save(path, half, cfg=ccfg)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            back = checkpoint.restore(path, cst, cfg=ccfg)
+            self.sync()
+            restore_s = time.perf_counter() - t0
+        resumed = self.timed_run("compact headline", ccfg, tp, back,
+                                 keys[4:], check=False)[0]
+        differ = [f for f, a, b in zip(out._fields, out, resumed)
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"compact headline: the resumed run differs "
+                                 f"from the uninterrupted one in {differ}")
+        print(f"compact [headline] checkpoint: saved after tick 4 "
+              f"({size / 2 ** 20:.1f} MiB .npz in {save_s:.3f} s), restored "
+              f"in {restore_s:.3f} s, 4 more ticks equal to the 8 "
+              f"uninterrupted ticks in every field", flush=True)
+        self.capture_paths["compact headline"] = (ccfg, tp, out)
+        del st, cst, half, back, resumed, tout
+
+        fcfg, ftp, fst = scenarios.frontier_1m(
+            device=dev, topo=topo_frontier, state_precision="compact")
+        f_bytes = self.stored_bytes("compact frontier_1m", fcfg, fst)
+        f32_priced = state_nbytes(dataclasses.replace(
+            fcfg, state_precision="f32"))["total"]
+        (fout, frec), secs, peak = self.timed_run(
+            "compact frontier_1m", fcfg, ftp, fst, keys, telemetry=True)
+        flags = int(fout.fault_flags) & 0xFFFFFFFF
+        if flags or float(fout.delivered_total) <= 0:
+            raise AssertionError(f"compact frontier_1m: fault_flags "
+                                 f"0x{flags:x}, delivered "
+                                 f"{float(fout.delivered_total)}")
+        last = telemetry.record_to_row(
+            telemetry.HealthRecord(*(x[-1] for x in frec)))
+        print(f"compact [frontier_1m]: {fcfg.n_peers} peers, 8 ticks of "
+              f"run_keys(telemetry=True) in {secs:.3f} s = {8 / secs:.3f} "
+              f"hb/s; stored state {f_bytes / gib:.4f} GiB (= state_nbytes;"
+              f" f32 prices {f32_priced / gib:.4f} GiB); peak "
+              f"{peak / gib:.3f} GiB above the stored state; "
+              f"delivery_fraction (age>=2) "
+              f"{float(delivery_fraction(fout, fcfg, min_age_ticks=2)):.6f}; "
+              f"last record {json.dumps(last)}", flush=True)
+        self.codec_share("frontier_1m", fcfg, fout, 1e3 * secs / 8)
+        self.capture_paths["compact frontier_1m"] = (fcfg, ftp, fout)
+        del fst
+
+        total = torch.cuda.mem_get_info()[1]
+        for name in ("frontier_4m", "frontier_10m"):
+            n = scenarios.FRONTIER_NS[name]
+            for prec in ("f32", "compact"):
+                pcfg = scenarios.frontier_cfg(n, state_precision=prec)
+                acct = state_nbytes(pcfg)
+                try:
+                    check_hbm_budget(pcfg, budget=total)
+                    verdict = "fits"
+                except ValueError:
+                    verdict = "refused"
+                scaled = ""
+                if prec == "compact":
+                    scaled = (f"; the 1M compact run's stored state plus "
+                              f"peak scaled by {n / N_FRONTIER:.0f} (an "
+                              f"estimate, not a measurement): "
+                              f"{(peak + f_bytes) * n / N_FRONTIER / gib:.3f}"
+                              f" GiB")
+                print(f"compact [pricing] {name} ({n} peers) {prec}: state "
+                      f"{acct['total'] / gib:.3f} GiB, check_hbm_budget "
+                      f"against the card's {total / gib:.3f} GiB: {verdict}"
+                      f"{scaled}; not allocated", flush=True)
+
     # ---- phase 5: the captured engine plane (parallel/compile_plan.py) ----
     def phase_captured(self):
         """Each path held in :attr:`capture_paths` (the headline, churn
@@ -1756,16 +2073,20 @@ class Smoke:
         sybil_100k, the combined fault plan and, last, frontier_1m) from
         the state its own phase left: :meth:`captured_path`. Each path's
         state and executables are dropped before the next."""
-        order = ["headline", "churn[pallas]", "churn[mxu]",
-                 "single_topic_1k", "beacon_10k", "sybil_100k",
-                 "combined plan", "frontier_1m"]
+        order = ["headline", "compact headline", "churn[pallas]",
+                 "churn[mxu]", "single_topic_1k", "beacon_10k", "sybil_100k",
+                 "combined plan", "frontier_1m", "compact frontier_1m"]
         if sorted(order) != sorted(self.capture_paths):
             raise AssertionError(f"phase 5 holds {sorted(self.capture_paths)}"
                                  f", expected {sorted(order)}")
         for label in order:
             cfg, tp, st = self.capture_paths.pop(label)
             t0 = time.perf_counter()
-            self.captured_path(label, cfg, tp, st, "chunk")
+            compact = label.startswith("compact")
+            if label == "compact headline":
+                # the telemetry lane's cost: the same chunk without it
+                self.captured_path(label, cfg, tp, st, "chunk")
+            self.captured_path(label, cfg, tp, st, "chunk", compact)
             if label == "headline":
                 self.captured_path(label, cfg, tp, st, "window")
             del st
@@ -1796,7 +2117,7 @@ class Smoke:
         return (out, a.elapsed_time(b),
                 sum(SYNC_WARNING in str(w.message) for w in caught))
 
-    def captured_path(self, label, cfg, tp, st, schedule):
+    def captured_path(self, label, cfg, tp, st, schedule, telemetry=False):
         """One path of phase 5 under ``schedule`` ("chunk": ``engine_chunk``
         over C rows of ``rng.split`` against ``run_keys``; "window":
         ``engine_window`` under ``key_schedule="fold_in"`` against
@@ -1817,7 +2138,10 @@ class Smoke:
         - the kernels launched into the graph, counted once at capture time
           (cudalib.LAUNCHES counts Python-side launches; a replay repeats
           them without passing through the wrappers), against the path's
-          must and must-not sets."""
+          must and must-not sets.
+
+        ``telemetry=True`` runs both sides with the health-record lane:
+        the replay's C records must equal the eager run's exactly too."""
         import dataclasses
         torch = self.torch
         from go_libp2p_pubsub_tpu_torch import rng
@@ -1832,13 +2156,15 @@ class Smoke:
             keys = key
 
             def eager(s):
-                return run_window(s, cfg, tp, key, c, device=dev)
+                return run_window(s, cfg, tp, key, c, telemetry=telemetry,
+                                  device=dev)
         else:
             keys = rng.split(key, c)
 
             def eager(s):
-                return run_keys(s, cfg, tp, keys, device=dev)
-        name = f"{label}, {schedule}"
+                return run_keys(s, cfg, tp, keys, telemetry=telemetry,
+                                device=dev)
+        name = f"{label}, {schedule}" + (", telemetry" if telemetry else "")
         tick_key = rng.PRNGKey(12, device=dev)
         self.sync()
         torch.cuda.set_sync_debug_mode("error")
@@ -1858,15 +2184,23 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if schedule == "window":
-            exe = compile_plan.engine_window(cfg, st, tp, key, c, donate=True)
+            exe = compile_plan.engine_window(cfg, st, tp, key, c,
+                                             telemetry=telemetry, donate=True)
         else:
-            exe = compile_plan.engine_chunk(cfg, st, tp, keys, donate=True)
+            exe = compile_plan.engine_chunk(cfg, st, tp, keys,
+                                            telemetry=telemetry, donate=True)
         self.sync()
         build_s = time.perf_counter() - t0
         got = exe(st, tp, keys)
         self.sync()
+        fields = st._fields
+        if telemetry:
+            (want, want_rec), (got, got_rec) = want, got
+            fields = fields + tuple(f"record.{f}" for f in want_rec._fields)
+            want, got = tuple(want) + tuple(want_rec), \
+                tuple(got) + tuple(got_rec)
         differ = []
-        for f, a, b in zip(st._fields, want, got):
+        for f, a, b in zip(fields, want, got):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             if a.dtype != b.dtype or not torch.equal(a, b):
@@ -1875,6 +2209,8 @@ class Smoke:
             raise AssertionError(f"phase 5 [{name}]: the replayed chunk "
                                  f"differs from the eager run in {differ}")
         del want
+        if telemetry:
+            got = type(st)(*got[:len(st._fields)])
         got, cap_ms, cap_syncs = self.sync_warnings(lambda: exe(got, tp, keys))
         cap_peak = torch.cuda.max_memory_allocated() - base
         reserved = torch.cuda.memory_reserved()
@@ -1896,7 +2232,9 @@ class Smoke:
               f"{compile_plan.WARMUP_TICKS} ticks + capture); peak "
               f"{cap_peak / 2 ** 30:.3f} GiB above the state over build "
               f"and replay, {reserved / 2 ** 30:.3f} GiB reserved; replay "
-              f"equal to the eager run in every field", flush=True)
+              f"equal to the eager run in every field"
+              + (" and every health record" if telemetry else ""),
+              flush=True)
         print(f"phase 5 [{name}] launches recorded into the graph at "
               f"capture time (each replay repeats them): "
               f"{json.dumps(exe.launches)}", flush=True)
@@ -2011,8 +2349,12 @@ def main() -> int:
         timed("3f (frontier_1m, sort path, formulations)",
               lambda: smoke.phase_frontier(topology_of(N_FRONTIER, K, 8),
                                            topology_of(smoke.n)))
+        timed("3g (compact storage, telemetry, checkpoint)",
+              lambda: smoke.phase_compact(topology_of(smoke.n),
+                                          topology_of(N_FRONTIER, K, 8)))
         timed("5 (captured chunks)", smoke.phase_captured)
         timed("4 (trajectory)", smoke.phase_trajectory)
+        timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
                   "churn", gather)

@@ -17,6 +17,13 @@ whole chunk is one graph:
   the master key and the carried tick (``run_window``): ``exe(state, tp,
   key)``. Chained chunks draw fresh numbers because the tick advances.
 
+With ``telemetry=True`` the graph also records the C ticks' health
+records (sim/telemetry.py) and a call returns ``(state, HealthRecord)``,
+the ``[C]``-stacked records copied out of the graph's static outputs.
+A compact config (``state_precision="compact"``) captures as an f32 one:
+the graph decodes at each tick's entry and encodes at its exit, and its
+static buffers hold the stored layout.
+
 Each is cached per (schedule, config, chunk length, key dtype, telemetry,
 donation, device), as the reference's ``_ENGINE_AOT``: the same key gives
 the same object, a tail chunk its own entry.
@@ -49,6 +56,7 @@ from ..ops import cudalib, selection
 from ..sim.config import SimConfig, TopicParams
 from ..sim.engine import _folded, _plain, _rows, _ticks, check_slice
 from ..sim.state import SimState
+from ..sim.telemetry import HealthRecord
 
 WARMUP_TICKS = 2
 
@@ -63,10 +71,11 @@ class EngineExecutable:
 
     def __init__(self, schedule: str, cfg: SimConfig, state: SimState,
                  tp: TopicParams, keys: torch.Tensor, n_ticks: int,
-                 donate: bool):
+                 telemetry: bool, donate: bool):
         self.schedule = schedule              # "engine" or "window"
         self.cfg = cfg
         self.n_ticks = n_ticks
+        self.telemetry = telemetry
         self.donate = donate
         self.device = state.tick.device
         self.launches: dict = {}
@@ -83,10 +92,9 @@ class EngineExecutable:
     def _key_of(self, keys: torch.Tensor):
         return _rows(keys) if self.schedule == "engine" else _folded(keys)
 
-    def _ticks(self, state: SimState, tp: TopicParams,
-               keys: torch.Tensor) -> SimState:
+    def _ticks(self, state: SimState, tp: TopicParams, keys: torch.Tensor):
         return _ticks(state, self.cfg, tp, self.n_ticks, self._key_of(keys),
-                      False)
+                      False, self.telemetry)
 
     def _check(self, state: SimState, keys: torch.Tensor) -> None:
         if state.tick.device != self.device:
@@ -111,7 +119,8 @@ class EngineExecutable:
         with torch.cuda.stream(side):
             warm = _ticks(SimState(*(x.clone() for x in self._state)),
                           self.cfg, self._tp, WARMUP_TICKS,
-                          lambda i, st: key_of(i % self.n_ticks, st), False)
+                          lambda i, st: key_of(i % self.n_ticks, st), False,
+                          self.telemetry)
         torch.cuda.current_stream(dev).wait_stream(side)
         del warm
         torch.cuda.synchronize(dev)
@@ -120,6 +129,8 @@ class EngineExecutable:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = self._ticks(self._state, self._tp, self._keys)
+            if self.telemetry:
+                out, self._records = out
             _check_no_partial_alias(out, self._state)
             if self.donate:
                 # the final state lands in the static inputs; a field the
@@ -133,7 +144,8 @@ class EngineExecutable:
         self.graph = graph
 
     def __call__(self, state: SimState, tp: TopicParams,
-                 keys: torch.Tensor) -> SimState:
+                 keys: torch.Tensor):
+        """The chunk's final state, and with telemetry its records."""
         self._check(state, keys)
         if self.graph is None:
             return self._ticks(state, tp, keys.to(self.device))
@@ -141,9 +153,11 @@ class EngineExecutable:
                          *zip(self._state, state)):
             _load(dst, src)
         self.graph.replay()
-        if self.donate:
-            return SimState(*self._state)
-        return SimState(*(x.clone() for x in self._out))
+        out = SimState(*(self._state if self.donate
+                         else (x.clone() for x in self._out)))
+        if self.telemetry:
+            return out, HealthRecord(*(x.clone() for x in self._records))
+        return out
 
 
 def _load(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -177,11 +191,6 @@ def _plan(schedule: str, exec_cfg: SimConfig, state: SimState,
           telemetry: bool, donate: bool) -> EngineExecutable:
     what = "engine_chunk" if schedule == "engine" else "engine_window"
     _plain(exec_cfg, what)
-    if telemetry:
-        raise NotImplementedError(
-            f"{what}(telemetry=True): the health records of "
-            "sim/telemetry.py are not ported yet (ROADMAP.md, Queue 1 "
-            "item 5)")
     if selection.CHECK_COUNT_BOUND:
         raise ValueError(
             f"{what} under ops.selection.CHECK_COUNT_BOUND: the debugging "
@@ -194,7 +203,7 @@ def _plan(schedule: str, exec_cfg: SimConfig, state: SimState,
     exe = _ENGINE_PLANS.get(cache_key)
     if exe is None:
         exe = EngineExecutable(schedule, exec_cfg, state, tp, keys,
-                               int(n_ticks), donate)
+                               int(n_ticks), telemetry, donate)
         _ENGINE_PLANS[cache_key] = exe
     return exe
 
@@ -204,7 +213,8 @@ def engine_chunk(exec_cfg: SimConfig, state: SimState, tp: TopicParams,
                  donate: bool = False) -> EngineExecutable:
     """The executable of one chunk of ``run_keys``: one tick per row of
     ``keys_chunk`` ([C, 2]). Call as ``exe(state, tp, keys_chunk)``;
-    ``donate=True`` consumes ``state``."""
+    ``donate=True`` consumes ``state``; ``telemetry=True`` returns
+    ``(state, HealthRecord)``."""
     return _plan("engine", exec_cfg, state, tp, keys_chunk,
                  keys_chunk.shape[0], telemetry, donate)
 

@@ -8,8 +8,13 @@ from . import scenarios, topology  # noqa: F401
 from .config import SimConfig, TopicParams, with_score_weights  # noqa: F401
 from .state import (  # noqa: F401
     SimState,
+    check_hbm_budget,
+    decode_state,
+    encode_state,
     init_state,
     state_from_reference,
+    state_nbytes,
+    state_spec,
     state_to_numpy,
 )
 

@@ -15,6 +15,10 @@
       7. record_flags       injected-fault and violation bits close the tick
                             (skipped under invariant_mode="off")
 
+The state travels between ticks in the layout ``cfg.state_precision``
+stores (sim/state.py): ``step`` decodes a compact state at entry and
+encodes it at exit, so every op computes in the f32 layout.
+
 The entry points step eagerly, one Python loop iteration a tick, as the
 reference's ``lax.scan``s do on device:
 
@@ -29,7 +33,11 @@ reference's ``lax.scan``s do on device:
   ``invariant_mode="raise"``: the tick's violation bits are read on the
   host after every tick, and the first tick that sets one raises
   :class:`~.invariants.InvariantViolation`. The plain entry points refuse
-  ``"raise"`` with a ValueError, as the reference's do.
+  ``"raise"`` with a ValueError, as the reference's do;
+- ``telemetry=True`` on :func:`run_keys`, :func:`run_window` and
+  :func:`run_checked_keys` returns ``(state, HealthRecord)``: one
+  :func:`~.telemetry.health_record` of each tick's post-step state,
+  stacked to ``[C]`` leaves, on the device (sim/telemetry.py).
 
 Configs outside the ported paths raise NotImplementedError
 (:func:`check_slice`).
@@ -41,7 +49,7 @@ import torch
 
 from .. import rng
 from ..device import check_on
-from ..ops.bits import pack_words
+from ..ops.bits import pack_words, popcount
 from ..ops.churn import churn_edges, churn_subscriptions
 from ..ops.dispatch import resolved_formulations
 from ..ops.gater import gater_decay
@@ -53,7 +61,9 @@ from .config import SimConfig, TopicParams
 from .faults import apply_faults, censor_word_mask, storm_publishers
 from .invariants import (FAULT_CORRUPT, VIOLATION_MASK, InvariantViolation,
                          tick_flags)
-from .state import NEVER, SimState, unpack_have
+from .state import (NEVER, SimState, check_precision, decode_state,
+                    encode_state, is_compact, unpack_have)
+from .telemetry import health_record, stack_records
 
 
 def _later(item: int) -> str:
@@ -69,16 +79,13 @@ def check_slice(cfg: SimConfig) -> None:
     data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in
     every gather formulation (``auto``, ``pallas``, ``mxu``, ``scalar``,
     ``rows``, ``sort``) and selection formulation, uint8 or int32 hop
-    counts (int32 on the non-fused path), under every invariant mode and
-    key schedule. Each refusal names the queue item that lifts it."""
-    refusals = [
-        (cfg.state_precision != "f32",
-         f"state_precision={cfg.state_precision!r}", 5),
-        (cfg.degree_buckets is not None, "degree_buckets", 8),
-    ]
-    for refused, what, item in refusals:
-        if refused:
-            raise NotImplementedError(f"{what} {_later(item)}")
+    counts (int32 on the non-fused path), under every invariant mode, key
+    schedule and storage precision. The refusal names the queue item that
+    lifts it; an unknown precision, or compact storage at k_slots > 127,
+    raises ValueError."""
+    if cfg.degree_buckets is not None:
+        raise NotImplementedError(f"degree_buckets {_later(8)}")
+    check_precision(cfg)
     resolved_formulations(cfg)
 
 
@@ -127,7 +134,15 @@ def _iwant_answer_extras(state: SimState, cfg: SimConfig,
 
 def _step(state: SimState, cfg: SimConfig, tp: TopicParams,
           key: torch.Tensor) -> tuple[SimState, torch.Tensor | None]:
-    """One tick (engine.py:103-192): the next state and this tick's flag
+    """One tick of a stored state (engine.py:103-192): decoded at entry,
+    :func:`_tick`, encoded at exit (both identities under ``"f32"``)."""
+    state, flags = _tick(decode_state(state, cfg), cfg, tp, key)
+    return encode_state(state, cfg), flags
+
+
+def _tick(state: SimState, cfg: SimConfig, tp: TopicParams,
+          key: torch.Tensor) -> tuple[SimState, torch.Tensor | None]:
+    """One tick in the compute layout: the next state and this tick's flag
     word (violation | injected bits; None under ``invariant_mode="off"``)."""
     if cfg.fault_plan is not None:
         # the fault pass opens the tick; its key split exists only under a
@@ -204,20 +219,24 @@ def step(state: SimState, cfg: SimConfig, tp: TopicParams,
 
 
 def _ticks(state: SimState, cfg: SimConfig, tp: TopicParams, n_ticks: int,
-           key_of, checked: bool) -> SimState:
+           key_of, checked: bool, telemetry: bool = False):
     """Step ``n_ticks`` times, tick i under the key ``key_of(i, state)``.
     ``checked`` under ``invariant_mode="raise"`` reads each tick's
     violation bits on the host and raises at the first tick that sets
-    one."""
+    one. ``telemetry`` returns ``(state, HealthRecord)``, the records of
+    every tick's post-step state stacked to ``[C]``."""
     check_slice(cfg)
     check = checked and cfg.invariant_mode == "raise"
+    records = []
     for i in range(n_ticks):
         state, flags = _step(state, cfg, tp, key_of(i, state))
         if check:
             viol = int(flags) & VIOLATION_MASK
             if viol:
                 raise InvariantViolation(viol, int(state.tick) - 1)
-    return state
+        if telemetry:
+            records.append(health_record(state, cfg, tp))
+    return (state, stack_records(records)) if telemetry else state
 
 
 def _plain(cfg: SimConfig, what: str) -> None:
@@ -265,31 +284,29 @@ def run(state: SimState, cfg: SimConfig, tp: TopicParams, key: torch.Tensor,
 
 
 def run_keys(state: SimState, cfg: SimConfig, tp: TopicParams,
-             keys: torch.Tensor, telemetry: bool = False,
-             device=None) -> SimState:
+             keys: torch.Tensor, telemetry: bool = False, device=None):
     """Advance one tick per row of ``keys`` ([C, 2]): the chunkable core of
     ``run`` (engine.py:195-218). Any contiguous windows of ``run``'s own
-    keys (:func:`window_keys`) land on ``run``'s trajectory."""
+    keys (:func:`window_keys`) land on ``run``'s trajectory.
+    ``telemetry=True`` returns ``(state, HealthRecord)``."""
     check_on(state.tick.device, device)
     _plain(cfg, "run_keys")
-    if telemetry:
-        raise NotImplementedError(
-            "run_keys(telemetry=True): the health records of "
-            f"sim/telemetry.py {_later(5)}")
     return _ticks(state, cfg, tp, keys.shape[0],
-                  _rows(keys.to(state.tick.device)), False)
+                  _rows(keys.to(state.tick.device)), False, telemetry)
 
 
 def run_window(state: SimState, cfg: SimConfig, tp: TopicParams,
-               key: torch.Tensor, n_ticks: int, device=None) -> SimState:
+               key: torch.Tensor, n_ticks: int, telemetry: bool = False,
+               device=None):
     """The ``key_schedule="fold_in"`` core (engine.py:221-235): each tick's
     key is ``fold_in(key, state.tick)``, folded on the state's device, so
     any chunking of a run, or a resume from a saved tick, lands on the
-    same trajectory."""
+    same trajectory. ``telemetry=True`` returns ``(state,
+    HealthRecord)``."""
     check_on(state.tick.device, device)
     _plain(cfg, "run_window")
     return _ticks(state, cfg, tp, n_ticks,
-                  _folded(key.to(state.tick.device)), False)
+                  _folded(key.to(state.tick.device)), False, telemetry)
 
 
 def window_keys(cfg: SimConfig, key: torch.Tensor, start_tick: int,
@@ -316,16 +333,21 @@ def run_checked(state: SimState, cfg: SimConfig, tp: TopicParams,
 
 
 def run_checked_keys(state: SimState, cfg: SimConfig, tp: TopicParams,
-                     keys: torch.Tensor, device=None) -> SimState:
+                     keys: torch.Tensor, telemetry: bool = False,
+                     device=None):
     """``run_keys`` with the invariant sentinel escalated, as
-    :func:`run_checked` (engine.py:315-331)."""
+    :func:`run_checked` (engine.py:315-331); ``telemetry`` as
+    ``run_keys``'."""
     check_on(state.tick.device, device)
     return _ticks(state, cfg, tp, keys.shape[0],
-                  _rows(keys.to(state.tick.device)), True)
+                  _rows(keys.to(state.tick.device)), True, telemetry)
 
 
 def mesh_degrees(state: SimState) -> torch.Tensor:
-    """[N, T] current mesh degree."""
+    """[N, T] current mesh degree, in either storage layout: a packed mesh
+    plane counts by popcount (its pad bits are zero)."""
+    if is_compact(state):
+        return popcount(state.mesh).sum(-1).to(torch.int32)
     return state.mesh.sum(-1).to(torch.int32)
 
 
@@ -350,7 +372,9 @@ def delivery_latency_ticks(state: SimState, cfg: SimConfig) -> torch.Tensor:
     pairs in the live window (engine.py:372-391), the propagation-latency
     metric of BASELINE config #5. The publisher's own zero-latency pair is
     excluded by subtracting one pair per live message; 0 when nothing but
-    publishers delivered."""
+    publishers delivered. A compact state is decoded first."""
+    if is_compact(state):
+        state = decode_state(state, cfg)
     alive = (state.msg_publish_tick < NEVER) & \
         ((state.tick - state.msg_publish_tick) < cfg.history_length)
     dlv = (state.deliver_tick < NEVER) & alive[None, :]

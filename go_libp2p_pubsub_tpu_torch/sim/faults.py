@@ -33,10 +33,10 @@ here in int64 lanes masked to 32 bits; the host helpers (``*_host``) give
 the same choices on plain ints. Which faults fired lands in
 ``SimState.fault_flags`` (sim/invariants.py).
 
+:func:`attack_schedule` and :func:`attack_end_tick` describe a plan's
+windows on the host (the health journal's run header stamps the first).
 The host runtime's ``HostFaultInjector`` drives the reference's
-discrete-event network, which is not ported; nor are the schedule
-introspection helpers (``attack_schedule``, ``attack_end_tick``), whose
-consumers are telemetry and the sweep scripts.
+discrete-event network, which is not ported.
 """
 
 from __future__ import annotations
@@ -369,6 +369,59 @@ def as_plan(plan) -> FaultPlan | None:
         return FaultPlan.from_dict(plan)
     raise TypeError(f"fault_plan must be a FaultPlan or its dict form, got "
                     f"{type(plan).__module__}.{type(plan).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# schedule introspection (faults.py:551-601): journal headers, recovery
+# censuses
+
+
+def attack_schedule(plan) -> list:
+    """The plan's attack and workload windows as plain dicts, sorted by
+    start then kind: windowed families carry ``start``/``end``; slow-link
+    classes are permanent (``end`` None)."""
+    out: list = []
+    if plan is None:
+        return out
+    for w in plan.partitions:
+        out.append({"kind": "partition", "start": w.start, "end": w.end,
+                    "components": w.components})
+    for w in plan.outages:
+        out.append({"kind": "outage", "start": w.start, "end": w.end,
+                    "fraction": w.fraction})
+    for w in plan.eclipses:
+        out.append({"kind": "eclipse", "start": w.start, "end": w.end,
+                    "fraction": w.fraction})
+    for w in plan.censorships:
+        out.append({"kind": "censor", "start": w.start, "end": w.end,
+                    "fraction": w.fraction, "victim": w.victim})
+    for w in plan.storms:
+        out.append({"kind": "storm", "start": w.start, "end": w.end,
+                    "hot": w.hot, "skew": w.skew, "topic": w.topic})
+    for c in plan.slowlinks:
+        out.append({"kind": "slowlink", "start": 0, "end": None,
+                    "fraction": c.fraction, "period": c.period,
+                    "drop": c.drop})
+    for i, w in enumerate(plan.waves):
+        for s, e in wave_windows(w):
+            out.append({"kind": "wave", "start": s, "end": e, "wave": i,
+                        "fraction": w.fraction})
+    return sorted(out, key=lambda d: (d["start"], d["kind"]))
+
+
+def attack_end_tick(plan) -> int:
+    """The tick the plan's last window closes (0 for a plan without
+    windows): the heal tick a recovery census anchors on. Permanent
+    slow-link classes do not move it."""
+    if plan is None:
+        return 0
+    ends = [w.end for fam in (plan.partitions, plan.outages, plan.eclipses,
+                              plan.censorships, plan.storms) for w in fam]
+    for w in plan.waves:
+        wins = wave_windows(w)
+        if wins:
+            ends.append(wins[-1][1])
+    return max(ends) if ends else 0
 
 
 # ---------------------------------------------------------------------------

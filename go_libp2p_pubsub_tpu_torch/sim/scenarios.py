@@ -41,8 +41,7 @@ with ``rows=``, a shard of ``topology.sparse_hash``), ``frontier`` and
 ``frontier_250k`` ... ``frontier_10m``. Its configs ask for
 ``edge_gather_mode="sort"`` (every exchange by one sort permutation) over
 the fused hop, resolve and emit; the two XL sizes default to the compact
-state precision, which ``init_state`` refuses (ROADMAP.md, Queue 1 item
-5); under an explicit ``state_precision="f32"`` they run.
+state precision (sim/state.py) at any ``n_peers`` the caller passes.
 
 Seeds are fixed (314159, the reference's test seed).
 """

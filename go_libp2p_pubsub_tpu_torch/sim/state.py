@@ -1,16 +1,29 @@
 """Device-resident simulation state (PyTorch port of sim/state.py).
 
 One ``SimState`` holds the whole N-peer network as tensors with the field
-names, order, shapes and meaning of the reference's ``SimState`` (f32
-layout; the compact storage codecs are not ported). Dtypes follow the
-reference with one substitution: the reference's ``uint32`` planes
-(``have``, ``fault_flags``) are int32 tensors holding the same bits
-(ops/bits.py). :func:`state_from_reference` and :func:`state_to_numpy`
-carry a state across the two packages.
+names, order, shapes and meaning of the reference's ``SimState``. Dtypes
+follow the reference with two substitutions, since PyTorch's unsigned
+types beyond uint8 have few operators: the reference's ``uint32`` planes
+(``have``, ``fault_flags``, and under compact storage every packed bool
+plane) are int32 tensors holding the same bits (ops/bits.py), and its
+``uint16`` planes (compact storage's bf16 bit patterns) are int16 tensors
+holding the same bits. :func:`state_from_reference` and
+:func:`state_to_numpy` carry a state across the two packages in either
+layout.
+
+``cfg.state_precision`` picks how the state is STORED between ticks:
+``"f32"`` (the compute layout) or ``"compact"`` (``_COMPACT_CODECS``:
+bf16 counters, int16 relative ticks, bit-packed bool slot planes, int8
+slot indices). Compute always runs in the f32 layout: ``engine.step``
+decodes at entry and encodes at exit (:func:`decode_state`,
+:func:`encode_state`). :func:`state_spec`, :func:`state_nbytes` and
+:func:`check_hbm_budget` price the stored layout in the reference's
+dtypes before anything is allocated.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -18,11 +31,13 @@ import torch
 
 from ..device import resolve_device
 from .config import SimConfig
+from .hostio import fetch_local
 from .topology import Topology
 
 NEVER = 2 ** 30          # sentinel for "never" ticks (int32)
 
-# fields the reference stores as uint32 (the port: int32, same bits)
+# fields the reference stores as uint32 in either layout (the port: int32,
+# same bits)
 U32_FIELDS = frozenset({"have", "fault_flags"})
 
 
@@ -96,6 +111,368 @@ def unpack_have(state: SimState, m: int) -> torch.Tensor:
     return unpack_words(state.have.T, m)
 
 
+def have_set_bit(have: torch.Tensor, peer, slot) -> torch.Tensor:
+    """``have`` with bit ``slot`` of row ``peer`` set (trace replay's
+    single-delivery updates; ``peer`` and ``slot`` may be ints or scalar
+    tensors)."""
+    from ..ops.bits import to_i32
+    slot = torch.as_tensor(slot, dtype=torch.int64, device=have.device)
+    w = slot // 32
+    bit = to_i32(torch.ones_like(slot) << (slot % 32))
+    out = have.clone()
+    out[peer, w] = have[peer, w] | bit
+    return out
+
+
+# --- compact storage codecs (cfg.state_precision="compact") ------------
+#
+# Every SimState field names its storage codec here (state.py:167-217),
+# and _check_compact refuses a table that drifted from the fields:
+#
+#   bf16    f32 counter -> bfloat16, stored as its bit pattern (the
+#           reference: uint16; the port: int16 with the same bits).
+#           Rounding is to nearest even, as XLA's convert; a NaN encodes
+#           as the quiet NaN of its sign, as XLA's does (torch's own
+#           conversion gives other NaN bits)
+#   tick16  bounded int32 tick plane -> int16 RELATIVE to state.tick;
+#           NEVER maps to the reserved +32767, other deltas saturate at
+#           +/-32766 (gater_last_throttle's -NEVER fill saturates to
+#           "32766 ticks ago", which every quiet-period compare treats as
+#           -NEVER)
+#   packK   bool [..., K] slot plane -> 32-bit words [..., ceil(K/32)]
+#           (ops/bits.pack_bool; pad bits zero) — lossless
+#   slot8   neighbor-slot index int32 -> int8 (values in [-1, k_slots);
+#           compact refuses k_slots > 127 by name) — lossless
+#   None    stored as-is
+_COMPACT_CODECS = dict(
+    tick=None,
+    neighbors=None, connected="packK", outbound="packK",
+    reverse_slot="slot8", subscribed=None, nbr_subscribed="packK",
+    disconnect_tick="tick16", direct="packK",
+    ip_group=None, app_score=None, malicious=None,
+    mesh="packK", fanout="packK", fanout_lastpub="tick16",
+    backoff="tick16", graft_tick="tick16", mesh_active="packK",
+    first_message_deliveries="bf16", mesh_message_deliveries="bf16",
+    mesh_failure_penalty="bf16", invalid_message_deliveries="bf16",
+    behaviour_penalty="bf16",
+    gater_validate=None, gater_throttle=None,
+    gater_last_throttle="tick16",
+    gater_deliver="bf16", gater_duplicate="bf16",
+    gater_ignore="bf16", gater_reject="bf16",
+    msg_topic=None, msg_publish_tick=None, msg_invalid=None,
+    msg_ignored=None, msg_publisher=None,
+    have=None, deliver_tick="tick16", deliver_from="slot8",
+    iwant_pending=None,
+    delivered_total=None, halo_overflow=None, fault_flags=None,
+)
+
+_TICK16_NEVER = 32767     # reserved int16 encoding of the NEVER sentinel
+_TICK16_SAT = 32766       # saturation bound for live relative ticks
+_BF16_QNAN = 0x7FC0       # bf16 quiet NaN
+_BF16_NEG_QNAN = 0xFFC0 - 0x10000   # with the sign bit, as an int16
+_BUCKETED = ("degree_buckets (the bucketed layout's pricing) is not ported "
+             "yet (ROADMAP.md, Queue 1 item 8)")
+
+
+def _check_compact(cfg: SimConfig) -> None:
+    if cfg.state_precision != "compact":
+        raise ValueError(
+            f"state_precision={cfg.state_precision!r}: expected 'f32' or "
+            "'compact'")
+    if cfg.k_slots > 127:
+        raise ValueError(
+            f"state_precision='compact': the slot8 codec stores neighbor "
+            f"slots as int8, so k_slots={cfg.k_slots} > 127 is refused")
+    if set(_COMPACT_CODECS) != set(SimState._fields):
+        raise RuntimeError("_COMPACT_CODECS drifted from SimState._fields")
+
+
+def check_precision(cfg: SimConfig) -> None:
+    """Refuse an unknown ``state_precision``, and compact storage where
+    its codecs cannot hold the config (k_slots > 127), by name."""
+    if cfg.state_precision != "f32":
+        _check_compact(cfg)
+
+
+def _compact_entry(codec, shape, dtype):
+    """(shape, dtype) a codec stores the f32-layout (shape, dtype) as, in
+    the reference's dtypes."""
+    if codec == "bf16":
+        return shape, np.uint16
+    if codec == "tick16":
+        return shape, np.int16
+    if codec == "slot8":
+        return shape, np.int8
+    if codec == "packK":
+        return shape[:-1] + ((shape[-1] + 31) // 32,), np.uint32
+    return shape, dtype
+
+
+def is_compact(state: SimState) -> bool:
+    """True when ``state`` is in the compact storage layout (its mesh
+    plane packed into words)."""
+    return state.mesh.dtype != torch.bool
+
+
+def reference_dtype(state: SimState, field: str) -> np.dtype:
+    """The numpy dtype the reference stores ``field`` of ``state`` in: the
+    tensor's own, but uint32 for the port's int32 words and uint16 for its
+    int16 bf16 patterns."""
+    codec = _COMPACT_CODECS[field] if is_compact(state) else None
+    if field in U32_FIELDS or codec == "packK":
+        return np.dtype(np.uint32)
+    if codec == "bf16":
+        return np.dtype(np.uint16)
+    return torch.empty(0, dtype=getattr(state, field).dtype).numpy().dtype
+
+
+def state_spec(cfg: SimConfig) -> dict:
+    """field -> (shape, dtype, peer_major): the state AS STORED under
+    ``cfg.state_precision``, in the reference's numpy dtypes
+    (state.py:249-295): the port's int32/int16 stand-ins for uint32/uint16
+    hold the same bytes. ``peer_major`` fields lead with the N axis (a
+    peer sharding divides them); the rest replicate."""
+    n, k, t, m = cfg.n_peers, cfg.k_slots, cfg.n_topics, cfg.msg_window
+    w = n_msg_words(cfg)
+    i32, f32, b, u32 = np.int32, np.float32, np.bool_, np.uint32
+    spec = dict(
+        tick=((), i32, False),
+        neighbors=((n, k), i32, True), connected=((n, k), b, True),
+        outbound=((n, k), b, True), reverse_slot=((n, k), i32, True),
+        subscribed=((n, t), b, True), nbr_subscribed=((n, t, k), b, True),
+        disconnect_tick=((n, k), i32, True), direct=((n, k), b, True),
+        ip_group=((n,), i32, True), app_score=((n,), f32, True),
+        malicious=((n,), b, True),
+        mesh=((n, t, k), b, True), fanout=((n, t, k), b, True),
+        fanout_lastpub=((n, t), i32, True), backoff=((n, t, k), i32, True),
+        graft_tick=((n, t, k), i32, True), mesh_active=((n, t, k), b, True),
+        first_message_deliveries=((n, t, k), f32, True),
+        mesh_message_deliveries=((n, t, k), f32, True),
+        mesh_failure_penalty=((n, t, k), f32, True),
+        invalid_message_deliveries=((n, t, k), f32, True),
+        behaviour_penalty=((n, k), f32, True),
+        gater_validate=((n,), f32, True), gater_throttle=((n,), f32, True),
+        gater_last_throttle=((n,), i32, True),
+        gater_deliver=((n, k), f32, True),
+        gater_duplicate=((n, k), f32, True),
+        gater_ignore=((n, k), f32, True), gater_reject=((n, k), f32, True),
+        msg_topic=((m,), i32, False), msg_publish_tick=((m,), i32, False),
+        msg_invalid=((m,), b, False), msg_ignored=((m,), b, False),
+        msg_publisher=((m,), i32, False),
+        have=((n, w), u32, True), deliver_tick=((n, m), i32, True),
+        deliver_from=((n, m), i32, True), iwant_pending=((n, m), i32, True),
+        delivered_total=((), f32, False), halo_overflow=((), i32, False),
+        fault_flags=((), u32, False),
+    )
+    if set(spec) != set(SimState._fields):
+        raise RuntimeError("state_spec drifted from SimState._fields")
+    if cfg.state_precision == "f32":
+        return spec
+    _check_compact(cfg)
+    return {f: _compact_entry(_COMPACT_CODECS[f], shape, dtype)
+            + (peer_major,)
+            for f, (shape, dtype, peer_major) in spec.items()}
+
+
+def _encode_bf16(v: torch.Tensor, tick: torch.Tensor) -> torch.Tensor:
+    bits = v.to(torch.bfloat16).view(torch.int16)
+    qnan = torch.full_like(bits, _BF16_QNAN).masked_fill(torch.signbit(v),
+                                                         _BF16_NEG_QNAN)
+    return torch.where(torch.isnan(v), qnan, bits)
+
+
+def _encode_tick16(v: torch.Tensor, tick: torch.Tensor) -> torch.Tensor:
+    rel = (v - tick).clamp(-_TICK16_SAT, _TICK16_SAT)
+    return rel.masked_fill(v == NEVER, _TICK16_NEVER).to(torch.int16)
+
+
+def _encode_pack(v: torch.Tensor, tick: torch.Tensor) -> torch.Tensor:
+    from ..ops.bits import pack_bool
+    return pack_bool(v)
+
+
+def _encode_slot8(v: torch.Tensor, tick: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.int8)
+
+
+_ENCODE = {"bf16": _encode_bf16, "tick16": _encode_tick16,
+           "packK": _encode_pack, "slot8": _encode_slot8}
+
+
+def encode_state(state: SimState, cfg: SimConfig) -> SimState:
+    """The STORED representation of a compute-layout state
+    (state.py:298-330): identity under ``"f32"``; under ``"compact"`` the
+    codecs of ``_COMPACT_CODECS`` field by field, the tick planes relative
+    to ``state.tick``. ``engine.step`` calls it at exit."""
+    if cfg.state_precision == "f32":
+        return state
+    _check_compact(cfg)
+    if is_compact(state):
+        raise TypeError(
+            "encode_state: state is already in the compact storage "
+            f"layout (mesh dtype {state.mesh.dtype})")
+    return state._replace(**{
+        f: _ENCODE[codec](getattr(state, f), state.tick)
+        for f, codec in _COMPACT_CODECS.items() if codec is not None})
+
+
+def decode_state(state: SimState, cfg: SimConfig) -> SimState:
+    """Inverse of :func:`encode_state` (state.py:333-363): the f32/int32
+    compute layout. Identity under ``"f32"``. The tick planes decode
+    relative to ``state.tick``, so decode must see the tick the encode
+    saw (the step's decode at entry and encode at exit bracket the tick's
+    increment)."""
+    if cfg.state_precision == "f32":
+        return state
+    _check_compact(cfg)
+    if not is_compact(state):
+        raise TypeError(
+            "decode_state: state is already in the compute layout")
+    from ..ops.bits import unpack_bool
+    out = {}
+    for f, codec in _COMPACT_CODECS.items():
+        v = getattr(state, f)
+        if codec == "bf16":
+            out[f] = v.view(torch.bfloat16).to(torch.float32)
+        elif codec == "tick16":
+            e = v.to(torch.int32)
+            out[f] = (state.tick + e).masked_fill(e == _TICK16_NEVER, NEVER)
+        elif codec == "packK":
+            out[f] = unpack_bool(v, cfg.k_slots)
+        elif codec == "slot8":
+            out[f] = v.to(torch.int32)
+    return state._replace(**out)
+
+
+def per_peer_byte_ceilings(cfg: SimConfig) -> dict:
+    """field -> the most bytes per peer each peer-major plane may price
+    under ``cfg.state_precision`` (state.py:366-411): formulas written
+    apart from :func:`state_spec`, so that a layout change trips the
+    audit that walks one against the other."""
+    k, t, m = cfg.k_slots, cfg.n_topics, cfg.msg_window
+    w, kw = (m + 31) // 32, (k + 31) // 32
+    if cfg.state_precision == "compact":
+        return dict(
+            neighbors=4 * k, connected=4 * kw, outbound=4 * kw,
+            reverse_slot=k, subscribed=t, nbr_subscribed=4 * t * kw,
+            disconnect_tick=2 * k, direct=4 * kw, ip_group=4,
+            app_score=4, malicious=1,
+            mesh=4 * t * kw, fanout=4 * t * kw, fanout_lastpub=2 * t,
+            backoff=2 * t * k, graft_tick=2 * t * k,
+            mesh_active=4 * t * kw,
+            first_message_deliveries=2 * t * k,
+            mesh_message_deliveries=2 * t * k,
+            mesh_failure_penalty=2 * t * k,
+            invalid_message_deliveries=2 * t * k,
+            behaviour_penalty=2 * k,
+            gater_validate=4, gater_throttle=4, gater_last_throttle=2,
+            gater_deliver=2 * k, gater_duplicate=2 * k,
+            gater_ignore=2 * k, gater_reject=2 * k,
+            have=4 * w, deliver_tick=2 * m, deliver_from=m,
+            iwant_pending=4 * m,
+        )
+    return dict(
+        neighbors=4 * k, connected=k, outbound=k, reverse_slot=4 * k,
+        subscribed=t, nbr_subscribed=t * k, disconnect_tick=4 * k,
+        direct=k, ip_group=4, app_score=4, malicious=1,
+        mesh=t * k, fanout=t * k, fanout_lastpub=4 * t,
+        backoff=4 * t * k, graft_tick=4 * t * k, mesh_active=t * k,
+        first_message_deliveries=4 * t * k,
+        mesh_message_deliveries=4 * t * k,
+        mesh_failure_penalty=4 * t * k,
+        invalid_message_deliveries=4 * t * k,
+        behaviour_penalty=4 * k,
+        gater_validate=4, gater_throttle=4, gater_last_throttle=4,
+        gater_deliver=4 * k, gater_duplicate=4 * k, gater_ignore=4 * k,
+        gater_reject=4 * k,
+        have=4 * w, deliver_tick=4 * m, deliver_from=4 * m,
+        iwant_pending=4 * m,
+    )
+
+
+def bucketed_edge_nbytes(cfg: SimConfig, per_bucket: bool = False):
+    """The bucketed layout's edge-plane pricing (state.py:414-446)."""
+    raise NotImplementedError(f"bucketed_edge_nbytes: {_BUCKETED}")
+
+
+def state_nbytes(cfg: SimConfig, n_dev: int | dict = 1) -> dict:
+    """The state's device bytes before anything is allocated
+    (state.py:449-507): per-field bytes, the total, and the bytes per
+    shard of an ``n_dev``-way peer sharding (peer-major fields divide
+    their N axis, the rest replicate). ``n_dev`` may be a mesh dict such
+    as ``{'dcn': 2, 'peers': 4}``: the peer axis shards over every mesh
+    axis."""
+    mesh = None
+    if isinstance(n_dev, dict):
+        mesh = dict(n_dev)
+        n_dev = int(np.prod(list(mesh.values()), dtype=np.int64))
+    n = cfg.n_peers
+    if n_dev <= 0 or n % n_dev:
+        raise ValueError(
+            f"state_nbytes: n_peers={n} must divide evenly over "
+            f"n_dev={n_dev} (the peer sharding raises the same)")
+    if cfg.degree_buckets is not None:
+        raise NotImplementedError(f"state_nbytes: {_BUCKETED}")
+    fields, total, per_shard = {}, 0, 0
+    for f, (shape, dtype, peer_major) in state_spec(cfg).items():
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        fields[f] = nbytes
+        total += nbytes
+        per_shard += nbytes // n_dev if peer_major else nbytes
+    out = {"total": total, "per_shard": per_shard, "n_dev": n_dev,
+           "fields": fields}
+    if mesh is not None:
+        out["mesh"] = mesh
+    return out
+
+
+def hbm_budget_bytes() -> int | None:
+    """The ``GRAFT_HBM_BUDGET`` gate value in bytes (suffixes KiB / MiB /
+    GiB / K / M / G accepted, case-insensitive); None when unset/empty."""
+    raw = os.environ.get("GRAFT_HBM_BUDGET", "").strip()
+    if not raw:
+        return None
+    low = raw.lower()
+    mult = 1
+    for suf, m in (("kib", 2 ** 10), ("mib", 2 ** 20), ("gib", 2 ** 30),
+                   ("k", 2 ** 10), ("m", 2 ** 20), ("g", 2 ** 30)):
+        if low.endswith(suf):
+            low, mult = low[: -len(suf)], m
+            break
+    try:
+        return int(float(low) * mult)
+    except ValueError as e:
+        raise ValueError(
+            f"GRAFT_HBM_BUDGET={raw!r}: expected bytes with an optional "
+            "KiB/MiB/GiB suffix") from e
+
+
+def check_hbm_budget(cfg: SimConfig, n_dev: int | dict = 1,
+                     budget: int | None = None, what: str = "state") -> dict:
+    """Price the state (:func:`state_nbytes`) and refuse with a ValueError
+    naming the four largest planes when the bytes per shard exceed
+    ``budget`` (state.py:531-576). ``budget=None`` reads
+    ``GRAFT_HBM_BUDGET``; with no gate set the pricing is returned."""
+    acct = state_nbytes(cfg, n_dev)
+    if budget is None:
+        budget = hbm_budget_bytes()
+    if budget is None or acct["per_shard"] <= budget:
+        return acct
+    spec = state_spec(cfg)
+    shard_fields = {f: (b // acct["n_dev"] if spec[f][2] else b)
+                    for f, b in acct["fields"].items()}
+    worst = sorted(shard_fields.items(), key=lambda kv: -kv[1])[:4]
+    names = ", ".join(f"{f}={b / 2 ** 20:.1f}MiB" for f, b in worst)
+    raise ValueError(
+        f"GRAFT_HBM_BUDGET: {what} prices "
+        f"{acct['per_shard'] / 2 ** 30:.2f} GiB/shard on {acct['n_dev']} "
+        f"shards, over the {budget / 2 ** 30:.2f} GiB budget "
+        f"(n_peers={cfg.n_peers}, "
+        f"state_precision={cfg.state_precision!r}); worst fields: "
+        f"{names}. Shrink the config, raise the budget, or set "
+        "state_precision='compact'.")
+
+
 def _nbr_view(subscribed, neighbors):
     n = subscribed.shape[0]
     view = subscribed[neighbors.clamp(0, n - 1).long()].permute(0, 2, 1)
@@ -116,12 +493,10 @@ def init_state(cfg: SimConfig, topo: Topology,
                malicious: np.ndarray | None = None,
                device=None) -> SimState:
     """The initial state of ``cfg`` on ``topo``, built on ``device`` (cuda
-    unless the caller passes ``device="cpu"``)."""
-    if cfg.state_precision != "f32":
-        raise NotImplementedError(
-            f"state_precision={cfg.state_precision!r}: the port carries the "
-            "f32 layout only (the compact codecs: ROADMAP.md, Queue 1 "
-            "item 5)")
+    unless the caller passes ``device="cpu"``), in the layout
+    ``cfg.state_precision`` stores (a compact state is the encoded f32
+    one, as the reference's init)."""
+    check_precision(cfg)
     dev = resolve_device(device)
     n, k, t, m = cfg.n_peers, cfg.k_slots, cfg.n_topics, cfg.msg_window
     if subscribed is None:
@@ -142,7 +517,7 @@ def init_state(cfg: SimConfig, topo: Topology,
     i32, f32, b = torch.int32, torch.float32, torch.bool
     neighbors = host(topo.neighbors, np.int32)
     sub = host(subscribed, bool)
-    return SimState(
+    return encode_state(SimState(
         tick=full((), 0, i32),
         neighbors=neighbors,
         connected=neighbors >= 0,
@@ -185,30 +560,32 @@ def init_state(cfg: SimConfig, topo: Topology,
         delivered_total=full((), 0.0, f32),
         halo_overflow=full((), 0, i32),
         fault_flags=full((), 0, i32),
-    )
+    ), cfg)
+
+
+def field_from_reference(field: str, a, device) -> torch.Tensor:
+    """One field of a reference state (a numpy array in the reference's
+    dtype) as the port's tensor on ``device``: uint32 planes become int32
+    and uint16 planes int16 tensors with the same bits."""
+    a = np.asarray(a)
+    if field in U32_FIELDS:
+        a = a.astype(np.uint32)
+    if a.dtype in (np.uint32, np.uint16):
+        a = a.view(np.int32 if a.dtype == np.uint32 else np.int16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def state_from_reference(arrays: dict, device=None) -> SimState:
     """The reference package's ``SimState`` (as numpy arrays, one per field
-    name: ``np.asarray(getattr(st, f))``) as the port's state on
-    ``device``. uint32 planes become int32 tensors with the same bits."""
+    name: ``np.asarray(getattr(st, f))``), in either storage layout, as the
+    port's state on ``device``."""
     dev = resolve_device(device)
-    out = {}
-    for f in SimState._fields:
-        a = np.asarray(arrays[f])
-        if f in U32_FIELDS:
-            a = a.astype(np.uint32).view(np.int32)
-        out[f] = torch.from_numpy(np.array(a)).to(dev)
-    return SimState(**out)
+    return SimState(**{f: field_from_reference(f, arrays[f], dev)
+                       for f in SimState._fields})
 
 
 def state_to_numpy(state: SimState) -> dict:
-    """Field name -> numpy array in the reference's dtypes (inverse of
-    :func:`state_from_reference`)."""
-    out = {}
-    for f in SimState._fields:
-        a = getattr(state, f).detach().cpu().numpy()
-        if f in U32_FIELDS:
-            a = a.view(np.uint32)
-        out[f] = a
-    return out
+    """Field name -> numpy array in the reference's dtypes, either layout
+    (inverse of :func:`state_from_reference`)."""
+    return {f: fetch_local(getattr(state, f), reference_dtype(state, f))
+            for f in SimState._fields}

@@ -11,7 +11,12 @@ CPU, and the no-host-read guard on the port's step.
   compiled ones on the same keys, donated and plain, and two chained
   chunks equal to one eager run of both;
 - the refusals: ``ops.selection.CHECK_COUNT_BOUND`` (a host read by
-  design), ``telemetry=True`` (item 5) and ``invariant_mode="raise"``;
+  design) and ``invariant_mode="raise"``; ``telemetry=True`` is no longer
+  refused: its chunk equals the reference's ``run_keys(telemetry=True)``;
+- the telemetry lane and compact storage: donated ``engine_chunk`` and
+  ``engine_window`` executables with ``telemetry=True`` under f32 and
+  compact storage equal to the eager lanes, state and records, and the
+  compact chunk to the reference's;
 - the guard: a ``TorchDispatchMode`` that raises on any host read of a
   device value (``aten._local_scalar_dense``, ``item``, ``is_nonzero``,
   ``nonzero``, ``masked_select``) and on a tensor made from host data
@@ -19,7 +24,9 @@ CPU, and the no-host-read guard on the port's step.
   ``step`` on every path the captured chunks run: the headline at 256
   peers fused and non-fused, ``churn_50k(256)`` under ``pallas`` and
   ``mxu``, floodsub, the every-family plan with subscription churn,
-  ``frontier(512)`` and a config with P6 on; and a config with
+  ``frontier(512)`` and a config with P6 on, and around a compact
+  ``run_keys(telemetry=True)`` of the headline and of the every-family
+  plan; and a config with
   ``opportunistic_graft_ticks=3`` and unsubscribed publishers (fanout),
   whose ungated blocks take both sides of their device gates over 8
   ticks, every field equal to the reference after every tick.
@@ -42,10 +49,13 @@ from go_libp2p_pubsub_tpu.sim import TopicParams as JTopicParams
 from go_libp2p_pubsub_tpu.sim import init_state as jinit_state
 from go_libp2p_pubsub_tpu.sim import scenarios as jscenarios
 from go_libp2p_pubsub_tpu.sim import topology as jtopology
+from go_libp2p_pubsub_tpu.sim.engine import run_keys as jrun_keys
 from go_libp2p_pubsub_tpu.sim.engine import step_jit as jstep
+from go_libp2p_pubsub_tpu.sim.state import encode_state as jencode
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops import selection
 from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+from go_libp2p_pubsub_tpu_torch.sim import hostio
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
                                             build_headline, faults,
                                             run_keys, run_window, scenarios,
@@ -73,6 +83,23 @@ def _assert_equal(ref: dict, got: dict, where: str = ""):
         have = got[f]
         assert have.dtype == want.dtype, (f, have.dtype, want.dtype)
         np.testing.assert_array_equal(have, want, err_msg=f"{f} {where}")
+
+
+def _assert_records(jrec, rec, where=""):
+    """Health records equal to the reference's: exact in every column but
+    score_mean, a float32 sum in another reduction order: XLA's CPU
+    reduce-window blocks against torch's cascade sum differ by up to
+    3.1e-6 relative at 1024 terms, within the float32 summation bound
+    (rtol 1e-5)."""
+    for f in rec._fields:
+        want = np.asarray(getattr(jrec, f))
+        have = hostio.fetch_local(getattr(rec, f), want.dtype)
+        assert have.shape == want.shape, (f, have.shape, want.shape)
+        if f == "score_mean":
+            np.testing.assert_allclose(have, want, rtol=1e-5, atol=0,
+                                       err_msg=f"{f} {where}")
+        else:
+            np.testing.assert_array_equal(have, want, err_msg=f"{f} {where}")
 
 
 def _port(jcfg, jtp, jst):
@@ -196,9 +223,14 @@ def test_chained_chunks_equal_one_run(tiny, schedule):
 
 
 def test_refusals(tiny, monkeypatch):
-    _, (cfg, tp, st, keys) = tiny
-    with pytest.raises(NotImplementedError, match="item 5"):
-        compile_plan.engine_chunk(cfg, st, tp, keys, telemetry=True)
+    (jcfg, jtp, jst, jkeys), (cfg, tp, st, keys) = tiny
+    # telemetry (Queue 1 item 5) is no longer refused: the chunk's state
+    # and records equal the reference's run_keys(telemetry=True)
+    got, rec = compile_plan.engine_chunk(cfg, st, tp, keys,
+                                         telemetry=True)(st, tp, keys)
+    want, jrec = jrun_keys(jst, jcfg, jtp, jkeys, telemetry=True)
+    _assert_equal(_arrays(want), state_to_numpy(got))
+    _assert_records(jrec, rec)
     with pytest.raises(ValueError, match="raise"):
         compile_plan.engine_chunk(
             dataclasses.replace(cfg, invariant_mode="raise"), st, tp, keys)
@@ -209,6 +241,49 @@ def test_refusals(tiny, monkeypatch):
     with pytest.raises(ValueError, match="host"):
         compile_plan.engine_window(_fold(cfg), st, tp,
                                    rng.PRNGKey(0, device="cpu"), 2)
+
+
+# --- the telemetry lane and compact storage in the executables -------------
+
+def _compact(cfg, st):
+    from go_libp2p_pubsub_tpu_torch.sim import encode_state
+    cfg = dataclasses.replace(cfg, state_precision="compact")
+    return cfg, encode_state(st, cfg)
+
+
+@pytest.mark.parametrize("precision", ["f32", "compact"])
+@pytest.mark.parametrize("schedule", ["chunk", "window"])
+def test_telemetry_chunks_equal_the_eager_lane(tiny, schedule, precision):
+    """``telemetry=True`` executables, donated, on either storage layout:
+    state and records equal to the eager lane (``run_keys`` /
+    ``run_window`` with ``telemetry=True``), and a compact chunk's equal
+    to the reference's ``run_keys(telemetry=True)``."""
+    (jcfg, jtp, jst, jkeys), (cfg, tp, st, keys) = tiny
+    if precision == "compact":
+        cfg, st = _compact(cfg, st)
+    if schedule == "chunk":
+        exe = compile_plan.engine_chunk(cfg, st, tp, keys, telemetry=True,
+                                        donate=True)
+        got, rec = exe(_copy(st), tp, keys)
+        want, wrec = run_keys(st, cfg, tp, keys, telemetry=True,
+                              device="cpu")
+    else:
+        key = rng.PRNGKey(3, device="cpu")
+        exe = compile_plan.engine_window(_fold(cfg), st, tp, key, 5,
+                                         telemetry=True, donate=True)
+        got, rec = exe(_copy(st), tp, key)
+        want, wrec = run_window(st, _fold(cfg), tp, key, 5, telemetry=True,
+                                device="cpu")
+    _assert_equal(state_to_numpy(want), state_to_numpy(got))
+    for f, a, b in zip(rec._fields, wrec, rec):
+        assert a.shape[0] == 5 and torch.equal(a, b), f
+    if precision == "compact" and schedule == "chunk":
+        jcfg = dataclasses.replace(jcfg, state_precision="compact")
+        jwant, jrec = jrun_keys(jencode(jst, jcfg), jcfg, jtp, jkeys,
+                                telemetry=True)
+        _assert_equal(_arrays(jwant), state_to_numpy(got))
+        _assert_records(jrec, rec)
+        assert got.mesh.dtype == torch.int32
 
 
 # --- the no-host-read guard -------------------------------------------------
@@ -275,6 +350,19 @@ def test_step_reads_nothing_on_the_host(case):
         for i in range(ticks):
             st = step(st, cfg, tp, keys[i], device="cpu")
     assert int(st.tick) == ticks
+
+
+@pytest.mark.parametrize("case", ["headline, fused",
+                                  "every family, subscription churn"])
+def test_compact_telemetry_lane_reads_nothing_on_the_host(case):
+    """The health records and the compact codecs add no host read: a
+    compact ``run_keys(telemetry=True)`` under the guard."""
+    cfg, tp, st, ticks = _guard_case(case)
+    cfg, st = _compact(cfg, st)
+    keys = rng.split(rng.PRNGKey(0, device="cpu"), ticks)
+    with NoHostRead():
+        st, rec = run_keys(st, cfg, tp, keys, telemetry=True, device="cpu")
+    assert int(st.tick) == ticks and rec.tick.shape == (ticks,)
 
 
 def test_guard_catches_a_host_read():

@@ -5,7 +5,9 @@ sim/invariants.py) with the JAX package on the CPU.
   tick against the reference's jitted step on ``fold_in(master, tick)``;
   ``run_window`` in chunks (3 + 5, and 1 x 8) equal to one run;
 - ``window_keys`` equal to the reference's, and ``run_keys`` over its
-  slices equal to ``run``, under both schedules;
+  slices equal to ``run``, under both schedules; ``run_keys(...,
+  telemetry=True)`` over a slice equal to the reference's lane (state
+  exact, records exact but ``score_mean``, rtol 1e-5);
 - ``invariant_mode="off"`` writes no flags (the ``delivered_total = -1``
   poison of tests/test_faults.py), in the reference's state;
 - ``invariant_mode="raise"``: a clean ``run_checked`` passes in the
@@ -153,9 +155,20 @@ def test_run_keys_over_window_keys_equal_run(net, schedule):
     _assert_equal(_arrays(jengine.run(jst, jcfg, jtp, jax.random.PRNGKey(4),
                                       TICKS)), state_to_numpy(whole),
                   "engine.run")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5\)"):
-        engine.run_keys(st, cfg, tp, engine.window_keys(
-            cfg, _key(4), 0, 0, 2, TICKS), telemetry=True, device="cpu")
+    # telemetry (Queue 1 item 5): the same window with its records, equal
+    # to the reference's lane; score_mean is a float32 sum in another
+    # reduction order (3.1e-6 relative apart here; rtol 1e-5)
+    got, rec = engine.run_keys(st, cfg, tp, engine.window_keys(
+        cfg, _key(4), 0, 0, 2, TICKS), telemetry=True, device="cpu")
+    want, jrec = jengine.run_keys(jst, jcfg, jtp, jengine.window_keys(
+        jcfg, jax.random.PRNGKey(4), 0, 0, 2, TICKS), telemetry=True)
+    _assert_equal(_arrays(want), state_to_numpy(got), "telemetry")
+    for f in rec._fields:
+        a, b = np.asarray(getattr(jrec, f)), getattr(rec, f).numpy()
+        if f == "score_mean":
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(b.view(a.dtype), a, err_msg=f)
     with pytest.raises(ValueError, match="key_schedule"):
         engine.run(st, dataclasses.replace(cfg, key_schedule="bogus"), tp,
                    _key(4), 1, device="cpu")

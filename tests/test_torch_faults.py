@@ -26,16 +26,19 @@ import numpy as np
 import pytest
 import torch
 
+from __graft_entry__ import _build
 from go_libp2p_pubsub_tpu.ops.propagate import forward_tick as jforward
 from go_libp2p_pubsub_tpu.sim import faults as jfaults
 from go_libp2p_pubsub_tpu.sim import invariants as jinv
 from go_libp2p_pubsub_tpu.sim import scenarios as jscenarios
 from go_libp2p_pubsub_tpu.sim.engine import run as jrun
 from go_libp2p_pubsub_tpu.sim.engine import step_jit as jstep
+from go_libp2p_pubsub_tpu.sim.state import encode_state as jencode
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops.hopkernel import resolve_hop_mode
 from go_libp2p_pubsub_tpu_torch.ops.propagate import forward_tick
-from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams, faults,
+from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
+                                            encode_state, faults,
                                             invariants, run, scenarios,
                                             state_from_reference,
                                             state_to_numpy, step)
@@ -506,8 +509,17 @@ def test_lifted_configs_run_and_refusals_name_their_item():
         out = step(st, dataclasses.replace(cfg, **over), tp, key,
                    device="cpu")
         assert int(out.tick) == 1
-    for over, item in ((dict(state_precision="compact"), 5),
-                       (dict(degree_buckets=((64, 8),)), 8)):
+    # Queue 1 item 5: compact storage steps on an encoded state under the
+    # every-family plan, equal to the reference's compact step
+    jcfg, jtp, jst = _build(64, 8, 4, publishers=8)
+    jcfg = dataclasses.replace(jcfg, state_precision="compact",
+                               fault_plan=_plan("every family", 1))
+    ccfg = SimConfig(**dataclasses.asdict(jcfg))
+    out = step(encode_state(st, ccfg), ccfg, tp, key, device="cpu")
+    want = jstep(jencode(jst, jcfg), cfg=jcfg, tp=jtp,
+                 key=jax.random.PRNGKey(0))
+    _assert_equal(_arrays(want), state_to_numpy(out), "compact")
+    for over, item in ((dict(degree_buckets=((64, 8),)), 8),):
         with pytest.raises(NotImplementedError,
                            match=rf"Queue 1 item {item}\)"):
             step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")

@@ -14,8 +14,8 @@ package on the CPU, every field exact after every tick.
   planes by one sort permutation).
 - ``churn_50k(256)`` under ``sort`` (churn's payload exchange).
 - The headline under each ``selection_mode``.
-- ``frontier_4m``'s compact default is still refused (ROADMAP.md, Queue
-  1 item 5); at an explicit ``state_precision="f32"`` it steps."""
+- ``frontier_4m`` under its compact default steps equal to the
+  reference's; at an explicit ``state_precision="f32"`` it steps too."""
 
 import dataclasses
 
@@ -147,8 +147,12 @@ def test_selection_mode_equal(selection):
 
 
 def test_frontier_xl_compact_refused_f32_steps():
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5\)"):
-        scenarios.frontier_4m(512, device="cpu")
+    """frontier_4m builds under its compact default (Queue 1 item 5) and
+    steps equal to the reference's; at an explicit f32 it steps too."""
+    jbuilt = jscenarios.frontier_4m(512)
+    built = scenarios.frontier_4m(512, device="cpu")
+    assert built[0].state_precision == "compact"
+    _trajectory(jbuilt, built, ticks=1)
     cfg, tp, st = scenarios.frontier_4m(512, state_precision="f32",
                                         device="cpu")
     out = step(st, cfg, tp, rng.PRNGKey(0, device="cpu"), device="cpu")

@@ -12,8 +12,8 @@ scenarios.py) with the JAX package's on the CPU.
   path (the two are bit-identical in the reference).
 - The frontier family: ``frontier_spec(4096)``'s underlay and
   subscriptions equal to the reference's, whole and as ``rows=`` shards;
-  one step of ``frontier(512)`` equal to the reference's; its compact XL
-  form refused at ``init_state`` (ROADMAP.md, Queue 1 item 5)."""
+  one step of ``frontier(512)`` equal to the reference's, and of its
+  compact XL form ``frontier_4m(512)``."""
 
 import dataclasses
 
@@ -128,13 +128,18 @@ def test_frontier_spec_equal():
 
 def test_frontier_step_is_refused_naming_its_item():
     """Since Queue 1 item 3 a frontier config steps (under its ``sort``
-    exchanges), equal to the reference's jitted step; the compact XL form
-    is still refused at ``init_state``, naming item 5."""
+    exchanges), equal to the reference's jitted step; since item 5 the
+    compact XL form builds and steps too, equal to the reference's."""
     jcfg, jtp, jst = jscenarios.frontier(512)
     cfg, tp, st = scenarios.frontier(512, device="cpu")
     _assert_equal(_arrays(jst), state_to_numpy(st))
     want = jstep(jst, cfg=jcfg, tp=jtp, key=jax.random.PRNGKey(0))
     got = step(st, cfg, tp, rng.PRNGKey(0, device="cpu"), device="cpu")
     _assert_equal(_arrays(want), state_to_numpy(got), "after one tick")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5\)"):
-        scenarios.frontier_4m(512, device="cpu")
+    jcfg, jtp, jst = jscenarios.frontier_4m(512)
+    cfg, tp, st = scenarios.frontier_4m(512, device="cpu")
+    assert cfg.state_precision == "compact"
+    _assert_equal(_arrays(jst), state_to_numpy(st), "compact init")
+    want = jstep(jst, cfg=jcfg, tp=jtp, key=jax.random.PRNGKey(0))
+    got = step(st, cfg, tp, rng.PRNGKey(0, device="cpu"), device="cpu")
+    _assert_equal(_arrays(want), state_to_numpy(got), "compact tick")

@@ -24,11 +24,13 @@ from go_libp2p_pubsub_tpu.ops.heartbeat import heartbeat as jheartbeat
 from go_libp2p_pubsub_tpu.ops.propagate import forward_tick as jforward
 from go_libp2p_pubsub_tpu.ops.propagate import publish as jpublish
 from go_libp2p_pubsub_tpu.sim.engine import run as jrun
+from go_libp2p_pubsub_tpu.sim.engine import step_jit as jstep
+from go_libp2p_pubsub_tpu.sim.state import encode_state as jencode
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.ops.heartbeat import heartbeat
 from go_libp2p_pubsub_tpu_torch.ops.propagate import forward_tick, publish
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
-                                            build_headline, run,
+                                            build_headline, encode_state, run,
                                             state_from_reference,
                                             state_to_numpy)
 
@@ -243,10 +245,17 @@ def test_step_refuses_configs_outside_the_slice():
         out = step(st, dataclasses.replace(cfg, edge_gather_mode=gather), tp,
                    key, device="cpu")
         assert int(out.tick) == 1
-    for over, item in ((dict(state_precision="compact"), 5),):
-        with pytest.raises(NotImplementedError,
-                           match=rf"Queue 1 item {item}\)"):
-            step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
+    # lifted by Queue 1 item 5: compact storage steps on an encoded state,
+    # equal to the reference's compact step; an f32 state is refused
+    ccfg = dataclasses.replace(cfg, state_precision="compact")
+    with pytest.raises(TypeError, match="compute layout"):
+        step(st, ccfg, tp, key, device="cpu")
+    jcfg, jtp, jst = _build(64, 8, 4, publishers=8)
+    jcfg = dataclasses.replace(jcfg, state_precision="compact")
+    want = jstep(jencode(jst, jcfg), cfg=jcfg, tp=jtp,
+                 key=jax.random.PRNGKey(0))
+    out = step(encode_state(st, ccfg), ccfg, tp, key, device="cpu")
+    _assert_states_equal(_arrays(want), state_to_numpy(out))
 
 
 @pytest.mark.parametrize("n,k,degree,seed", [(64, 8, 4, 314159),
