@@ -153,7 +153,25 @@ Phases, each printing its own lines and its seconds:
    go_libp2p_pubsub_tpu_torch/profile_step.py --captured). The eager run's cached blocks
    are released before each capture (at 1,048,576 peers two pools would
    not fit);
-6. the ``kernels`` JSON line, then the device JSON line last.
+6. the supervised and fleet planes (sim/supervisor.py, sim/fleet.py):
+   6a the headline under ``supervised_run`` (16 ticks in chunks of 8,
+   journal and async pipeline): with no checkpoint and with one at every
+   chunk, kill and resume, a deadline overrun retried on a halved chunk
+   (the card's ladder keeps the kernels), a crash dump replayed on the
+   card, each equal to the eager ``run_keys`` in every field (and
+   journal row); 6b bench.py's fleet_256x1k (256
+   ``single_topic_1k(1024)`` members, 8 ticks of ``fleet_run``): four
+   members equal to their own ``run``, the window's executable (one
+   member's graph replayed over the members) against 256 sequential
+   ``engine_chunk`` replays, capture seconds, recorded launches, peak
+   memory; 6c eight members of mixed tick counts, one raise-mode and
+   poisoned, under ``supervised_fleet_run`` with checkpoints, each equal
+   to its own card run and the poisoned one frozen where it retired, one
+   fleet executable per window length. Runs without an
+   injected failure must report no retry and no degrade and record
+   kernels 1-4. 6b and 6c run right after phase 2, while the underlays
+   build; 6a after phase 5;
+7. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -251,6 +269,15 @@ PATH_KERNELS = {
     "compact frontier_1m": ({"hop", "iwant_resolve", "emit"},
                             {"edge_table", "gather_words",
                              "permutation_gather", "take_words"}),
+    # phase 6: the supervised and fleet planes (captured chunks, windows)
+    "supervised headline": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                            {"gather_words", "permutation_gather",
+                             "take_words"}),
+    "fleet_256x1k": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                     {"gather_words", "permutation_gather", "take_words"}),
+    "supervised fleet": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                         {"gather_words", "permutation_gather",
+                          "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -260,11 +287,23 @@ ROTATION_PROB = 0.01
 N_WIDE, M_WIDE = 4096, 288       # W = 9 packed words per message row
 N_FRONTIER = 1 << 20             # frontier_1m: 1,048,576 peers
 CAPTURE_TICKS = 8                # phase 5's chunk length C
+SUPERVISED_TICKS = 16            # phase 6a: two chunks of C
+DEADLINE_S = 5.0                 # phase 6a's watchdog; the hook sleeps past it
+FLEET_B, FLEET_N = 256, 1024     # phase 6b: bench.py's fleet_256x1k line
+# phase 6c: eight members' tick counts (compaction); member 3 raise-mode,
+# poisoned
+FLEET_TICKS = (3, 5, 8, 8, 6, 8, 8, 7)
 FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
 # the formulation cases of phase 4e, each at 1024 peers
 FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
                      "headline, sort, flood publish", "churn_50k, sort",
                      "selection iter", "selection sort")
+
+
+def host_rss():
+    """The process's resident host memory in bytes (Linux)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
 def row_sectors(idx, w):
@@ -2242,6 +2281,375 @@ class Smoke:
         compile_plan.clear_caches()
         torch.cuda.empty_cache()
 
+    # ---- phase 6: the supervised and fleet planes -----------------------
+    def differ(self, want, got):
+        """Fields of two states (or records) that are not bit-equal."""
+        torch = self.torch
+        out = []
+        for f, a, b in zip(want._fields, want, got):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                out.append(f)
+        return out
+
+    def events_ms(self, fn):
+        """Milliseconds of ``fn()`` between two CUDA events (the host's
+        enqueue included)."""
+        torch = self.torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        self.sync()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def phase_supervised(self, topo, n=N_FULL):
+        """6a: ``build_headline(n)``, ``SUPERVISED_TICKS`` ticks of
+        ``supervised_run`` in chunks of C = 8 with a health journal and the
+        async pipeline, against the eager ``run_keys`` of the same keys
+        (its state and its health records):
+
+        1. no checkpoint (one boundary, at the end, so chunk 1 runs the
+           donated graph), executables captured in the run: equal in every
+           field and journal row, no retry, no degrade, kernels 1-4 in the
+           graphs' recorded launches; again with the graphs cached (hb/s);
+        2. a checkpoint at every chunk (graphs cached): equal, hb/s, each
+           boundary's main-thread pause, and one ``checkpoint.save`` of the
+           final state timed alone;
+        3. kill and resume: ``max_chunks=1``, then a second call resumes
+           from its checkpoint and ends equal;
+        4. a hook that sleeps past ``deadline_s`` on the first attempt: one
+           retry, one degrade (the chunk halved: on the card the ladder
+           never steps off the kernels), equal, the retried chunks'
+           executable under the caller's config with kernels 1-4;
+        5. a hook that raises: a crash dump, whose replay on the card
+           (``replay_crash.replay``) is clean."""
+        import tempfile
+        from go_libp2p_pubsub_tpu_torch import replay_crash, rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline,
+                                                    checkpoint, run_keys,
+                                                    telemetry)
+        from go_libp2p_pubsub_tpu_torch.sim.supervisor import (
+            SupervisorConfig, SupervisorCrash, supervised_run)
+        dev = self.dev
+        ticks, c = SUPERVISED_TICKS, CAPTURE_TICKS
+        cfg, tp, st = build_headline(n, device=dev, topo=topo)
+        key = rng.PRNGKey(21, device=dev)
+        want, want_rec = run_keys(st, cfg, tp, rng.split(key, ticks),
+                                  telemetry=True, device=dev)
+        want_rows = telemetry.rows_to_dicts(
+            *telemetry.records_to_rows(want_rec))
+
+        def journal_rows(path):
+            return [{k: v for k, v in r.items() if k != "kind"}
+                    for r in telemetry.read_journal(path)["rows"]]
+
+        def supervised(label, fresh=False, hook=None, expect=(0, 0), **kw):
+            if fresh:
+                compile_plan.clear_caches()
+            self.sync()
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            got, rep = supervised_run(
+                st, cfg, tp, key, ticks,
+                SupervisorConfig(chunk_ticks=c, **kw), device=dev,
+                _chunk_hook=hook)
+            self.sync()
+            secs = time.perf_counter() - t0
+            if (rep.retries, rep.degrade_level) != expect:
+                raise AssertionError(
+                    f"phase 6a [{label}]: retries {rep.retries}, degrade "
+                    f"level {rep.degrade_level}, expected {expect}: "
+                    f"{rep.events}")
+            if rep.ticks_run + (rep.resumed_tick or 0) == ticks:
+                bad = self.differ(want, got)
+                if bad:
+                    raise AssertionError(f"phase 6a [{label}]: differs "
+                                         f"from the eager run in {bad}")
+            path = kw.get("health_path")
+            if path and rep.resumed_tick is None and \
+                    rep.ticks_run == ticks and journal_rows(path) != \
+                    want_rows:
+                raise AssertionError(f"phase 6a [{label}]: the journal's "
+                                     f"rows differ from the eager run's "
+                                     f"records")
+            return got, rep, secs, dict(cudalib.LAUNCHES)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # one boundary, at the end: chunk 1 runs the donated graph
+            _, rep, secs, launches = supervised(
+                "no checkpoint", fresh=True, checkpoint_every_ticks=ticks,
+                health_path=os.path.join(tmp, "j1.ndjson"))
+            print(f"phase 6a [supervised headline] launches: "
+                  f"{json.dumps(launches)}", flush=True)
+            self.check_launches("supervised headline", launches, cfg)
+            _, _, warm_s, _ = supervised(
+                "no checkpoint, cached", checkpoint_every_ticks=ticks,
+                health_path=os.path.join(tmp, "j1b.ndjson"))
+            got, rep2, ck_s, _ = supervised(
+                "checkpoint every chunk", health_path=os.path.join(
+                    tmp, "j2.ndjson"), checkpoint_dir=os.path.join(tmp, "ck"))
+            pauses = [e["pause_ms"] for e in rep2.events
+                      if e["event"] == "boundary"]
+            t0 = time.perf_counter()
+            checkpoint.save(os.path.join(tmp, "alone"), got, cfg=cfg)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(os.path.join(tmp, "alone.npz"))
+            print(f"phase 6a [supervised headline]: {n} peers, {ticks} "
+                  f"ticks in chunks of {c}, journal on, async pipeline; "
+                  f"equal to the eager run_keys in every field and journal "
+                  f"row; retries 0, degrade level 0; no checkpoint (chunk "
+                  f"1 donated), first run (the plain and the donated "
+                  f"chunk's captures included) {secs:.3f} s = "
+                  f"{ticks / secs:.3f} hb/s, graphs cached {warm_s:.3f} s "
+                  f"= {ticks / warm_s:.3f} "
+                  f"hb/s; a checkpoint at every chunk {ck_s:.3f} s = "
+                  f"{ticks / ck_s:.3f} hb/s ({len(rep2.checkpoints)} saves, "
+                  f"boundary pauses {pauses} ms on the main thread); one "
+                  f"save alone {save_s:.3f} s ({size / 2 ** 20:.1f} MiB "
+                  f".npz)", flush=True)
+
+            ck = os.path.join(tmp, "ck3")
+            _, rep, _, _ = supervised("kill", checkpoint_dir=ck, max_chunks=1)
+            if rep.ticks_run != c:
+                raise AssertionError(f"phase 6a: the bounded window ran "
+                                     f"{rep.ticks_run} ticks")
+            _, rep, _, _ = supervised("resume", checkpoint_dir=ck)
+            if rep.resumed_tick != c or rep.ticks_run != ticks - c:
+                raise AssertionError(f"phase 6a: resumed at "
+                                     f"{rep.resumed_tick}, ran "
+                                     f"{rep.ticks_run}")
+            print(f"phase 6a [kill and resume]: stopped after {c} ticks "
+                  f"(max_chunks=1), resumed from its checkpoint at tick "
+                  f"{c}, equal to the eager run", flush=True)
+
+            def slow_once(info):
+                if info["chunk_start"] == 0 and info["attempt"] == 0:
+                    time.sleep(DEADLINE_S + 1.0)
+
+            _, rep, secs, _ = supervised(
+                "deadline", hook=slow_once, expect=(1, 1),
+                deadline_s=DEADLINE_S, backoff_base_s=0.0)
+            trail = [e["event"] for e in rep.events]
+            degrades = [e for e in rep.events if e["event"] == "degrade"]
+            retried = [exe for k, exe in compile_plan._ENGINE_PLANS.items()
+                       if k[2] == c // 2]
+            if degrades != [{"event": "degrade", "chunk_ticks": c // 2}] \
+                    or not retried or any(
+                        exe.cfg != cfg or not all(
+                            exe.launches.get(k, 0) for k in PATH_KERNELS[
+                                "supervised headline"][0])
+                        for exe in retried):
+                raise AssertionError(f"phase 6a [deadline]: the retry left "
+                                     f"the kernels: {degrades}, "
+                                     f"{[e.launches for e in retried]}")
+            print(f"phase 6a [deadline]: the first attempt slept past the "
+                  f"{DEADLINE_S} s watchdog: {trail[:4]}; retried on chunks "
+                  f"of {c // 2} under the caller's config (launches "
+                  f"recorded {json.dumps(retried[0].launches)}), equal to "
+                  f"the eager run, {secs:.3f} s", flush=True)
+
+            def boom(info):
+                raise RuntimeError("injected failure")
+
+            try:
+                supervised("crash", hook=boom, max_retries=0,
+                           crash_dir=os.path.join(tmp, "crash"))
+            except SupervisorCrash as e:
+                dump = e.dump_dir
+            else:
+                raise AssertionError("phase 6a: the raising hook did not "
+                                     "crash the run")
+            res = replay_crash.replay(dump, like=st, cfg=cfg, tp=tp,
+                                      device=dev)
+            if res["tripped"] or res["fault_flags"] or res["ticks"] != c:
+                raise AssertionError(f"phase 6a: the replay of the crash "
+                                     f"dump: {res}")
+            print(f"phase 6a [crash dump]: {os.path.basename(dump)}, "
+                  f"replayed on the card: {json.dumps(res)[:300]}",
+                  flush=True)
+        compile_plan.clear_caches()
+        self.torch.cuda.empty_cache()
+
+    def phase_fleet(self, b=FLEET_B):
+        """6b: bench.py's fleet_256x1k: B ``single_topic_1k(1024)`` members
+        on one underlay, member i keyed from ``PRNGKey(i)``, C = 8 ticks
+        through ``fleet_run``; members 0, 1, B/2 - 1 and B - 1 equal to
+        their own eager ``run`` in every field; then the window's
+        executable (one member's graph of C ticks, replayed member after
+        member) against B sequential ``engine_chunk`` replays of the same
+        members, each warmed up once, then in turns (fleet, sequential,
+        sequential, fleet), CUDA events; capture seconds, the launches
+        recorded into the graph (one member's), the host memory the
+        cached graph holds, peak memory against B x ``state_nbytes``."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import (run, scenarios,
+                                                    state_nbytes)
+        from go_libp2p_pubsub_tpu_torch.sim.fleet import (FleetMember,
+                                                          fleet_run,
+                                                          stack_states)
+        dev = self.dev
+        c = CAPTURE_TICKS
+        cfg, tp, st = scenarios.single_topic_1k(FLEET_N, device=dev)
+        members = [FleetMember(cfg, tp, st, rng.PRNGKey(i, device=dev), c,
+                               f"m{i}") for i in range(b)]
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+        self.sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cudalib.reset_launches()
+        rss0 = host_rss()
+        t0 = time.perf_counter()
+        results = fleet_run(members, device=dev)
+        self.sync()
+        first_s = time.perf_counter() - t0
+        graph_rss = host_rss() - rss0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 6b [fleet_256x1k] launches (warm-up and capture): "
+              f"{json.dumps(launches)}", flush=True)
+        self.check_launches("fleet_256x1k", launches, cfg)
+        for i in sorted({0, 1, b // 2 - 1, b - 1}):
+            m = members[i]
+            bad = self.differ(run(m.state, m.cfg, m.tp, m.key, c,
+                                  device=dev), results[i].state)
+            if bad or results[i].ticks_run != c:
+                raise AssertionError(f"phase 6b: member {i} differs from "
+                                     f"its own run in {bad}")
+        states, tps = stack_states([st] * b), stack_states([tp] * b)
+        keys = torch.stack([rng.split(m.key, c) for m in members], dim=1)
+        exe, first = compile_plan.fleet_chunk(cfg, states, tps, keys)
+        one = compile_plan.engine_chunk(cfg, st, tp, keys[:, 0])
+        if first or exe.launches != one.launches or \
+                compile_plan.cache_sizes()["fleet"] != 1:
+            raise AssertionError(f"phase 6b: the window's executable: first "
+                                 f"use {first}, launches {exe.launches} "
+                                 f"against one member's {one.launches}, "
+                                 f"caches {compile_plan.cache_sizes()}")
+
+        def sequential():
+            for i in range(b):
+                one(st, tp, keys[:, i])
+
+        exe(states, tps, keys)                      # warm-up, untimed
+        sequential()
+        times = {"fleet": [], "sequential": []}
+        for what in ("fleet", "sequential", "sequential", "fleet"):
+            fn = sequential if what == "sequential" else \
+                (lambda: exe(states, tps, keys))
+            times[what].append(self.events_ms(fn))
+        hbs = {k: [b * c * 1e3 / ms for ms in v] for k, v in times.items()}
+        nbytes = b * state_nbytes(cfg)["total"]
+        print(f"phase 6b [fleet_256x1k]: B={b} members x {c} ticks at "
+              f"{cfg.n_peers} peers; members 0, 1, {b // 2 - 1}, {b - 1} "
+              f"equal to their own run; fleet_run {first_s:.3f} s (capture "
+              f"{exe.capture_s:.3f} s: one graph of one member's {c} "
+              f"ticks, replayed {b} times a window; the process's resident "
+              f"host memory {graph_rss / 2 ** 20:.1f} MiB higher with it "
+              f"cached = {graph_rss / 2 ** 20 / c:.1f} MiB a tick recorded; "
+              f"launches recorded {json.dumps(exe.launches)}, one "
+              f"member's, each replay repeating them); aggregate "
+              f"{hbs['fleet'][0]:.3f} / {hbs['fleet'][1]:.3f} hb/s "
+              f"(B x ticks / event-timed wall) against {b} sequential "
+              f"engine_chunk replays {hbs['sequential'][0]:.3f} / "
+              f"{hbs['sequential'][1]:.3f} hb/s; peak "
+              f"{peak / 2 ** 30:.3f} GiB above the start against B x "
+              f"state_nbytes {nbytes / 2 ** 30:.3f} GiB", flush=True)
+        del exe, one, results, states
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+
+    def phase_supervised_fleet(self):
+        """6c: eight ``single_topic_1k(1024)`` members with the tick counts
+        ``FLEET_TICKS`` (compaction), member 3 ``invariant_mode="raise"``
+        on a poisoned state, under ``supervised_fleet_run`` in windows of
+        4 with checkpoints and a journal: every member equal to its own
+        eager run on the card, the poisoned one retired at the end of the
+        first window and equal to that window's ticks, its siblings'
+        flags clean; no retry, no degrade, kernels 1-4 recorded; one fleet
+        executable (one graph) per window length, whatever the members
+        left."""
+        import dataclasses
+        import tempfile
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import run, run_keys, scenarios
+        from go_libp2p_pubsub_tpu_torch.sim.fleet import (
+            FleetMember, supervised_fleet_run)
+        from go_libp2p_pubsub_tpu_torch.sim.supervisor import \
+            SupervisorConfig
+        dev = self.dev
+        cfg, tp, st = scenarios.single_topic_1k(FLEET_N, device=dev)
+        rcfg = dataclasses.replace(cfg, invariant_mode="raise")
+        poisoned = st._replace(halo_overflow=torch.full(
+            (), 3, dtype=torch.int32, device=dev))
+        members = [FleetMember(rcfg if i == 3 else cfg, tp,
+                               poisoned if i == 3 else st,
+                               rng.PRNGKey(50 + i, device=dev), t, f"m{i}")
+                   for i, t in enumerate(FLEET_TICKS)]
+        compile_plan.clear_caches()
+        self.sync()
+        cudalib.reset_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            results, rep = supervised_fleet_run(
+                members, SupervisorConfig(
+                    chunk_ticks=4, checkpoint_dir=os.path.join(tmp, "ck"),
+                    health_path=os.path.join(tmp, "j.ndjson")), device=dev)
+            self.sync()
+            secs = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 6c [supervised fleet] launches: {json.dumps(launches)}",
+              flush=True)
+        self.check_launches("supervised fleet", launches, cfg)
+        if rep.retries or rep.degrade_level:
+            raise AssertionError(f"phase 6c: retries {rep.retries}, degrade "
+                                 f"level {rep.degrade_level}")
+        first = min(4, min(FLEET_TICKS))
+        for i, (m, r) in enumerate(zip(members, results)):
+            if i == 3:
+                want = run_keys(m.state, cfg, m.tp,
+                                rng.split(m.key, m.n_ticks)[:first],
+                                device=dev)
+                ok = r.tripped and r.ticks_run == first
+            else:
+                want = run(m.state, m.cfg, m.tp, m.key, m.n_ticks,
+                           device=dev)
+                ok = not r.tripped and r.ticks_run == m.n_ticks \
+                    and r.fault_flags == 0
+            bad = self.differ(want, r.state)
+            if bad or not ok:
+                raise AssertionError(f"phase 6c: member {i} ({r.ticks_run} "
+                                     f"ticks, tripped {r.tripped}) differs "
+                                     f"in {bad}")
+        windows = [(e["b_active"], e["window_ticks"]) for e in rep.events
+                   if e["event"] == "chunk_ok"]
+        cached = compile_plan.cache_sizes()
+        if cached["fleet"] != len({t for _, t in windows}):
+            raise AssertionError(f"phase 6c: {cached} executables cached "
+                                 f"for the windows {windows}")
+        print(f"phase 6c [supervised fleet]: 8 members, ticks "
+              f"{list(FLEET_TICKS)}, member 3 raise-mode and poisoned: "
+              f"retired after {first} ticks ({results[3].flag_names}), "
+              f"frozen equal to its first {first} ticks; every member equal "
+              f"to its own run; windows (members, ticks) {windows}, "
+              f"{cached['fleet']} fleet executables cached; "
+              f"{len(rep.checkpoints)} checkpoints; {secs:.3f} s",
+              flush=True)
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -2336,6 +2744,9 @@ def main() -> int:
         timed("2 (fused kernels)", smoke.phase_kernels)
         timed("2 (gather kernels)", smoke.phase_gather_kernels)
         print(LIBRARY_NOTE, flush=True)
+        # the 1024-peer fleet phases run while the underlays build
+        timed("6b (fleet_256x1k)", smoke.phase_fleet)
+        timed("6c (supervised fleet)", smoke.phase_supervised_fleet)
         timed("3 (main path)", lambda: smoke.phase_main(
             topology_of(smoke.n)))
         timed("3b (churn path)", lambda: smoke.phase_churn(
@@ -2353,6 +2764,8 @@ def main() -> int:
               lambda: smoke.phase_compact(topology_of(smoke.n),
                                           topology_of(N_FRONTIER, K, 8)))
         timed("5 (captured chunks)", smoke.phase_captured)
+        timed("6a (supervised headline)", lambda: smoke.phase_supervised(
+            topology_of(smoke.n)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):

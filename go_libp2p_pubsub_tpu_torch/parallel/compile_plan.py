@@ -1,6 +1,7 @@
-"""The engine plane's chunk executables (port of parallel/compile_plan.py:
-``engine_chunk``, ``engine_window`` and ``donated_param_count``,
-compile_plan.py:55-97 and :326-337).
+"""The chunk executables of the engine and fleet planes (port of
+parallel/compile_plan.py: ``engine_chunk``, ``engine_window``,
+``fleet_chunk`` and ``donated_param_count``, compile_plan.py:55-125 and
+:326-337).
 
 The reference AOT-compiles one chunk of its engine scan and caches the
 executable, in a donated flavour (the carried state aliases in place) and
@@ -43,12 +44,33 @@ a CPU state the executable runs the same ticks eagerly through the same
 interface. There is no fallback: a capture that fails raises, and a CUDA
 executable never replays eagerly.
 
-Not here: ``fleet_chunk`` (ROADMAP Queue 1 item 6) and the sharded plans
-(item 7). ``run``, ``run_keys`` and ``run_window`` stay eager; they are
-the yardstick the replay is held to.
+:func:`fleet_chunk` is the fleet plane's executable of one window: B
+stacked members advance C ticks under ``[C, B, 2]`` key rows
+(sim/fleet.py). On the card it owns one ``engine_chunk``-style graph of
+one member's C ticks and replays it member after member, copying each
+member's final state (and records) into its slice of the ``[B, ...]``
+result: one graph per (config, C), whatever B, so compaction to fewer
+members captures nothing new. On the CPU the same ticks run eagerly,
+member after member. The executable captures at its first call, not at
+lookup, so the fleet plane runs a first use under its compile deadline.
+
+An executable's ``calls`` counts its calls. The result of a donated CUDA
+``engine_chunk``/``engine_window`` executable is its static state, which
+its next call overwrites: a
+caller that keeps such a result stamps it with :meth:`stamp` and checks
+:func:`live` before reusing it. :func:`retire` drops an executable from
+the cache and marks every result it handed out stale (a retry after a
+watchdog deadline, whose abandoned attempt may still load or replay
+it, then captures afresh).
+
+Not here: the sharded plans (ROADMAP Queue 1 item 7). ``run``,
+``run_keys``, ``run_window`` and ``sim.fleet.fleet_run_keys`` stay eager;
+they are the yardstick the replays are held to.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -61,6 +83,8 @@ from ..sim.telemetry import HealthRecord
 WARMUP_TICKS = 2
 
 _ENGINE_PLANS: dict = {}
+_FLEET_PLANS: dict = {}
+_FLEET_SEEN: set = set()
 
 
 class EngineExecutable:
@@ -79,15 +103,26 @@ class EngineExecutable:
         self.donate = donate
         self.device = state.tick.device
         self.launches: dict = {}
+        self.calls = 0
         self.graph = None
+        self.capture_s = 0.0
         if self.device.type == "cuda":
+            t0 = time.perf_counter()
             self._capture(state, tp, keys)
+            self.capture_s = time.perf_counter() - t0
 
     @property
     def donated(self) -> int:
         """State tensors the executable consumes: every field donated, or
         none."""
         return len(SimState._fields) if self.donate else 0
+
+    def stamp(self):
+        """What :func:`live` needs to tell whether this executable's last
+        result still holds: ``(self, calls)`` when that result is the
+        graph's static state (a donated CUDA executable), else None."""
+        return (self, self.calls) if self.donate and self.graph is not None \
+            else None
 
     def _key_of(self, keys: torch.Tensor):
         return _rows(keys) if self.schedule == "engine" else _folded(keys)
@@ -143,20 +178,29 @@ class EngineExecutable:
         self._out = self._state if self.donate else out
         self.graph = graph
 
-    def __call__(self, state: SimState, tp: TopicParams,
-                 keys: torch.Tensor):
-        """The chunk's final state, and with telemetry its records."""
+    def _replay(self, state: SimState, tp: TopicParams,
+                keys: torch.Tensor):
+        """Load the inputs and replay: the graph's static state and records
+        (None without telemetry), which the next call overwrites."""
         self._check(state, keys)
-        if self.graph is None:
-            return self._ticks(state, tp, keys.to(self.device))
+        self.calls += 1
         for dst, src in ((self._keys, keys), *zip(self._tp, tp),
                          *zip(self._state, state)):
             _load(dst, src)
         self.graph.replay()
-        out = SimState(*(self._state if self.donate
-                         else (x.clone() for x in self._out)))
+        return self._out, (self._records if self.telemetry else None)
+
+    def __call__(self, state: SimState, tp: TopicParams,
+                 keys: torch.Tensor):
+        """The chunk's final state, and with telemetry its records."""
+        if self.graph is None:
+            self._check(state, keys)
+            self.calls += 1
+            return self._ticks(state, tp, keys.to(self.device))
+        out, records = self._replay(state, tp, keys)
+        out = SimState(*(out if self.donate else (x.clone() for x in out)))
         if self.telemetry:
-            return out, HealthRecord(*(x.clone() for x in self._records))
+            return out, HealthRecord(*(x.clone() for x in records))
         return out
 
 
@@ -229,12 +273,166 @@ def engine_window(exec_cfg: SimConfig, state: SimState, tp: TopicParams,
                  donate)
 
 
-def donated_param_count(exe: EngineExecutable) -> int:
+class FleetExecutable:
+    """One fleet window: B stacked members advance C ticks, member i under
+    the key rows ``keys[:, i]``, for any B. On the card, one graph of one
+    member's C ticks (``member_exe``, an :class:`EngineExecutable` of its
+    own, captured at the first call) replayed member after member, each
+    member's final state and records copied into slice i of the result.
+    On the CPU, the eager ticks member after member. ``launches`` holds
+    one member's recorded kernel launches (every member's replay repeats
+    them), ``capture_s`` the capture's seconds."""
+
+    donated = 0                 # the fleet never donates (fleet.py)
+
+    def __init__(self, cfg: SimConfig, n_ticks: int, telemetry: bool,
+                 device: torch.device):
+        self.cfg = cfg
+        self.n_ticks = n_ticks
+        self.telemetry = telemetry
+        self.device = device
+        self.calls = 0
+        self.member_exe: EngineExecutable | None = None
+
+    @property
+    def launches(self) -> dict:
+        return dict(self.member_exe.launches) if self.member_exe else {}
+
+    @property
+    def capture_s(self) -> float:
+        return self.member_exe.capture_s if self.member_exe else 0.0
+
+    def _check(self, states: SimState, keys: torch.Tensor) -> None:
+        if states.tick.device != self.device:
+            raise ValueError(f"the executable was built for {self.device}; "
+                             f"the states lie on {states.tick.device}")
+        want = (self.n_ticks, int(states.tick.shape[0]), 2)
+        if tuple(keys.shape) != want:
+            raise ValueError(f"keys of shape {tuple(keys.shape)} for "
+                             f"{want[1]} members; this executable takes "
+                             f"{want}")
+
+    def _member(self, states: SimState, tps: TopicParams,
+                keys: torch.Tensor, i: int):
+        """Member ``i``'s ticks, eagerly, from a clone of its slice."""
+        st = SimState(*(x[i].clone() for x in states))
+        tp = TopicParams(*(x[i].clone() for x in tps))
+        return _ticks(st, self.cfg, tp, self.n_ticks,
+                      lambda t, s: keys[t, i], False, self.telemetry)
+
+    def _eager(self, states: SimState, tps: TopicParams,
+               keys: torch.Tensor):
+        outs, recs = [], []
+        for i in range(int(states.tick.shape[0])):
+            out = self._member(states, tps, keys, i)
+            if self.telemetry:
+                out, rec = out
+                recs.append(rec)
+            outs.append(out)
+        out = SimState(*(torch.stack(xs) for xs in zip(*outs)))
+        if self.telemetry:
+            return out, HealthRecord(*(torch.stack(xs, dim=1)
+                                       for xs in zip(*recs)))
+        return out
+
+    def __call__(self, states: SimState, tps: TopicParams,
+                 keys: torch.Tensor):
+        """The members' final states (``[B, ...]``, new tensors), and with
+        telemetry their ``[C, B]`` records."""
+        self._check(states, keys)
+        self.calls += 1
+        keys = keys.to(self.device)
+        tps = TopicParams(*(x.to(self.device) for x in tps))
+        if self.device.type != "cuda":
+            return self._eager(states, tps, keys)
+        b = int(states.tick.shape[0])
+        out = SimState(*(torch.empty_like(x) for x in states))
+        records = None
+        for i in range(b):
+            st = SimState(*(x[i] for x in states))
+            tp = TopicParams(*(x[i] for x in tps))
+            if self.member_exe is None:
+                self.member_exe = EngineExecutable(
+                    "engine", self.cfg, st, tp, keys[:, i], self.n_ticks,
+                    self.telemetry, False)
+            res, rec = self.member_exe._replay(st, tp, keys[:, i])
+            for dst, src in zip(out, res):
+                dst[i].copy_(src)
+            if rec is not None:
+                if records is None:
+                    records = HealthRecord(*(
+                        torch.empty((self.n_ticks, b, *x.shape[1:]),
+                                    dtype=x.dtype, device=self.device)
+                        for x in rec))
+                for dst, src in zip(records, rec):
+                    dst[:, i].copy_(src)
+        return (out, records) if self.telemetry else out
+
+
+def fleet_chunk(exec_cfg: SimConfig, states: SimState, tps: TopicParams,
+                keys: torch.Tensor, *, telemetry: bool = False,
+                mark: bool = True):
+    """The executable of one fleet window and whether this (config, C, key
+    dtype, telemetry, device) is a first use (compile_plan.py:104-125,
+    whose cache also keys on B; here one executable serves any B): call
+    it as ``exe(states, tps, keys)`` on ``[B, ...]`` states and topic
+    parameters and ``[C, B, 2]`` keys. A first use captures (the port's
+    compile), so the fleet plane runs it under its compile deadline.
+    ``mark=False`` only queries: the fleet plane marks a shape on
+    confirmation, so a window that dies in its capture keeps the compile
+    deadline on its retry."""
+    _plain(exec_cfg, "fleet_chunk")
+    if selection.CHECK_COUNT_BOUND:
+        raise ValueError(
+            "fleet_chunk under ops.selection.CHECK_COUNT_BOUND: the "
+            "debugging check reads every iterative selection's counts on "
+            "the host, which a captured window cannot do")
+    check_slice(exec_cfg)
+    cache_key = ("fleet", exec_cfg, int(keys.shape[0]), str(keys.dtype),
+                 telemetry, str(states.tick.device))
+    exe = _FLEET_PLANS.get(cache_key)
+    if exe is None:
+        exe = FleetExecutable(exec_cfg, int(keys.shape[0]), telemetry,
+                              states.tick.device)
+        _FLEET_PLANS[cache_key] = exe
+    first_use = cache_key not in _FLEET_SEEN
+    if mark:
+        _FLEET_SEEN.add(cache_key)
+    return exe, first_use
+
+
+def donated_param_count(exe) -> int:
     """How many state tensors ``exe`` consumes: every field of the state
     for a donated executable, 0 for a plain one (the donation audit)."""
     return exe.donated
 
 
+def live(stamp) -> bool:
+    """Whether a result stamped with ``exe.stamp()`` still holds: no stamp
+    (the result owns its tensors), or no call of its executable since."""
+    return stamp is None or stamp[0].calls == stamp[1]
+
+
+def retire(exe) -> None:
+    """Drop ``exe`` from the caches and mark every result it handed out
+    stale, so the next request of its shape builds a new executable with
+    buffers of its own (a fleet executable's member graph is its own, and
+    goes with it)."""
+    exe.calls += 1
+    for cache in (_ENGINE_PLANS, _FLEET_PLANS):
+        for key in [k for k, v in cache.items() if v is exe]:
+            del cache[key]
+            _FLEET_SEEN.discard(key)
+
+
+def cache_sizes() -> dict:
+    """How many executables each cache holds (each holds its graph and
+    static buffers until :func:`retire` or :func:`clear_caches`)."""
+    return {"engine": len(_ENGINE_PLANS), "fleet": len(_FLEET_PLANS)}
+
+
 def clear_caches() -> None:
     """Drop every cached executable (its graph and static buffers)."""
     _ENGINE_PLANS.clear()
+    _FLEET_PLANS.clear()
+    _FLEET_SEEN.clear()

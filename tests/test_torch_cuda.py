@@ -691,3 +691,130 @@ def test_captured_chunks_equal_eager(case, schedule, donate):
             np.testing.assert_array_equal(a, before[f], err_msg=f)
     finally:
         compile_plan.clear_caches()
+
+
+# --- the supervised and fleet planes (sim/supervisor.py, sim/fleet.py) -----
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_captured_fleet_window_equals_members_eager_runs(b):
+    """A captured ``fleet_chunk`` window of B members x 4 ticks, replayed
+    twice (the second fed the first's result), equals each member's eager
+    8-tick ``run_keys`` on its own key rows; one graph of one member's
+    ticks serves every B (a window of B - 1 members reuses it), and it
+    records one member's kernel launches."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (run_keys, scenarios,
+                                                state_to_numpy, topology)
+    from go_libp2p_pubsub_tpu_torch.sim.fleet import (member_state,
+                                                      stack_states)
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = scenarios.single_topic_1k(512, device="cuda", topo=topo)
+    keys = torch.stack([rng.split(rng.PRNGKey(i, device="cuda"), 8)
+                        for i in range(b)], dim=1)
+    states, tps = stack_states([st] * b), stack_states([tp] * b)
+    try:
+        exe, _ = compile_plan.fleet_chunk(cfg, states, tps, keys[:4])
+        got = exe(exe(states, tps, keys[:4]), tps, keys[4:])
+        graph = exe.member_exe
+        one = compile_plan.engine_chunk(cfg, st, tp, keys[:4, 0])
+        assert graph is not None and exe.launches == one.launches
+        for i in range(b):
+            want = state_to_numpy(run_keys(st, cfg, tp, keys[:, i],
+                                           device="cuda"))
+            have = state_to_numpy(member_state(got, i))
+            for f, a in want.items():
+                np.testing.assert_array_equal(have[f], a, err_msg=f"{i} {f}")
+        if b > 1:
+            fewer, first = compile_plan.fleet_chunk(
+                cfg, stack_states([st] * (b - 1)),
+                stack_states([tp] * (b - 1)), keys[:4, 1:])
+            assert fewer is exe and not first
+            last = fewer(stack_states([st] * (b - 1)),
+                         stack_states([tp] * (b - 1)), keys[:4, 1:])
+            assert exe.member_exe is graph
+            want = state_to_numpy(run_keys(st, cfg, tp, keys[:4, b - 1],
+                                           device="cuda"))
+            have = state_to_numpy(member_state(last, b - 2))
+            for f, a in want.items():
+                np.testing.assert_array_equal(have[f], a, err_msg=f)
+    finally:
+        compile_plan.clear_caches()
+
+
+def test_supervised_run_on_the_card_equals_run(tmp_path):
+    """A supervised run with checkpoints and the health journal, through
+    captured chunks (a donated one among them), equals ``run``, with no
+    retry and no degrade, and its chunks launched the path's kernels."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (build_headline, run,
+                                                scenarios, state_to_numpy,
+                                                topology)
+    from go_libp2p_pubsub_tpu_torch.sim.supervisor import (SupervisorConfig,
+                                                           supervised_run)
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = build_headline(512, device="cuda", topo=topo)
+    key = rng.PRNGKey(3, device="cuda")
+    want = state_to_numpy(run(st, cfg, tp, key, 10, device="cuda"))
+    # a checkpoint every 8 ticks: chunk [4, 8) runs the donated graph
+    sup = SupervisorConfig(chunk_ticks=4, checkpoint_every_ticks=8,
+                           checkpoint_dir=str(tmp_path / "ck"),
+                           health_path=str(tmp_path / "h.ndjson"))
+    compile_plan.clear_caches()
+    cudalib.reset_launches()
+    try:
+        got, rep = supervised_run(st, cfg, tp, key, 10, sup, device="cuda")
+    finally:
+        compile_plan.clear_caches()
+    assert rep.retries == 0 and rep.degrade_level == 0
+    assert rep.chunks_run == 3 and len(rep.checkpoints) == 2
+    for k in ("edge_table", "hop", "iwant_resolve", "emit"):
+        assert cudalib.LAUNCHES[k] > 0, k
+    have = state_to_numpy(got)
+    for f, a in want.items():
+        np.testing.assert_array_equal(have[f], a, err_msg=f)
+
+
+def test_supervised_retry_on_the_card_keeps_the_kernels():
+    """A transient failure on the card halves the chunk and never steps to
+    the conservative formulations: the retried run still launches
+    kernels 1-4 and equals ``run``."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (build_headline, run,
+                                                scenarios, state_to_numpy,
+                                                topology)
+    from go_libp2p_pubsub_tpu_torch.sim.supervisor import (SupervisorConfig,
+                                                           supervised_run)
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = build_headline(512, device="cuda", topo=topo)
+    key = rng.PRNGKey(4, device="cuda")
+    want = state_to_numpy(run(st, cfg, tp, key, 8, device="cuda"))
+    fails = iter([True])
+
+    def flaky(info):
+        if next(fails, False):
+            raise RuntimeError("transient")
+
+    compile_plan.clear_caches()
+    try:
+        got, rep = supervised_run(
+            st, cfg, tp, key, 8, SupervisorConfig(
+                chunk_ticks=4, backoff_base_s=0.0, sleep=lambda s: None),
+            device="cuda", _chunk_hook=flaky)
+        # the retried chunks' executable: the caller's config, C = 2
+        retried = [exe for k, exe in compile_plan._ENGINE_PLANS.items()
+                   if k[2] == 2]
+    finally:
+        compile_plan.clear_caches()
+    assert rep.retries == 1 and rep.degrade_level == 1
+    assert [e for e in rep.events if e["event"] == "degrade"] == \
+        [{"event": "degrade", "chunk_ticks": 2}]
+    assert retried and all(exe.cfg == cfg for exe in retried)
+    for k in ("edge_table", "hop", "iwant_resolve", "emit"):
+        assert all(exe.launches.get(k, 0) > 0 for exe in retried), k
+    have = state_to_numpy(got)
+    for f, a in want.items():
+        np.testing.assert_array_equal(have[f], a, err_msg=f)

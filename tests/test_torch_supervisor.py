@@ -1,0 +1,651 @@
+"""The port's supervised execution plane (go_libp2p_pubsub_tpu_torch/sim/
+supervisor.py and replay_crash.py) against the JAX package's on the CPU.
+
+The reference tests' tiny config (tests/test_supervisor.py:41-51: 64 peers,
+K = 8, a 32-message window, scoring on) and its 13-tick run from one
+master key: the reference's ``engine.run`` is the yardstick, and the
+port's eager ``run`` equals it in every field (checked once, in the
+module fixture). Then, as tests/test_supervisor.py holds the reference:
+
+- chunked supervised runs (chunks of 5 and of 1, the async pipeline and
+  the synchronous one, both key schedules) equal the single run;
+- kill and resume, a window bounded by ``max_chunks`` and its resume, a
+  foreign config's checkpoint skipped, a torn checkpoint fallen back past;
+- the watchdog's deadline, backoff and degrade, still equal; the mode
+  rung first on the CPU, and skipped by the card's ladder; an unknown
+  mode degrading instead of dead-ending; the backoff schedule;
+  ``initial_degrade``;
+- crash dumps: retries exhausted, an invariant trip never retried, the
+  port's replay of a clean and of a tripped dump, sinks hard-flushed;
+- every hook of an unported plane refused, naming its ROADMAP item;
+- the health journal's rows equal the reference's (``score_mean`` to rtol
+  1e-5, the one column not exact, sim/telemetry.py; every other column
+  exact);
+- across the packages: a reference run stopped by ``max_chunks`` resumes
+  in the port from its checkpoint directory and ends equal to the
+  reference's uninterrupted run; a reference crash dump replays in the
+  port, and a port crash dump in the reference. The reference writes
+  ``.npz`` checkpoints here (its orbax form needs JAX to read).
+
+Integer, bool and packed planes are exact; float32 planes bit-equal."""
+
+import dataclasses
+import json
+import os
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from go_libp2p_pubsub_tpu.sim import SimConfig as JConfig
+from go_libp2p_pubsub_tpu.sim import TopicParams as JTopicParams
+from go_libp2p_pubsub_tpu.sim import checkpoint as jckpt
+from go_libp2p_pubsub_tpu.sim import init_state as jinit_state
+from go_libp2p_pubsub_tpu.sim import topology as jtopology
+from go_libp2p_pubsub_tpu.sim import supervisor as jsupervisor
+from go_libp2p_pubsub_tpu.sim.engine import run as jrun
+from go_libp2p_pubsub_tpu_torch import replay_crash, rng
+from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
+                                            checkpoint, engine,
+                                            state_from_reference,
+                                            state_to_numpy, telemetry)
+from go_libp2p_pubsub_tpu_torch.sim.supervisor import (
+    ChunkDeadline, SupervisorConfig, SupervisorCrash, SupervisorReport,
+    _degrade, list_checkpoints, supervised_run)
+
+N_TICKS = 13
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU kernels on one thread while this module runs (the
+    suite runs in several worker processes; see
+    tests/test_torch_engine_modes.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _arrays(st):
+    return {f: np.asarray(getattr(st, f)) for f in st._fields}
+
+
+def _assert_equal(want: dict, got, where: str = ""):
+    """Every field of the port's ``got`` equal to the reference arrays
+    ``want`` (dtype included)."""
+    got = state_to_numpy(got)
+    for f, a in want.items():
+        assert got[f].dtype == a.dtype, (f, got[f].dtype, a.dtype, where)
+        np.testing.assert_array_equal(got[f], a, err_msg=f"{f} {where}")
+
+
+@pytest.fixture(scope="module")
+def plain():
+    """The tiny config on both sides, and the reference's uninterrupted
+    13-tick run (one JAX compile for the module)."""
+    jcfg = JConfig(n_peers=64, k_slots=8, n_topics=1, msg_window=32,
+                   publishers_per_tick=2, prop_substeps=4,
+                   scoring_enabled=True)
+    jtp = JTopicParams.disabled(1)
+    jst = jinit_state(jcfg, jtopology.sparse(64, 8, degree=3))
+    jkey = jax.random.PRNGKey(42)
+    want = _arrays(jrun(jst, jcfg, jtp, jkey, N_TICKS))
+    cfg = SimConfig(**dataclasses.asdict(jcfg))
+    tp = TopicParams(*[torch.from_numpy(np.array(x)) for x in jtp])
+    st = state_from_reference(_arrays(jst), device="cpu")
+    key = rng.PRNGKey(42, device="cpu")
+    _assert_equal(want, engine.run(st, cfg, tp, key, N_TICKS, device="cpu"),
+                  "eager run")
+    return (jcfg, jtp, jst, jkey), (cfg, tp, st, key), want
+
+
+def _sup(**kw):
+    kw.setdefault("chunk_ticks", 5)
+    kw.setdefault("backoff_base_s", 0.0)
+    kw.setdefault("sleep", lambda s: None)
+    return SupervisorConfig(**kw)
+
+
+def _run(port, n=N_TICKS, sup=None, **kw):
+    cfg, tp, st, key = port
+    return supervised_run(st, cfg, tp, key, n, sup or _sup(), device="cpu",
+                          **kw)
+
+
+def _kill_at(tick):
+    def kill(info):
+        if info["chunk_start"] >= tick:
+            raise KeyboardInterrupt("simulated preemption")
+    return kill
+
+
+# --- chunked parity ---------------------------------------------------------
+
+@pytest.mark.parametrize("async_chunks", [True, False])
+def test_chunked_equals_single_scan(plain, async_chunks):
+    _, port, want = plain
+    out, rep = _run(port, sup=_sup(async_chunks=async_chunks))
+    _assert_equal(want, out)
+    assert rep.chunks_run == 3 and rep.ticks_run == N_TICKS
+    assert rep.retries == 0 and rep.degrade_level == 0
+
+
+def test_chunk_size_one(plain):
+    _, port, want = plain
+    out, rep = _run(port, sup=_sup(chunk_ticks=1))
+    _assert_equal(want, out)
+    assert rep.chunks_run == N_TICKS
+
+
+def test_fold_in_schedule_chunks_equal_run_window(plain):
+    """Under ``key_schedule="fold_in"`` the chunks dispatch through
+    ``engine_window`` and land on the single ``run``'s trajectory."""
+    _, (cfg, tp, st, key), _ = plain
+    fcfg = dataclasses.replace(cfg, key_schedule="fold_in")
+    ref = engine.run(st, fcfg, tp, key, N_TICKS, device="cpu")
+    out, _ = _run((fcfg, tp, st, key), sup=_sup(chunk_ticks=4))
+    _assert_equal(state_to_numpy(ref), out)
+
+
+def test_the_input_state_is_left_as_it_was(plain):
+    _, (cfg, tp, st, key), _ = plain
+    before = state_to_numpy(st)
+    _run((cfg, tp, st, key))
+    _assert_equal(before, st)
+
+
+# --- kill, resume, windows ----------------------------------------------------
+
+def test_kill_and_resume_bit_identical(plain, tmp_path):
+    _, port, want = plain
+    ck = str(tmp_path / "ck")
+    with pytest.raises(KeyboardInterrupt):
+        _run(port, sup=_sup(checkpoint_dir=ck), _chunk_hook=_kill_at(10))
+    out, rep = _run(port, sup=_sup(checkpoint_dir=ck))
+    assert rep.resumed_tick == 10
+    assert rep.ticks_run == 3          # only the missing window re-ran
+    _assert_equal(want, out)
+
+
+def test_max_chunks_window_then_resume(plain, tmp_path):
+    """A window of two chunks stops cleanly with a checkpoint; the same
+    (key, n_ticks) resumed finishes equal to the single run."""
+    _, port, want = plain
+    ck = str(tmp_path / "ck")
+    mid, rep = _run(port, sup=_sup(checkpoint_dir=ck, max_chunks=2))
+    assert rep.ticks_run == 10 and int(mid.tick) == 10
+    assert [e for e in rep.events if e["event"] == "window_end"]
+    assert [t for _, t in list_checkpoints(ck)] == [5, 10]
+    out, rep = _run(port, sup=_sup(checkpoint_dir=ck))
+    assert rep.resumed_tick == 10 and rep.ticks_run == 3
+    _assert_equal(want, out)
+
+
+def test_resume_ignores_foreign_config_checkpoint(plain, tmp_path):
+    _, (cfg, tp, st, key), want = plain
+    ck = str(tmp_path / "ck")
+    os.makedirs(ck)
+    other = dataclasses.replace(cfg, publishers_per_tick=3)
+    mid = engine.run(st, other, tp, key, 5, device="cpu")
+    checkpoint.save(os.path.join(ck, "ckpt_t000000005"), mid, cfg=other)
+    out, rep = _run((cfg, tp, st, key), sup=_sup(checkpoint_dir=ck))
+    assert rep.resumed_from is None
+    assert any(e["event"] == "resume_skip" for e in rep.events)
+    _assert_equal(want, out)
+
+
+def test_falls_back_past_torn_checkpoint(plain, tmp_path):
+    _, port, want = plain
+    ck = str(tmp_path / "ck")
+    with pytest.raises(KeyboardInterrupt):
+        _run(port, sup=_sup(checkpoint_dir=ck), _chunk_hook=_kill_at(10))
+    newest = os.path.join(ck, "ckpt_t000000010.npz")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    out, rep = _run(port, sup=_sup(checkpoint_dir=ck))
+    assert rep.resumed_tick == 5, rep.events
+    assert any(e["event"] == "resume_skip" for e in rep.events)
+    _assert_equal(want, out)
+
+
+def test_checkpoints_pruned_to_the_newest(plain, tmp_path):
+    _, port, _ = plain
+    ck = str(tmp_path / "ck")
+    _, rep = _run(port, sup=_sup(checkpoint_dir=ck, chunk_ticks=3,
+                                 keep_checkpoints=2))
+    assert len(rep.checkpoints) == 5
+    assert [t for _, t in list_checkpoints(ck)] == [12, 13]
+    assert not [f for f in os.listdir(ck) if ".tmp" in f]
+
+
+# --- watchdog and ladder ------------------------------------------------------
+
+def test_deadline_trip_backoff_degrade_then_parity(plain):
+    _, port, want = plain
+    delays = []
+
+    def slow_once(info):
+        if info["chunk_start"] == 0 and info["attempt"] == 0:
+            time.sleep(2.5)
+
+    # the watchdog stands at ten times a chunk's time on one idle core, so
+    # that only the hook's sleep overruns it when other processes share
+    # the cores
+    out, rep = _run(port, sup=_sup(deadline_s=1.5, sleep=delays.append,
+                                   backoff_base_s=0.25),
+                    _chunk_hook=slow_once)
+    assert rep.retries == 1
+    assert delays == [0.25]
+    assert [e["event"] for e in rep.events][:3] == \
+        ["chunk_failed", "degrade", "backoff"]
+    assert rep.events[0]["kind"] == "deadline"
+    _assert_equal(want, out)
+
+
+def test_mode_fallback_rung_first(plain):
+    _, (cfg, tp, st, key), _ = plain
+    mcfg = dataclasses.replace(cfg, edge_gather_mode="sort")
+    ref = engine.run(st, mcfg, tp, key, N_TICKS, device="cpu")
+    fails = iter([True, False])
+
+    def flaky(info):
+        if next(fails, False):
+            raise RuntimeError("transient")
+
+    out, rep = _run((mcfg, tp, st, key), _chunk_hook=flaky)
+    deg = [e for e in rep.events if e["event"] == "degrade"]
+    assert deg and deg[0].get("edge_gather_mode") == "scalar"
+    assert rep.degrade_level == 1
+    _assert_equal(state_to_numpy(ref), out)
+
+
+def test_card_ladder_skips_the_mode_rung(plain):
+    """On the card (``modes=False``) a retry never steps to the
+    conservative formulations, which route around the hand kernels: the
+    first rung halves the chunk, and at the floor the ladder is spent."""
+    _, (cfg, tp, st, key), _ = plain
+    sup, rep = _sup(chunk_ticks=4, min_chunk_ticks=2), SupervisorReport()
+    got = _degrade(cfg, 4, sup, rep, modes=False)
+    assert got == (cfg, 2) and rep.degrade_level == 1
+    assert _degrade(cfg, 2, sup, rep, modes=False) == (cfg, 2)
+    assert rep.events == [{"event": "degrade", "chunk_ticks": 2}]
+    # the CPU's ladder (and initial_degrade anywhere) takes the mode rung
+    cons, ticks = _degrade(cfg, 4, sup, SupervisorReport(), modes=True)
+    assert ticks == 4 and (cons.hop_mode, cons.edge_gather_mode,
+                           cons.selection_mode) == ("xla", "scalar", "sort")
+
+
+def test_unknown_mode_degrades_instead_of_deadending(plain):
+    _, (cfg, tp, st, key), want = plain
+    bogus = dataclasses.replace(cfg, hop_mode="blocked-onehot-v2")
+    out, rep = _run((bogus, tp, st, key))
+    deg = [e for e in rep.events if e["event"] == "degrade"]
+    assert deg and deg[0] == {"event": "degrade", "hop_mode": "xla",
+                              "edge_gather_mode": "scalar",
+                              "selection_mode": "sort"}
+    _assert_equal(want, out)
+
+
+def test_backoff_schedule_is_exponential_and_capped(plain):
+    _, port, _ = plain
+    delays = []
+    fails = iter([True, True, True])
+
+    def flaky(info):
+        if next(fails, False):
+            raise RuntimeError("transient")
+
+    _run(port, sup=_sup(backoff_base_s=1.0, backoff_factor=2.0,
+                        backoff_cap_s=3.0, sleep=delays.append,
+                        max_retries=4), _chunk_hook=flaky)
+    assert delays == [1.0, 2.0, 3.0]        # 4.0 capped to 3.0
+
+
+def test_initial_degrade_walks_the_ladder_before_the_first_chunk(plain):
+    _, port, want = plain
+    out, rep = _run(port, sup=_sup(initial_degrade=2))
+    assert rep.degrade_level == 2 and rep.retries == 0
+    assert [e.get("chunk_ticks") for e in rep.events
+            if e["event"] == "degrade"] == [None, 2]
+    assert rep.chunks_run == 7
+    _assert_equal(want, out)
+
+
+def test_supervisor_config_from_env(monkeypatch):
+    for k, v in {"GRAFT_CHUNK_TICKS": "7", "GRAFT_DEADLINE_S": "2.5",
+                 "GRAFT_ASYNC_CHUNKS": "off", "GRAFT_WRITER_QUEUE": "9",
+                 "GRAFT_MH_RUNG": "1", "GRAFT_CRASH_DIR": "/x",
+                 "GRAFT_VERDICT_POLICY": "abort"}.items():
+        monkeypatch.setenv(k, v)
+    sup = SupervisorConfig.from_env(keep_checkpoints=5)
+    assert (sup.chunk_ticks, sup.deadline_s, sup.async_chunks,
+            sup.writer_queue, sup.initial_degrade, sup.crash_dir,
+            sup.verdict_policy, sup.keep_checkpoints) == \
+        (7, 2.5, False, 9, 1, "/x", "abort", 5)
+    assert [f.name for f in dataclasses.fields(SupervisorConfig)] == \
+        [f.name for f in dataclasses.fields(jsupervisor.SupervisorConfig)]
+
+
+# --- crash dumps and replay ---------------------------------------------------
+
+def _boom(info):
+    raise RuntimeError("permanent failure")
+
+
+def test_retries_exhausted_dumps_and_raises(plain, tmp_path):
+    _, (cfg, tp, st, key), _ = plain
+    with pytest.raises(SupervisorCrash) as ei:
+        _run((cfg, tp, st, key), sup=_sup(max_retries=2,
+                                          crash_dir=str(tmp_path)),
+             _chunk_hook=_boom)
+    dump = ei.value.dump_dir
+    meta = json.load(open(os.path.join(dump, "crash.json")))
+    assert meta["error_type"] == "RuntimeError" and meta["tick_start"] == 0
+    assert meta["config_fingerprint"] == checkpoint.config_fingerprint(cfg)
+    # the failing window's keys, replay-ready: the third attempt ran the
+    # ladder's halved chunk of 2 ticks
+    keys = np.asarray(meta["window_key_data"], dtype=np.uint32)
+    assert meta["tick_end"] == 2
+    np.testing.assert_array_equal(
+        keys, rng.split(key, N_TICKS)[:2].numpy().astype(np.uint32))
+    back = checkpoint.restore(os.path.join(dump, "last_good"), st, cfg=cfg)
+    assert int(back.tick) == 0
+    assert ei.value.report.retries == 2
+
+
+def _poisoned(st):
+    return st._replace(halo_overflow=torch.tensor(3, dtype=torch.int32))
+
+
+def test_invariant_trip_is_unrecoverable_no_retry(plain, tmp_path):
+    _, (cfg, tp, st, key), _ = plain
+    rcfg = dataclasses.replace(cfg, invariant_mode="raise")
+    with pytest.raises(SupervisorCrash) as ei:
+        _run((rcfg, tp, _poisoned(st), key),
+             sup=_sup(crash_dir=str(tmp_path)))
+    assert ei.value.report.retries == 0
+    meta = json.load(open(os.path.join(ei.value.dump_dir, "crash.json")))
+    assert "invariant violation" in meta["error"]
+    assert "halo_overflow" in meta["error"] and meta["tick_start"] == 0
+
+
+def test_replay_reproduces_clean_and_tripped(plain, tmp_path):
+    _, (cfg, tp, st, key), _ = plain
+    with pytest.raises(SupervisorCrash) as ei:
+        _run((cfg, tp, st, key), sup=_sup(max_retries=1,
+                                          crash_dir=str(tmp_path)),
+             _chunk_hook=_boom)
+    res = replay_crash.replay(ei.value.dump_dir, like=st, cfg=cfg, tp=tp,
+                              device="cpu")
+    assert res["tripped"] is False and res["fault_flags"] == 0
+    assert res["ticks"] == res["tick_end"] - res["tick_start"] == 5
+    rcfg = dataclasses.replace(cfg, invariant_mode="raise")
+    with pytest.raises(SupervisorCrash) as ei2:
+        _run((rcfg, tp, _poisoned(st), key),
+             sup=_sup(crash_dir=str(tmp_path / "p")))
+    res2 = replay_crash.replay(ei2.value.dump_dir, like=st, cfg=rcfg, tp=tp,
+                               device="cpu")
+    assert res2["tripped"] is True
+    assert "invariant violation" in res2["error"]
+
+
+def test_replay_refusals_name_their_item(plain, tmp_path, capsys):
+    _, (cfg, tp, st, key), _ = plain
+    with pytest.raises(SupervisorCrash) as ei:
+        _run((cfg, tp, st, key), sup=_sup(max_retries=0,
+                                          crash_dir=str(tmp_path),
+                                          scenario="single_topic_1k"),
+             _chunk_hook=_boom)
+    with pytest.raises(SystemExit, match="item 9"):
+        replay_crash.replay(ei.value.dump_dir, device="cpu")
+    assert replay_crash.main([ei.value.dump_dir]) == 1
+    assert "item 9" in json.loads(capsys.readouterr().out)["error"]
+    other = dataclasses.replace(cfg, publishers_per_tick=3)
+    with pytest.raises(SystemExit, match="fingerprint"):
+        replay_crash.replay(ei.value.dump_dir, like=st, cfg=other, tp=tp,
+                            device="cpu")
+
+
+class _Sink:
+    def __init__(self):
+        self.flushed = 0
+
+    def hard_flush(self):
+        self.flushed += 1
+
+
+def test_sinks_hard_flushed_on_failure(plain, tmp_path):
+    _, port, _ = plain
+    sink = _Sink()
+    with pytest.raises(SupervisorCrash):
+        _run(port, sup=_sup(max_retries=0, crash_dir=str(tmp_path),
+                            sinks=(sink,)), _chunk_hook=_boom)
+    assert sink.flushed == 1
+
+
+@pytest.mark.parametrize("hook, item", [
+    ({"commands": object()}, "item 9"),
+    ({"contracts": (object(),)}, "item 9"),
+    ({"verdict_policy": "abort"}, "item 9"),
+    ({"run_fn": lambda *a: None}, "item 7"),
+    ({"state_to_host": lambda s: s}, "item 7"),
+    ({"state_from_host": lambda s: s}, "item 7"),
+    ({"liveness": object()}, "item 7"),
+    ({"chaos": object()}, "items 7 and 9"),
+    ({"traced": True}, "item 9"),
+])
+def test_unported_hooks_are_refused_by_item(plain, hook, item):
+    _, port, _ = plain
+    hook = dict(hook)
+    traced = hook.pop("traced", False)
+    with pytest.raises(NotImplementedError, match=item):
+        _run(port, sup=_sup(**hook), traced=traced)
+
+
+def test_run_refuses_the_cpu_without_device(plain):
+    _, (cfg, tp, st, key), _ = plain
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: cuda is the default device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        supervised_run(st, cfg, tp, key, 2, _sup())
+
+
+# --- the health journal against the reference -------------------------------
+
+def _journal_rows(path):
+    return telemetry.read_journal(path)["rows"]
+
+
+def _assert_rows_equal(want, got):
+    assert len(want) == len(got) > 0
+    for a, b in zip(want, got):
+        assert set(a) == set(b)
+        for k in a:
+            if k == "score_mean":
+                np.testing.assert_allclose(b[k], a[k], rtol=1e-5)
+            else:
+                assert a[k] == b[k], (k, a[k], b[k], a["tick"])
+
+
+@pytest.fixture(scope="module")
+def reference_runs(plain, tmp_path_factory):
+    """The reference's supervised runs with the telemetry lane (its
+    ``.npz`` checkpoint form): a whole run's journal, a two-chunk window's
+    checkpoint directory, and a crash dump."""
+    (jcfg, jtp, jst, jkey), _, _ = plain
+    d = tmp_path_factory.mktemp("reference")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jckpt, "_HAVE_ORBAX", False)
+    try:
+        sup = jsupervisor.SupervisorConfig(
+            chunk_ticks=5, backoff_base_s=0.0, sleep=lambda s: None,
+            health_path=str(d / "whole.ndjson"))
+        jsupervisor.supervised_run(jst, jcfg, jtp, jkey, N_TICKS, sup)
+        jsupervisor.supervised_run(
+            jst, jcfg, jtp, jkey, N_TICKS, dataclasses.replace(
+                sup, health_path=str(d / "window.ndjson"),
+                checkpoint_dir=str(d / "ck"), max_chunks=2))
+        with pytest.raises(jsupervisor.SupervisorCrash) as ei:
+            jsupervisor.supervised_run(
+                jst, jcfg, jtp, jkey, N_TICKS, dataclasses.replace(
+                    sup, health_path=str(d / "crash.ndjson"), max_retries=0,
+                    crash_dir=str(d / "crash")), _chunk_hook=_boom)
+    finally:
+        mp.undo()
+    return d, ei.value.dump_dir
+
+
+@pytest.mark.parametrize("async_chunks", [True, False])
+def test_health_journal_rows_equal_the_reference(plain, reference_runs,
+                                                 tmp_path, async_chunks):
+    _, port, want = plain
+    d, _ = reference_runs
+    path = str(tmp_path / "h.ndjson")
+    out, _ = _run(port, sup=_sup(health_path=path,
+                                 async_chunks=async_chunks))
+    _assert_equal(want, out)
+    _assert_rows_equal(_journal_rows(str(d / "whole.ndjson")),
+                       _journal_rows(path))
+    j = telemetry.read_journal(path)
+    assert j["runs"][0]["fingerprint"] == \
+        telemetry.read_journal(str(d / "whole.ndjson"))["runs"][0][
+            "fingerprint"]
+    assert [n["kind"] for n in j["notes"]][-1] == "run_end"
+    assert len(j["chunks"]) == 3
+
+
+def test_reference_window_resumes_in_the_port(plain, reference_runs,
+                                              tmp_path):
+    """A reference run stopped by ``max_chunks`` resumes in the port from
+    its checkpoint directory, appending to its journal, and ends equal to
+    the reference's uninterrupted run, every journal row included."""
+    _, port, want = plain
+    d, _ = reference_runs
+    journal = str(tmp_path / "window.ndjson")
+    with open(d / "window.ndjson", "rb") as src, open(journal, "wb") as dst:
+        dst.write(src.read())
+    out, rep = _run(port, sup=_sup(checkpoint_dir=str(d / "ck"),
+                                   health_path=journal))
+    assert rep.resumed_tick == 10 and rep.ticks_run == 3
+    _assert_equal(want, out)
+    _assert_rows_equal(_journal_rows(str(d / "whole.ndjson")),
+                       _journal_rows(journal))
+
+
+def test_reference_crash_dump_replays_in_the_port(plain, reference_runs):
+    _, (cfg, tp, st, key), _ = plain
+    _, dump = reference_runs
+    res = replay_crash.replay(dump, like=st, cfg=cfg, tp=tp, device="cpu")
+    assert res["tripped"] is False and res["fault_flags"] == 0
+    assert (res["tick_start"], res["tick_end"], res["ticks"]) == (0, 5, 5)
+
+
+def test_port_crash_dump_replays_in_the_reference(plain, tmp_path):
+    from scripts.replay_crash import replay as jreplay
+    (jcfg, jtp, jst, _), port, _ = plain
+    def wedged(info):
+        raise ChunkDeadline("wedged")
+
+    with pytest.raises(SupervisorCrash) as ei:
+        _run(port, sup=_sup(max_retries=0, crash_dir=str(tmp_path),
+                            chunk_ticks=4), _chunk_hook=wedged)
+    res = jreplay(ei.value.dump_dir, like=jst, cfg=jcfg, tp=jtp,
+                  invariant_mode="record")
+    assert res["tripped"] is False and res["fault_flags"] == 0
+    assert res["ticks"] == 4
+    state = jckpt.restore(os.path.join(ei.value.dump_dir, "last_good"), jst,
+                          cfg=jcfg)
+    _assert_equal(_arrays(state), port[2])
+
+
+def test_writer_runs_every_task_in_order_under_backpressure():
+    """The writer thread behind a queue of 2, fed 2000 tasks with the
+    interpreter switching threads as often as it can: every task runs,
+    in order, the flush fires when the queue runs dry, and a failing
+    task's error surfaces at the next drain."""
+    import sys
+
+    from go_libp2p_pubsub_tpu_torch.sim.supervisor import _Writer
+    done, flushes = [], []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        w = _Writer(maxsize=2, flush=lambda: flushes.append(len(done)))
+        for i in range(2000):
+            w.submit(lambda i=i: done.append(i))
+        w.drain()
+
+        def fail():
+            raise OSError("disk full")
+
+        w.submit(fail)
+        with pytest.raises(OSError, match="disk full"):
+            w.drain()
+        w.close()
+    finally:
+        sys.setswitchinterval(old)
+    assert done == list(range(2000))
+    assert flushes and flushes[-1] == 2000
+    assert w._thread is None
+
+
+def test_retry_on_a_consumed_donated_input_replays_from_the_anchor(
+        plain, monkeypatch):
+    """On the card a donated chunk's result is its graph's static state,
+    which the executable's next call overwrites. Here every donated
+    result is stamped so (as a CUDA executable stamps it), and the third
+    donated call fails after consuming its input: the retry finds the
+    carry overwritten, replays the confirmed gap from the anchor with the
+    same keys (a ``catchup``) and ends equal to the single run."""
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    _, port, want = plain
+    exe_cls = compile_plan.EngineExecutable
+    monkeypatch.setattr(exe_cls, "stamp", lambda self: (
+        (self, self.calls) if self.donate else None))
+    real = exe_cls.__call__
+
+    def call(self, state, tp, keys):
+        out = real(self, state, tp, keys)
+        if self.donate and self.calls == 3:
+            raise RuntimeError("the replay failed after consuming its input")
+        return out
+
+    monkeypatch.setattr(exe_cls, "__call__", call)
+    compile_plan.clear_caches()
+    try:
+        out, rep = _run(port, sup=_sup(chunk_ticks=3,
+                                       checkpoint_every_ticks=N_TICKS))
+    finally:
+        compile_plan.clear_caches()
+    events = [e["event"] for e in rep.events]
+    assert rep.retries == 1 and "catchup" in events, events
+    catchup = next(e for e in rep.events if e["event"] == "catchup")
+    assert (catchup["chunk_start"], catchup["chunk_ticks"]) == (0, 9)
+    _assert_equal(want, out)
+
+
+def test_donated_results_are_stamped_and_retired(plain):
+    """``compile_plan.live`` tells a stamped result held until its
+    executable's next call; ``retire`` drops the executable and marks its
+    results stale."""
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    _, (cfg, tp, st, key), _ = plain
+    keys = rng.split(key, 2)
+    compile_plan.clear_caches()
+    try:
+        exe = compile_plan.engine_chunk(cfg, st, tp, keys, donate=True)
+        assert exe.stamp() is None          # the CPU: results own tensors
+        stamp = (exe, exe.calls)
+        assert compile_plan.live(stamp) and compile_plan.live(None)
+        exe(st, tp, keys)
+        assert not compile_plan.live(stamp)
+        stamp = (exe, exe.calls)
+        compile_plan.retire(exe)
+        assert not compile_plan.live(stamp)
+        assert compile_plan.engine_chunk(cfg, st, tp, keys,
+                                         donate=True) is not exe
+    finally:
+        compile_plan.clear_caches()
