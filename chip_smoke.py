@@ -171,7 +171,33 @@ Phases, each printing its own lines and its seconds:
    injected failure must report no retry and no degrade and record
    kernels 1-4. 6b and 6c run right after phase 2, while the underlays
    build; 6a after phase 5;
-7. the ``kernels`` JSON line, then the device JSON line last.
+7. adversaries, directives and traces (sim/adversary.py, sim/commands.py,
+   sim/trace_export.py, trace/replay.py), after 6a: 7a the five attack
+   families at 512 peers (K = 16) through ``run_with_contracts`` on the
+   card, each tick's state and health row and every contract result equal
+   to a CPU run of the port (integer, bool and packed planes exact,
+   float32 rtol 1e-6, ``score_mean`` rtol 1e-5; the CPU side runs in a
+   child process started with the underlay builds); 7b ``eclipse_50k``
+   and ``flashcrowd_50k`` at 51200 peers on the churn underlay
+   (``topology.sparse(51200, 32, degree=12)``, the reference's
+   construction at any N) for 40 ticks, eager ``run_with_contracts``
+   against a captured ``engine_chunk(telemetry=True)`` of C = 8 from the
+   same state and keys (rows and final state equal), hb/s, peak memory,
+   launches (kernels 1-4), each contract's verdict (printed, not fatal);
+   7c ``eclipse_50k`` for 16 ticks under ``supervised_run`` in chunks of
+   8 with a journal, its contracts live under ``verdict_policy=
+   "snapshot"`` and a ``CommandQueue`` tailing an NDJSON stream
+   (publishes, a join and a leave, storm, eclipse and censor attacks, a
+   malformed line refused by name): equal to the unsupervised loop that
+   applies the same frames at the same boundaries and steps with
+   ``run_keys``, in every field and journal row; a kill after chunk 1 and
+   a resume from the sidecar's ``stream_offset`` equal too; every frame
+   applied under sync debug "error"; no retry, no degrade, kernels 1-4;
+   7d ``run_traced`` of ``single_topic_1k(1024)`` with provenance for 4
+   ticks, its events equal to the CPU run's list for list, then
+   ``tensorize_trace`` and ``replay_feed`` into a fresh state under sync
+   debug "error", equal to the CPU's replay;
+8. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -278,6 +304,14 @@ PATH_KERNELS = {
     "supervised fleet": ({"edge_table", "hop", "iwant_resolve", "emit"},
                          {"gather_words", "permutation_gather",
                           "take_words"}),
+    # phase 7: the bench-scale attack families (PX + connection churn) and
+    # the supervised eclipse run with its command plane
+    "eclipse_50k": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                    {"gather_words", "take_words"}),
+    "flashcrowd_50k": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                       {"gather_words", "take_words"}),
+    "supervised eclipse": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                           {"gather_words", "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -294,6 +328,9 @@ FLEET_B, FLEET_N = 256, 1024     # phase 6b: bench.py's fleet_256x1k line
 # poisoned
 FLEET_TICKS = (3, 5, 8, 8, 6, 8, 8, 7)
 FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
+N_FAMILY = 512                   # phase 7a: the families' own width
+SCALE_TICKS = 40                 # phase 7b: ticks of each bench family
+N_TRACE, TRACE_TICKS = 1024, 4   # phase 7d: the traced single_topic_1k
 # the formulation cases of phase 4e, each at 1024 peers
 FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
                      "headline, sort, flood publish", "churn_50k, sort",
@@ -421,6 +458,120 @@ def _build_topology(conn, n, k, degree):
         topo = topology.sparse(n, k, degree=degree)
     conn.send(tuple(topo))
     conn.close()
+
+
+def _fingerprint(arrays):
+    """Per field of a state's host arrays: the float32 planes themselves
+    (compared to a tolerance), a digest of every other plane (exact)."""
+    import hashlib
+
+    import numpy as np
+    return {f: (a if a.dtype == np.float32 else
+                hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest())
+            for f, a in arrays.items()}
+
+
+def _phase7_cpu(conn):
+    """Child process: phase 7's CPU runs of the port (the five families at
+    N_FAMILY peers tick by tick, and the traced single_topic_1k with the
+    replay of its events), sent back as fingerprints, rows, contract
+    results and events."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    from go_libp2p_pubsub_tpu_torch import rng
+    from go_libp2p_pubsub_tpu_torch.sim import (adversary, state_to_numpy,
+                                                step, telemetry)
+    out = {"families": {}}
+    for name, build in adversary.ATTACKS.items():
+        scn = build(n_peers=N_FAMILY, device="cpu")
+        keys = rng.split(rng.PRNGKey(0, device="cpu"), scn.n_ticks)
+        st, ticks, rows = scn.state, [], []
+        for i in range(scn.n_ticks):
+            st = step(st, scn.cfg, scn.tp, keys[i], device="cpu")
+            ticks.append(_fingerprint(state_to_numpy(st)))
+            rows.append(telemetry.record_to_row(
+                telemetry.health_record(st, scn.cfg, scn.tp)))
+        results = [(r.kind, r.status, r.detail, r.measured) for r in
+                   adversary.evaluate_contracts(scn.contracts, rows)]
+        out["families"][name] = (ticks, rows, results)
+    cfg, tp, st, topo = _trace_case("cpu")
+    fin, events = _run_trace(cfg, tp, st, "cpu")
+    rep = _replay_trace(cfg, tp, topo, events, "cpu")[0]
+    out["trace"] = (_fingerprint(state_to_numpy(fin)), events,
+                    _fingerprint(state_to_numpy(rep)))
+    conn.send(out)
+    conn.close()
+
+
+def _trace_case(dev):
+    """7d's network: ``single_topic_1k(N_TRACE)`` with provenance."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, topology
+    topo = topology.sparse(N_TRACE, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = scenarios.single_topic_1k(N_TRACE, device=dev, topo=topo)
+    return dataclasses.replace(cfg, record_provenance=True), tp, st, topo
+
+
+def _run_trace(cfg, tp, st, dev):
+    from go_libp2p_pubsub_tpu_torch import rng
+    from go_libp2p_pubsub_tpu_torch.sim.trace_export import run_traced
+    return run_traced(st, cfg, tp, None, 0, device=dev, keys=rng.split(
+        rng.PRNGKey(5, device=dev), TRACE_TICKS))
+
+
+def _replay_trace(cfg, tp, topo, events, dev, guard=None):
+    """The events, after a JOIN of every peer at t=0.1, tensorized and
+    replayed into a fresh state (nobody subscribed) on ``dev``; ``guard``
+    wraps the replay (sync debug mode on the card). (state, op count,
+    seconds)."""
+    import contextlib
+    import importlib
+
+    import numpy as np
+    from go_libp2p_pubsub_tpu_torch.sim import init_state
+    rp = importlib.import_module("go_libp2p_pubsub_tpu_torch.trace.replay")
+    pre = [{"type": "JOIN", "peerID": f"p{i}", "timestamp": 0.1,
+            "join": {"topic": "t0"}} for i in range(N_TRACE)]
+    feed = rp.tensorize_trace(pre + events,
+                              {f"p{i}": i for i in range(N_TRACE)},
+                              {"t0": 0}, msg_window=cfg.msg_window,
+                              t_end=float(TRACE_TICKS))
+    st = init_state(cfg, topo, subscribed=np.zeros((N_TRACE, 1), bool),
+                    device=dev)
+    t0 = time.perf_counter()
+    with (guard or contextlib.nullcontext)():
+        out = rp.replay_feed(st, cfg, tp, feed)
+    if str(dev) != "cpu":
+        import torch
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, len(feed.op), secs
+
+
+def _same_fingerprint(label, got, want):
+    import numpy as np
+    for f, w in want.items():
+        g = got[f]
+        same = np.allclose(g, w, rtol=1e-6, atol=0.0) \
+            if isinstance(w, np.ndarray) else g == w
+        if not same:
+            raise AssertionError(f"{label}: field {f} differs from the "
+                                 f"CPU run")
+
+
+def _same_rows(label, got, want):
+    for g, w in zip(got, want, strict=True):
+        for k, x in w.items():
+            y = g[k]
+            if isinstance(x, float) and x != y:
+                rtol = 1e-5 if k == "score_mean" else 1e-6
+                if abs(x - y) > rtol * abs(x):
+                    raise AssertionError(f"{label}: row {w['tick']} column "
+                                         f"{k} {y} against {x}")
+            elif not isinstance(x, float) and x != y:
+                raise AssertionError(f"{label}: row {w['tick']} column {k} "
+                                     f"{y} against {x}")
 
 
 class Smoke:
@@ -2650,6 +2801,363 @@ class Smoke:
         compile_plan.clear_caches()
         torch.cuda.empty_cache()
 
+    # ---- phase 7: adversaries, directives and traces -------------------
+    def phase_families(self, cpu):
+        """7a: the five attack families at N_FAMILY peers (K = 16, degree
+        6, each its own ``n_ticks``): stepped tick by tick on the card,
+        each tick's state and health row against the CPU child's, then
+        ``run_with_contracts`` on the card, its final state, rows and
+        contract results against the same."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (adversary, state_to_numpy,
+                                                    step, telemetry)
+        dev = self.dev
+        for name, build in adversary.ATTACKS.items():
+            want_ticks, want_rows, want_results = cpu["families"][name]
+            scn = build(n_peers=N_FAMILY, device=dev)
+            keys = rng.split(rng.PRNGKey(0, device=dev), scn.n_ticks)
+            st, rows = scn.state, []
+            for i in range(scn.n_ticks):
+                st = step(st, scn.cfg, scn.tp, keys[i], device=dev)
+                _same_fingerprint(f"phase 7a [{name}] tick {i}",
+                                  _fingerprint(state_to_numpy(st)),
+                                  want_ticks[i])
+                rows.append(telemetry.record_to_row(
+                    telemetry.health_record(st, scn.cfg, scn.tp)))
+            _same_rows(f"phase 7a [{name}]", rows, want_rows)
+            self.sync()
+            t0 = time.perf_counter()
+            rep = adversary.run_with_contracts(scn, device=dev)
+            self.sync()
+            secs = time.perf_counter() - t0
+            if self.differ(st, rep.state) or rep.rows != rows:
+                raise AssertionError(f"phase 7a [{name}]: run_with_contracts "
+                                     f"left the stepped trajectory")
+            got = [(r.kind, r.status, r.detail, r.measured)
+                   for r in rep.results]
+            if got != want_results:
+                raise AssertionError(f"phase 7a [{name}]: contract results "
+                                     f"{got} against the CPU's "
+                                     f"{want_results}")
+            print(f"phase 7a [{name}]: {N_FAMILY} peers, {scn.n_ticks} "
+                  f"ticks, every tick's state and health row equal to the "
+                  f"CPU run; run_with_contracts {secs:.3f} s = "
+                  f"{scn.n_ticks / secs:.3f} hb/s; fault_flags "
+                  f"0x{rep.fault_flags:08x}; contracts "
+                  f"{[(r.kind, r.status) for r in rep.results]} (equal to "
+                  f"the CPU's)", flush=True)
+
+    def bench_family(self, label, topo):
+        """``(AttackScenario, key)`` of a phase-7 bench-scale family at
+        N_CHURN peers on ``topo``, built as its ``sim.scenarios`` entry
+        builds it (K = 32, degree 12, the window at ticks [3, 8))."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import adversary
+        kw = dict(n_peers=N_CHURN, k_slots=K, degree=12, start=3, end=8,
+                  device=self.dev, topo=topo)
+        if label == "eclipse_50k":
+            scn = adversary.eclipse(**kw)
+        else:
+            scn = adversary.flash_crowd(hot=64, **kw)
+        return scn, rng.PRNGKey(17, device=self.dev)
+
+    def phase_bench_families(self, topo):
+        """7b: ``eclipse_50k`` and ``flashcrowd_50k`` at N_CHURN peers,
+        SCALE_TICKS ticks: eager ``run_with_contracts`` (launches, peak
+        memory, hb/s by the host clock after a sync) and a captured
+        ``engine_chunk(telemetry=True)`` of C = 8 replayed SCALE_TICKS / C
+        times from the same state and keys (hb/s by CUDA events over the
+        replays, capture excluded): rows and final state equal exactly."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import adversary, telemetry
+        c = CAPTURE_TICKS
+        for label in ("eclipse_50k", "flashcrowd_50k"):
+            scn, key = self.bench_family(label, topo)
+            cfg, tp, st = scn.cfg, scn.tp, scn.state
+            torch.cuda.empty_cache()
+            self.sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            rep = adversary.run_with_contracts(scn, key, SCALE_TICKS,
+                                               device=self.dev)
+            self.sync()
+            eager_s = time.perf_counter() - t0
+            eager_peak = torch.cuda.max_memory_allocated() - base
+            launches = dict(cudalib.LAUNCHES)
+            print(f"phase 7b [{label}] launches: {json.dumps(launches)}",
+                  flush=True)
+            self.check_launches(label, launches, cfg)
+            keys = rng.split(key, SCALE_TICKS)
+            compile_plan.clear_caches()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            exe = compile_plan.engine_chunk(cfg, st, tp, keys[:c],
+                                            telemetry=True)
+            self.sync()
+            capture_s = time.perf_counter() - t0
+            out, recs = st, []
+
+            def replays():
+                nonlocal out
+                for i in range(0, SCALE_TICKS, c):
+                    out, rec = exe(out, tp, keys[i:i + c])
+                    recs.append(rec)
+
+            ms = self.events_ms(replays)
+            cap_peak = torch.cuda.max_memory_allocated() - base
+            rows = []
+            for rec in recs:
+                rows += telemetry.rows_to_dicts(
+                    *telemetry.records_to_rows(rec))
+            if self.differ(rep.state, out) or rows != rep.rows:
+                raise AssertionError(f"phase 7b [{label}]: the captured "
+                                     f"chunks differ from the eager run")
+            print(f"phase 7b [{label}]: {cfg.n_peers} peers on the churn "
+                  f"underlay (topology.sparse({N_CHURN}, {K}, degree=12)), "
+                  f"{SCALE_TICKS} ticks; eager run_with_contracts "
+                  f"{eager_s:.3f} s = {SCALE_TICKS / eager_s:.3f} hb/s, peak "
+                  f"{eager_peak / 2 ** 30:.3f} GiB above the state; captured "
+                  f"C = {c} (capture {capture_s:.3f} s) replayed "
+                  f"{SCALE_TICKS // c} times {ms:.3f} ms = "
+                  f"{SCALE_TICKS / ms * 1e3:.3f} hb/s, peak "
+                  f"{cap_peak / 2 ** 30:.3f} GiB; rows and final state equal "
+                  f"to the eager run; graph launches "
+                  f"{json.dumps(exe.launches)}; fault_flags "
+                  f"0x{rep.fault_flags:08x}", flush=True)
+            for r in rep.results:
+                print(f"phase 7b [{label}] contract {r.kind}: {r.status} "
+                      f"({r.detail})", flush=True)
+            del rep, out, recs, exe, st, scn
+            compile_plan.clear_caches()
+            torch.cuda.empty_cache()
+
+    def phase_supervised_eclipse(self, topo):
+        """7c: ``eclipse_50k`` for SUPERVISED_TICKS ticks under
+        ``supervised_run`` in chunks of C = 8 with a journal, its contracts
+        live under ``verdict_policy="snapshot"`` and a ``CommandQueue``
+        tailing an NDJSON stream that ``write_stream`` wrote (publishes, a
+        join and a leave, storm, eclipse and censor directives, one
+        malformed line): against the unsupervised loop that applies the
+        same frames at the same boundaries and steps with ``run_keys``
+        (every field, every journal row), a kill after chunk 1 and a resume
+        from the sidecar's ``stream_offset``; every frame applied under
+        sync debug "error" and timed by CUDA events."""
+        import tempfile
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import (checkpoint, commands,
+                                                    run_keys, telemetry)
+        from go_libp2p_pubsub_tpu_torch.sim.supervisor import (
+            SupervisorConfig, supervised_run)
+        dev, c, ticks = self.dev, CAPTURE_TICKS, SUPERVISED_TICKS
+        scn, key = self.bench_family("eclipse_50k", topo)
+        cfg, tp, st = scn.cfg, scn.tp, scn.state
+        directives = [
+            {"op": "publish", "tick": 1, "peer": 3, "topic": 0},
+            {"op": "join", "tick": 2, "peer": 7, "topic": 0},
+            {"op": "attack", "tick": 4, "kind": "storm", "topic": 0,
+             "peers": list(range(10, 18))},
+            {"op": "attack", "tick": 5, "kind": "eclipse",
+             "peers": list(range(100, 108))},
+            {"op": "attack", "tick": 6, "kind": "censor",
+             "peers": list(range(200, 204))},
+            {"op": "attack", "tick": 6, "kind": "eclipse", "topic": 0,
+             "peers": [1]},                 # malformed: refused by name
+            {"op": "publish", "tick": 9, "peer": 40, "topic": 0},
+            {"op": "leave", "tick": 10, "peer": 7, "topic": 0},
+        ]
+        applies = []
+
+        def queue(src):
+            q = commands.CommandQueue(src, n_peers=cfg.n_peers,
+                                      n_topics=cfg.n_topics,
+                                      msg_window=cfg.msg_window,
+                                      stall_timeout_s=30.0)
+
+            def apply(state, cfg_, tp_, frame):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = commands.apply_frame(state, cfg_, tp_, frame)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                b.record()
+                applies.append((a, b, frame.count))
+                return out
+            q.apply = apply
+            return q
+
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "directives.ndjson")
+            size = commands.write_stream(src, directives)
+
+            def supervised(journal, ck, hook=None):
+                q = queue(src)
+                try:
+                    return supervised_run(
+                        st, cfg, tp, key, ticks, SupervisorConfig(
+                            chunk_ticks=c, health_path=journal,
+                            checkpoint_dir=ck, commands=q,
+                            contracts=scn.contracts,
+                            verdict_policy="snapshot"),
+                        device=dev, _chunk_hook=hook)
+                finally:
+                    q.close()
+
+            compile_plan.clear_caches()
+            cudalib.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            got, rep = supervised(os.path.join(tmp, "j.ndjson"),
+                                  os.path.join(tmp, "ck"))
+            self.sync()
+            secs = time.perf_counter() - t0
+            launches = dict(cudalib.LAUNCHES)
+            print(f"phase 7c [supervised eclipse] launches: "
+                  f"{json.dumps(launches)}", flush=True)
+            self.check_launches("supervised eclipse", launches, cfg)
+            if (rep.retries, rep.degrade_level) != (0, 0):
+                raise AssertionError(f"phase 7c: retries {rep.retries}, "
+                                     f"degrade {rep.degrade_level}: "
+                                     f"{rep.events}")
+            apply_ms = [(round(a.elapsed_time(b), 3), n)
+                        for a, b, n in applies]
+            journal = telemetry.read_journal(os.path.join(tmp, "j.ndjson"))
+            notes = journal["notes"]
+            end = notes[-1]
+            refused = [n for n in notes if n["kind"] == "directive_refused"]
+            if end["kind"] != "run_end" or end["commands_refused"] != 1 or \
+                    len(refused) != 1 or "takes no 'topic'" not in \
+                    refused[0]["reason"] or end["ingest_offset"] != size:
+                raise AssertionError(f"phase 7c: the stream's refusal and "
+                                     f"offset: {end}, {refused}")
+            # the unsupervised loop: the same frames at the same boundaries
+            q = commands.CommandQueue(src, n_peers=cfg.n_peers,
+                                      n_topics=cfg.n_topics,
+                                      msg_window=cfg.msg_window,
+                                      stall_timeout_s=30.0).start(0)
+            keys = rng.split(key, ticks)
+            want, recs = st, []
+            try:
+                for lo in range(0, ticks, c):
+                    f = q.frame_for(int(st.tick) + lo, c)
+                    if f.count:
+                        want = commands.apply_frame(want, cfg, tp, f)
+                    want, rec = run_keys(want, cfg, tp, keys[lo:lo + c],
+                                         telemetry=True, device=dev)
+                    recs.append(rec)
+            finally:
+                q.close()
+            want_rows = []
+            for rec in recs:
+                want_rows += telemetry.rows_to_dicts(
+                    *telemetry.records_to_rows(rec))
+            rows = [{k: v for k, v in r.items() if k != "kind"}
+                    for r in journal["rows"]]
+            bad = self.differ(want, got)
+            if bad or rows != want_rows:
+                raise AssertionError(f"phase 7c: differs from the "
+                                     f"unsupervised loop in {bad} (rows "
+                                     f"equal: {rows == want_rows})")
+            verdicts = [(n["contract_kind"], n["status"], n["tick"])
+                        for n in notes if n["kind"] == "contract_verdict"]
+            # kill after chunk 1, resume from the sidecar's offset
+            ck = os.path.join(tmp, "ck2")
+
+            def kill(info):
+                if info["chunk_start"] >= int(st.tick) + c:
+                    raise KeyboardInterrupt("simulated preemption")
+
+            try:
+                supervised(os.path.join(tmp, "k.ndjson"), ck, kill)
+                raise AssertionError("phase 7c: the kill hook did not fire")
+            except KeyboardInterrupt:
+                pass
+            offsets = [checkpoint.sidecar_meta(p).get("stream_offset")
+                       for p in sorted(
+                           os.path.join(ck, n[:-4]) for n in os.listdir(ck)
+                           if n.endswith(".npz"))]
+            resumed, rep2 = supervised(os.path.join(tmp, "k.ndjson"), ck)
+            start = next(e for e in rep2.events
+                         if e["event"] == "ingest_start")
+            bad = self.differ(want, resumed)
+            if rep2.resumed_tick != int(st.tick) + c or bad or \
+                    start["offset"] <= 0:
+                raise AssertionError(f"phase 7c: the resume (tick "
+                                     f"{rep2.resumed_tick}, offset "
+                                     f"{start['offset']}) differs in {bad}")
+        print(f"phase 7c [supervised eclipse]: {cfg.n_peers} peers, {ticks} "
+              f"ticks in chunks of {c}, journal, contracts live under "
+              f"verdict_policy='snapshot', a CommandQueue on a "
+              f"{size}-byte stream; equal to the unsupervised loop in every "
+              f"field and journal row; retries 0, degrade 0; {secs:.3f} s = "
+              f"{ticks / secs:.3f} hb/s over the run's wall (captures "
+              f"included); frame applies (ms, ops) {apply_ms} under sync "
+              f"debug 'error'; applied {end['commands_applied']}, shed "
+              f"{end['commands_shed']}, refused {end['commands_refused']}; "
+              f"checkpoints {[os.path.basename(p) for p in rep.checkpoints]}"
+              f"; verdicts {verdicts}; killed after chunk 1 (stamped "
+              f"offsets {offsets}), resumed at tick {rep2.resumed_tick} "
+              f"from offset {start['offset']}: equal", flush=True)
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+
+    def phase_trace(self, cpu):
+        """7d: ``run_traced`` of ``single_topic_1k(N_TRACE)`` with
+        provenance for TRACE_TICKS ticks on the card, its events equal to
+        the CPU run's list for list and its final state equal; then the
+        events tensorized and replayed into a fresh state on the card under
+        sync debug "error", equal to the CPU's replay."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+        want_fin, want_events, want_rep = cpu["trace"]
+        cfg, tp, st, topo = _trace_case(self.dev)
+        t0 = time.perf_counter()
+        fin, events = _run_trace(cfg, tp, st, self.dev)
+        traced_s = time.perf_counter() - t0
+        if events != want_events:
+            raise AssertionError(f"phase 7d: {len(events)} events against "
+                                 f"the CPU's {len(want_events)}, not equal")
+        _same_fingerprint("phase 7d [run_traced]",
+                          _fingerprint(state_to_numpy(fin)), want_fin)
+
+        def no_sync():
+            import contextlib
+
+            @contextlib.contextmanager
+            def guard():
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return guard()
+
+        rep, n_ops, secs = _replay_trace(cfg, tp, topo, events,
+                                         self.dev, guard=no_sync)
+        _same_fingerprint("phase 7d [replay]",
+                          _fingerprint(state_to_numpy(rep)), want_rep)
+        kinds = {}
+        for e in events:
+            kinds[e["type"]] = kinds.get(e["type"], 0) + 1
+        print(f"phase 7d [trace loop]: single_topic_1k({N_TRACE}) with "
+              f"provenance, {TRACE_TICKS} ticks of run_traced in "
+              f"{traced_s:.3f} s, {len(events)} events {kinds}, equal to "
+              f"the CPU run list for list; replay of {n_ops} ops into a "
+              f"fresh state under sync debug 'error' in {secs:.3f} s = "
+              f"{n_ops / secs:.1f} ops/s, equal to the CPU's replay",
+              flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -2705,6 +3213,18 @@ def main() -> int:
         proc.start()
         child.close()
         topo_jobs[shape] = (parent, proc)
+    # phase 7's CPU runs of the port, beside the builds
+    cpu7_parent, child = ctx.Pipe(duplex=False)
+    cpu7_proc = ctx.Process(target=_phase7_cpu, args=(child,), daemon=True)
+    cpu7_proc.start()
+    child.close()
+    cpu7 = {}
+
+    def phase7_cpu():
+        if not cpu7:
+            cpu7.update(cpu7_parent.recv())
+            cpu7_proc.join()
+        return cpu7
 
     topos = {}
 
@@ -2766,6 +3286,13 @@ def main() -> int:
         timed("5 (captured chunks)", smoke.phase_captured)
         timed("6a (supervised headline)", lambda: smoke.phase_supervised(
             topology_of(smoke.n)))
+        timed("7a (attack families)",
+              lambda: smoke.phase_families(phase7_cpu()))
+        timed("7b (eclipse_50k, flashcrowd_50k)",
+              lambda: smoke.phase_bench_families(topology_of(N_CHURN)))
+        timed("7c (supervised eclipse with commands)",
+              lambda: smoke.phase_supervised_eclipse(topology_of(N_CHURN)))
+        timed("7d (trace loop)", lambda: smoke.phase_trace(phase7_cpu()))
         timed("4 (trajectory)", smoke.phase_trajectory)
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):
@@ -2786,7 +3313,7 @@ def main() -> int:
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     finally:
-        for _, proc in topo_jobs.values():
+        for proc in [p for _, p in topo_jobs.values()] + [cpu7_proc]:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()

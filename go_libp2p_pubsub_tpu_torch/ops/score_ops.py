@@ -111,6 +111,28 @@ def advance_active_latch(state: SimState, tp: TopicParams) -> SimState:
     return state._replace(mesh_active=active)
 
 
+def decay_counters(state: SimState, cfg: SimConfig, tp: TopicParams) -> SimState:
+    """refreshScores' decay pass (score.go:504-565), one tick ==
+    DecayInterval, and the P3 activation latch (mesh_time > activation).
+    The engine decays inline; trace replay (trace/replay.py) runs this pass
+    at each decay boundary of a recorded stream."""
+    z = cfg.decay_to_zero
+    bp = state.behaviour_penalty * cfg.behaviour_penalty_decay
+    return advance_active_latch(state, tp)._replace(
+        first_message_deliveries=decayed(
+            state.first_message_deliveries,
+            _t(tp.first_message_deliveries_decay), z),
+        mesh_message_deliveries=decayed(
+            state.mesh_message_deliveries,
+            _t(tp.mesh_message_deliveries_decay), z),
+        mesh_failure_penalty=decayed(
+            state.mesh_failure_penalty, _t(tp.mesh_failure_penalty_decay), z),
+        invalid_message_deliveries=decayed(
+            state.invalid_message_deliveries,
+            _t(tp.invalid_message_deliveries_decay), z),
+        behaviour_penalty=torch.where(bp < z, torch.zeros_like(bp), bp))
+
+
 def apply_prune_penalty(state: SimState, pruned: torch.Tensor, tp: TopicParams,
                         decay_to_zero: float = 0.0,
                         apply_decay: bool = False) -> SimState:

@@ -2,7 +2,8 @@
 from the last-good checkpoint with invariants raised (port of
 scripts/replay_crash.py).
 
-    python -m go_libp2p_pubsub_tpu_torch.replay_crash CRASH_DIR [--record]
+    python -m go_libp2p_pubsub_tpu_torch.replay_crash CRASH_DIR
+        [--scenario NAME] [--kwargs '{"n_peers": 512}'] [--record]
         [--member I]
 
 A dump (sim/supervisor.py ``_write_crash_dump``) holds the last-good
@@ -19,11 +20,12 @@ window alone. A dump either package wrote replays in the other: the
 are the reference's.
 
 :func:`replay` and :func:`replay_fleet` take the member's ``like``/
-``cfg``/``tp`` objects. Rebuilding them from a scenario name (the dump's
-stamp or ``--scenario``) needs the ``SCENARIOS`` registry, which is not
-ported yet (ROADMAP.md, Queue 1 item 9): the command line refuses it by
-name. Exit status: 0 clean replay, 3 the invariant trip reproduced, 1
-usage or config errors.
+``cfg``/``tp`` objects, or :func:`replay` rebuilds them from the scenario
+the supervisor stamped into crash.json (a ``sim.scenarios.SCENARIOS``
+name and its keyword arguments). ``--scenario``/``--kwargs`` override the
+stamp; fleet dumps stamp none, so ``--member`` needs ``--scenario``.
+Exit status: 0 clean replay, 3 the invariant trip reproduced, 1 usage or
+config errors.
 """
 
 from __future__ import annotations
@@ -33,12 +35,6 @@ import dataclasses
 import json
 import os
 import sys
-
-_SCENARIOS = ("rebuilding a member from a scenario name needs the "
-              "SCENARIOS registry, which is not ported yet (ROADMAP.md, "
-              "Queue 1 item 9); call replay()/replay_fleet() with like/cfg/"
-              "tp objects")
-
 
 def load_meta(crash_dir: str) -> dict:
     with open(os.path.join(crash_dir, "crash.json")) as f:
@@ -58,6 +54,16 @@ def _check_flags_version(meta: dict, crash_dir: str) -> None:
             f"{FLAGS_VERSION} — the fault_flags bit layouts differ; "
             "replay it with the build that wrote it instead of "
             "misreading its bits")
+
+
+def build_scenario(name: str, kwargs: dict | None, device=None) -> tuple:
+    """``(cfg, tp, like)`` of the ``SCENARIOS`` entry ``name`` on
+    ``device``; an unknown name raises SystemExit naming the known ones."""
+    from .sim import scenarios
+    if name not in scenarios.SCENARIOS:
+        raise SystemExit(f"unknown scenario {name!r}; known: "
+                         f"{sorted(scenarios.SCENARIOS)}")
+    return scenarios.SCENARIOS[name](**(kwargs or {}), device=device)
 
 
 def _keys(data, device):
@@ -95,20 +101,27 @@ def replay(crash_dir: str, like=None, cfg=None, tp=None,
     caller passes ``device="cpu"``); returns a record with ``tripped``
     (did the invariant trip reproduce), the final ``fault_flags`` when it
     did not, and the window bounds. ``like`` (a state of the run's shape,
-    on ``device``), ``cfg`` and ``tp`` describe the run."""
+    on ``device``), ``cfg`` and ``tp`` describe the run; without them they
+    are rebuilt from the scenario stamped into crash.json."""
     from .sim import checkpoint
 
     meta = load_meta(crash_dir)
     _check_flags_version(meta, crash_dir)
     if cfg is None or like is None or tp is None:
-        raise SystemExit(_SCENARIOS)
+        name = meta.get("scenario")
+        if not name:
+            raise SystemExit(
+                "crash.json carries no scenario metadata; pass --scenario "
+                "(and --kwargs) or call replay() with like/cfg/tp objects")
+        cfg, tp, like = build_scenario(name, meta.get("scenario_kwargs"),
+                                       device)
     want = meta.get("config_fingerprint")
     got = checkpoint.config_fingerprint(cfg)
     if want and got != want:
         raise SystemExit(
             f"config fingerprint {got[:12]}… does not match the dump's "
-            f"{want[:12]}… — replaying under a drifted config would not "
-            "reproduce the crash")
+            f"{want[:12]}… — wrong scenario/kwargs; replaying under a "
+            "drifted config would not reproduce the crash")
     state = checkpoint.restore(os.path.join(crash_dir, "last_good"), like,
                                cfg=cfg)
     keys = _keys(meta["window_key_data"], state.tick.device)
@@ -140,7 +153,10 @@ def replay_fleet(crash_dir: str, member: int, like=None, cfg=None, tp=None,
         raise SystemExit(f"{crash_dir!r} is not a fleet dump; run without "
                          "--member")
     if like is None or cfg is None or tp is None:
-        raise SystemExit(_SCENARIOS)
+        raise SystemExit(
+            "fleet dumps carry no scenario metadata (members may mix "
+            "configs); pass --scenario/--kwargs or call replay_fleet() "
+            "with like/cfg/tp objects for the member being replayed")
     b = int(meta["fleet_size"])
     ids = meta.get("member_ids")
     if ids is not None:
@@ -189,16 +205,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("crash_dir")
     ap.add_argument("--scenario", default=None,
-                    help="a scenario name to rebuild the member from "
-                         "(refused: ROADMAP.md, Queue 1 item 9)")
+                    help="sim.scenarios.SCENARIOS key (default: from dump)")
     ap.add_argument("--kwargs", default=None,
-                    help="JSON dict of the scenario's keyword arguments")
+                    help="JSON dict of scenario builder kwargs")
+    ap.add_argument("--device", default=None,
+                    help="where to replay (default: cuda)")
     ap.add_argument("--record", action="store_true",
                     help="replay in record mode (collect flags, no raise)")
     ap.add_argument("--member", type=int, default=None,
                     help="fleet dumps: which member (input index) to "
                          "restore and replay")
     args = ap.parse_args(argv)
+    mode = "record" if args.record else "raise"
     meta = load_meta(args.crash_dir)
     if is_fleet_dump(meta) and args.member is None:
         print(json.dumps({
@@ -207,10 +225,37 @@ def main(argv=None) -> int:
             "member_names": meta.get("member_names"),
             "active_members": meta.get("active_members")}), flush=True)
         return 1
-    print(json.dumps({"error": _SCENARIOS,
-                      "scenario": args.scenario or meta.get("scenario")}),
-          flush=True)
-    return 1
+    from .sim import scenarios
+    if args.scenario and args.scenario not in scenarios.SCENARIOS:
+        print(json.dumps({"error": f"unknown scenario {args.scenario!r}",
+                          "known": sorted(scenarios.SCENARIOS)}), flush=True)
+        return 1
+    kwargs = json.loads(args.kwargs) if args.kwargs else {}
+    try:
+        if args.member is not None:
+            if not args.scenario:
+                print(json.dumps({"error": "--member needs --scenario (fleet "
+                                  "dumps carry no scenario metadata)"}),
+                      flush=True)
+                return 1
+            cfg, tp, like = build_scenario(args.scenario, kwargs, args.device)
+            result = replay_fleet(args.crash_dir, args.member, like=like,
+                                  cfg=cfg, tp=tp, invariant_mode=mode,
+                                  device=args.device)
+        elif args.scenario:
+            # the command line overrides the dump's stamp (the dump itself
+            # is never changed)
+            cfg, tp, like = build_scenario(args.scenario, kwargs, args.device)
+            result = replay(args.crash_dir, like=like, cfg=cfg, tp=tp,
+                            invariant_mode=mode, device=args.device)
+        else:
+            result = replay(args.crash_dir, invariant_mode=mode,
+                            device=args.device)
+    except SystemExit as e:
+        print(json.dumps({"error": str(e)}), flush=True)
+        return 1
+    print(json.dumps(result), flush=True)
+    return 3 if result.get("tripped") else 0
 
 
 if __name__ == "__main__":

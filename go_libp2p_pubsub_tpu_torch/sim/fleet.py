@@ -577,6 +577,12 @@ def _drive(members, sup, dumps, hook, collect_health=False, device=None):
     if not members:
         return [], SupervisorReport()
     refuse_unported(sup)
+    if sup.commands is not None:
+        raise NotImplementedError(
+            "commands: the fleet plane has no command plane (the "
+            "reference's fleet plane never reads SupervisorConfig."
+            "commands, so a fleet would drop every directive silently); "
+            "drive the member through supervised_run with a CommandQueue")
     for m in members:
         if m.n_ticks < 0:
             raise ValueError(f"member {m.name!r}: n_ticks must be >= 0")

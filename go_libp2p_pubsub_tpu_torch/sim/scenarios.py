@@ -1,5 +1,5 @@
 """Named benchmark scenarios as reproducible constructors (port of
-sim/scenarios.py; the scenarios the port runs so far).
+sim/scenarios.py; all but the power-law family).
 
 Each constructor returns ``(cfg, tp, state)`` ready for ``engine.run``, with
 the state on ``device`` (cuda unless the caller passes ``device="cpu"``),
@@ -42,6 +42,12 @@ with ``rows=``, a shard of ``topology.sparse_hash``), ``frontier`` and
 ``edge_gather_mode="sort"`` (every exchange by one sort permutation) over
 the fused hop, resolve and emit; the two XL sizes default to the compact
 state precision (sim/state.py) at any ``n_peers`` the caller passes.
+
+The adversary families (sim/adversary.py; scenarios.py:385-441):
+``eclipse_small``, ``censor_small``, ``flashcrowd_small``,
+``slowlink_small``, ``diurnal_small`` and the bench-scale ``eclipse_50k``
+and ``flashcrowd_50k``. :data:`SCENARIOS` is the reference's name
+registry.
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -386,3 +392,95 @@ def outage_small(n_peers: int = 512, k_slots: int = 16, degree: int = 6,
     """outage_10k's 20%-dark regional outage at sweep scale."""
     return outage_10k(n_peers=n_peers, k_slots=k_slots, degree=degree,
                       start=start, heal=heal, **kw)
+
+
+# --- the adversary families (sim/adversary.py) ---------------------------
+# Five attack/workload families with machine-checkable behaviour contracts
+# (delivery floor, recovery ceiling, score response). The registry entries
+# below return the plain (cfg, tp, state) triple; the contracts travel on
+# adversary.ATTACKS[name](). Lazy imports: adversary imports this module
+# for the shared helpers.
+
+
+def eclipse_small(**kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """Sybil mesh takeover of a target region (adversary.eclipse)."""
+    from . import adversary
+    return tuple(adversary.eclipse(**kw)[:3])
+
+
+def censor_small(**kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """Score-gamed starvation of a victim publisher
+    (adversary.censorship)."""
+    from . import adversary
+    return tuple(adversary.censorship(**kw)[:3])
+
+
+def flashcrowd_small(**kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """Hot-topic publish storm, skewed publishers
+    (adversary.flash_crowd)."""
+    from . import adversary
+    return tuple(adversary.flash_crowd(**kw)[:3])
+
+
+def slowlink_small(**kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """Heterogeneous per-edge delay/drop classes (adversary.slow_link)."""
+    from . import adversary
+    return tuple(adversary.slow_link(**kw)[:3])
+
+
+def diurnal_small(**kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """Scheduled diurnal join/leave waves (adversary.diurnal)."""
+    from . import adversary
+    return tuple(adversary.diurnal(**kw)[:3])
+
+
+def eclipse_50k(n_peers: int = 50_000, k_slots: int = 32, degree: int = 12,
+                **kw) -> tuple[SimConfig, TopicParams, SimState]:
+    """The eclipse family at bench scale: 50k peers, its window at ticks
+    [3, 8) so the attack fires inside a 10-tick measurement."""
+    from . import adversary
+    kw.setdefault("start", 3)
+    kw.setdefault("end", 8)
+    return tuple(adversary.eclipse(n_peers=n_peers, k_slots=k_slots,
+                                   degree=degree, **kw)[:3])
+
+
+def flashcrowd_50k(n_peers: int = 50_000, k_slots: int = 32,
+                   degree: int = 12, **kw
+                   ) -> tuple[SimConfig, TopicParams, SimState]:
+    """The flash-crowd family at bench scale (hot set scaled with N)."""
+    from . import adversary
+    kw.setdefault("start", 3)
+    kw.setdefault("end", 8)
+    kw.setdefault("hot", 64)
+    return tuple(adversary.flash_crowd(n_peers=n_peers, k_slots=k_slots,
+                                       degree=degree, **kw)[:3])
+
+
+# name -> builder, the reference's registry (scenarios.py:628-650): the
+# names crash dumps stamp and replay_crash.py rebuilds a run from. The
+# power-law family (BUCKETED_SCENARIOS) waits for the bucketed engine
+# (ROADMAP.md, Queue 1 item 8).
+SCENARIOS = {
+    "1k_single_topic": single_topic_1k,
+    "10k_beacon": beacon_10k,
+    "50k_churn": churn_50k,
+    "100k_sybil": sybil_100k,
+    "50k_partition": partition_50k,
+    "10k_outage": outage_10k,
+    "sybil_small": sybil_small,
+    "partition_small": partition_small,
+    "outage_small": outage_small,
+    "eclipse_small": eclipse_small,
+    "censor_small": censor_small,
+    "flashcrowd_small": flashcrowd_small,
+    "slowlink_small": slowlink_small,
+    "diurnal_small": diurnal_small,
+    "eclipse_50k": eclipse_50k,
+    "flashcrowd_50k": flashcrowd_50k,
+    "frontier_250k": frontier_250k,
+    "frontier_500k": frontier_500k,
+    "frontier_1m": frontier_1m,
+    "frontier_4m": frontier_4m,
+    "frontier_10m": frontier_10m,
+}

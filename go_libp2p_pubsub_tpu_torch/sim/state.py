@@ -566,13 +566,16 @@ def init_state(cfg: SimConfig, topo: Topology,
 def field_from_reference(field: str, a, device) -> torch.Tensor:
     """One field of a reference state (a numpy array in the reference's
     dtype) as the port's tensor on ``device``: uint32 planes become int32
-    and uint16 planes int16 tensors with the same bits."""
+    and uint16 planes int16 tensors with the same bits. The tensor is
+    contiguous whatever the array's memory order (a CPU run's transposed
+    planes reach ``.npz`` files in Fortran order; the card's kernels take
+    contiguous rows)."""
     a = np.asarray(a)
     if field in U32_FIELDS:
         a = a.astype(np.uint32)
     if a.dtype in (np.uint32, np.uint16):
         a = a.view(np.int32 if a.dtype == np.uint32 else np.int16)
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def state_from_reference(arrays: dict, device=None) -> SimState:

@@ -58,18 +58,36 @@ is chunked, checkpointed, resumed, retried or degraded.
   the failing window's keys and the decoded ``fault_flags`` to a crash
   directory and raises :class:`SupervisorCrash`;
   ``python -m go_libp2p_pubsub_tpu_torch.replay_crash`` replays it.
+- **Command plane** (``commands``, a sim/commands.py ``CommandQueue``):
+  each chunk dispatch drains one fixed-shape directive frame at its
+  boundary and applies it (``apply_frame``) before the chunk runs; a
+  retry re-applies the same cached frame to the same pre-apply input.
+  The consumed stream offset rides every checkpoint sidecar
+  (``stream_offset=``) and a resumed run seeks the queue there, so each
+  directive applies exactly once. While a command plane or live contracts
+  are attached no chunk is donated: a catch-up replays from keys alone
+  and would lose the injected directives.
+- **Live verdicts** (``contracts``, sim/adversary.py): each confirmed
+  chunk's health rows fold into ``ContractMonitors`` on the main thread,
+  every status transition is journaled (``contract_verdict``, ids that
+  the journal readers deduplicate) before the boundary's checkpoint, and
+  the monitor state rides the sidecar (``monitors=``). A failure answers
+  under ``verdict_policy``: ``"journal"`` (a ``contract_alarm`` note),
+  ``"snapshot"`` (an off-cadence checkpoint of the breach state) or
+  ``"abort"`` (checkpoint, ``verdict_abort`` note, :class:`VerdictAbort`).
+- **Traced lane** (``traced=True``): chunks run through
+  ``sim/trace_export.run_traced`` on the run's own keys, host-stepped and
+  synchronous; ``events_out``/``health_out`` collect the confirmed
+  chunks' events and rows.
 
 Env knobs (``SupervisorConfig.from_env``): ``GRAFT_CHUNK_TICKS``,
 ``GRAFT_DEADLINE_S``, ``GRAFT_CRASH_DIR``, ``GRAFT_CHECKPOINT_DIR``,
 ``GRAFT_HEALTH_STREAM``, ``GRAFT_ASYNC_CHUNKS``, ``GRAFT_WRITER_QUEUE``,
 ``GRAFT_MH_RUNG``, ``GRAFT_VERDICT_POLICY``.
 
-Refused by name, never ignored: ``traced=True`` (``trace_export``),
-``commands``, ``contracts`` and a ``verdict_policy`` other than
-``"journal"`` (ROADMAP.md, Queue 1 item 9); ``run_fn``,
-``state_to_host``, ``state_from_host`` and ``liveness`` (item 7);
-``chaos`` (items 7 and 9). The fleet plane (sim/fleet.py) builds on the
-same primitives.
+Refused by name, never ignored: ``run_fn``, ``state_to_host``,
+``state_from_host``, ``liveness`` and ``chaos`` (ROADMAP.md, Queue 1 item
+7). The fleet plane (sim/fleet.py) builds on the same primitives.
 """
 
 from __future__ import annotations
@@ -125,6 +143,19 @@ class ChunkDeadline(RuntimeError):
     """A chunk overran its wall-clock deadline (transient: retried)."""
 
 
+class VerdictAbort(RuntimeError):
+    """A live behaviour contract failed under ``verdict_policy="abort"``:
+    the run stopped cleanly at the boundary that detected the breach (a
+    checkpoint of the breach state written when a directory is set).
+    ``event`` is the failing verdict, ``report`` the run log."""
+
+    def __init__(self, msg: str, event: dict | None = None,
+                 report: "SupervisorReport | None" = None):
+        super().__init__(msg)
+        self.event = event
+        self.report = report
+
+
 @dataclasses.dataclass
 class SupervisorConfig:
     """Host-side supervision knobs (execution shape only; none of them can
@@ -169,11 +200,16 @@ class SupervisorConfig:
     health_meta: dict | None = None   # extra keys of the journal header
     # parallel/resilience.py RankLiveness: ROADMAP item 7
     liveness: object | None = None
-    # sim/commands.py and sim/adversary.py's live verdicts: item 9
+    # the live command plane: a sim/commands.py CommandQueue drained and
+    # applied at every chunk boundary
     commands: object | None = None
+    # live behaviour contracts (sim/adversary.py) folded over the health
+    # rows; needs the telemetry lane (health_path) or the traced lane
     contracts: tuple = ()
+    # a failing contract's response: "journal", "snapshot" or "abort"
+    # (GRAFT_VERDICT_POLICY)
     verdict_policy: str = "journal"
-    # parallel/resilience.ChaosPlan: items 7 and 9
+    # parallel/resilience.ChaosPlan: ROADMAP item 7
     chaos: object | None = None
     # rungs of the degrade ladder applied before the first chunk
     # (GRAFT_MH_RUNG); checkpoints keep stamping the base config
@@ -205,28 +241,18 @@ class SupervisorConfig:
         return SupervisorConfig(**kw)
 
 
-def refuse_unported(sup: SupervisorConfig, traced: bool = False) -> None:
+def refuse_unported(sup: SupervisorConfig) -> None:
     """Raise NotImplementedError for a hook whose plane is not ported,
     naming its ROADMAP item: a hook is never silently ignored."""
     refused = []
-    if traced:
-        refused.append(("traced=True (sim/trace_export.py)", "item 9"))
-    if sup.commands is not None:
-        refused.append(("commands (sim/commands.py)", "item 9"))
-    if sup.contracts:
-        refused.append(("contracts (sim/adversary.py's live verdicts)",
-                        "item 9"))
-    if sup.verdict_policy != "journal":
-        refused.append((f"verdict_policy={sup.verdict_policy!r} "
-                        "(sim/adversary.py's live verdicts)", "item 9"))
     for name in ("run_fn", "state_to_host", "state_from_host"):
         if getattr(sup, name) is not None:
             refused.append((f"{name} (parallel/multihost.py)", "item 7"))
     if sup.liveness is not None:
         refused.append(("liveness (parallel/resilience.py)", "item 7"))
     if sup.chaos is not None:
-        refused.append(("chaos (parallel/resilience.py's ChaosPlan firing "
-                        "verdict drills)", "items 7 and 9"))
+        refused.append(("chaos (parallel/resilience.py's ChaosPlan)",
+                        "item 7"))
     if refused:
         raise NotImplementedError("; ".join(
             f"{what} {_later(item)}" for what, item in refused))
@@ -585,6 +611,8 @@ class _Pending:
 
     out: SimState
     fence: _Fence
+    events: list                # traced lane: the chunk's events
+    health: list                # traced lane: its per-tick host rows
     info: dict
     ticks: int
     src: SimState
@@ -594,21 +622,22 @@ class _Pending:
 
 
 def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
-                    keys_chunk, master_key, sup: SupervisorConfig, hook,
-                    info: dict, *, donate: bool = False,
+                    keys_chunk, master_key, sup: SupervisorConfig,
+                    traced: bool, hook, info: dict, *, donate: bool = False,
                     src_stamp=None) -> _Pending:
     """Dispatch one chunk attempt WITHOUT waiting for the card: build its
     executable (under the compile deadline: a capture on the card), run
     the fault-injection hook and the enqueue under the run deadline, and
     fence the result. ``keys_chunk is None`` selects the ``"fold_in"``
-    window executable; ``donate=True`` the donated flavour."""
+    window executable; ``donate=True`` the donated flavour. ``traced``
+    runs the chunk through ``trace_export.run_traced`` (host-stepped)."""
     from ..parallel import compile_plan
     from .engine import run_checked_keys
 
-    telemetry = sup.health_path is not None
+    telemetry = sup.health_path is not None and not traced
     dev = state.tick.device
     exe = None
-    if exec_cfg.invariant_mode != "raise":
+    if exec_cfg.invariant_mode != "raise" and not traced:
         if keys_chunk is None:
             exe = _with_deadline(
                 lambda: compile_plan.engine_window(
@@ -624,6 +653,8 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
                 sup.compile_deadline_s, "compile", info, dev)
 
     cancelled = threading.Event()
+    events: list = []
+    health: list = []
 
     def worker():
         if hook is not None:        # test/smoke fault-injection point
@@ -633,6 +664,13 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
             # must not touch buffers the retry may run from
             return None
         rec = None
+        if traced:
+            from .trace_export import run_traced
+            out, evs = run_traced(state, exec_cfg, tp, None, 0,
+                                  health_out=health, keys=keys_chunk,
+                                  device=dev)
+            events.extend(evs)
+            return out, None, _Fence(out.tick, None)
         if exe is not None:
             out = exe(state, tp, master_key if keys_chunk is None
                       else keys_chunk)
@@ -653,7 +691,8 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
             compile_plan.retire(exe)
         raise
     out, out_stamp, fence = res
-    return _Pending(out=out, fence=fence, info=info,
+    return _Pending(out=out, fence=fence, events=events, health=health,
+                    info=info,
                     ticks=int(info["chunk_ticks"]), src=state,
                     src_stamp=src_stamp, out_stamp=out_stamp,
                     dispatched_at=time.monotonic())
@@ -684,17 +723,23 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
     state must lie there).
 
     Returns ``(final_state, report)``; the final state equals
-    ``engine.run(state, cfg, tp, key, n_ticks)`` bit for bit. Raises
-    :class:`SupervisorCrash` after writing a crash dump when the run
-    cannot make progress. ``events_out``/``health_out`` collect the traced
-    lane's records, and ``traced=True`` is refused (ROADMAP item 9).
+    ``engine.run(state, cfg, tp, key, n_ticks)`` bit for bit (with a
+    command plane: the same ticks with each frame applied at its
+    boundary). Raises :class:`SupervisorCrash` after writing a crash dump
+    when the run cannot make progress, :class:`VerdictAbort` when a live
+    contract fails under ``verdict_policy="abort"``.
+
+    ``traced=True`` routes chunks through ``trace_export.run_traced``
+    (requires ``cfg.record_provenance``); confirmed chunks append their
+    events and health rows to ``events_out``/``health_out`` (a failed
+    attempt's are discarded, so a retried tick is never counted twice).
     ``_chunk_hook(info)`` is a fault-injection point called at the top of
     every chunk attempt."""
     from ..parallel import compile_plan
 
     check_on(state.tick.device, device)
     sup = sup or SupervisorConfig.from_env()
-    refuse_unported(sup, traced)
+    refuse_unported(sup)
     report = SupervisorReport()
     start_tick = int(_fetch_scalar(state.tick))
     fold = cfg.key_schedule == "fold_in"
@@ -704,12 +749,55 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
     # keys fold on the card; crash dumps and "raise" chunks materialize
     # their windows through engine.window_keys
     all_keys = None if fold else rng.split(key, n_ticks)
-    pipelined = bool(sup.async_chunks) and cfg.invariant_mode != "raise"
+    # traced and checkified chunks are host-blocking: synchronous, the
+    # writer inline, no speculation
+    pipelined = bool(sup.async_chunks) and not traced \
+        and cfg.invariant_mode != "raise"
 
     done = 0
     if sup.checkpoint_dir:
         state, done = _try_resume(sup, cfg, state, start_tick, n_ticks,
                                   report)
+
+    # the command plane: tail the stream from the stamped offset, the
+    # exactly-once cursor a resumed run replays ingestion from
+    ingest = sup.commands
+    if ingest is not None:
+        ing_off = 0
+        if report.resumed_from:
+            try:
+                ing_off = int(checkpoint.sidecar_meta(report.resumed_from)
+                              .get("stream_offset") or 0)
+            except Exception:
+                ing_off = 0
+        ingest.start(ing_off)
+        report.log("ingest_start", offset=ing_off)
+
+    # live verdicts: the monitors resume from the sidecar's token, so a
+    # relaunch re-derives only the verdicts not yet checkpointed
+    monitors = None
+    if sup.contracts:
+        from .adversary import ContractMonitors
+        if sup.verdict_policy not in ("journal", "snapshot", "abort"):
+            raise ValueError(
+                f"verdict_policy {sup.verdict_policy!r} unknown "
+                "(supported: 'journal', 'snapshot', 'abort')")
+        if sup.health_path is None and not traced:
+            raise ValueError(
+                "live contracts need the telemetry lane: set health_path "
+                "(GRAFT_HEALTH_STREAM) so chunks carry the rows the "
+                "monitors fold")
+        monitors = ContractMonitors(tuple(sup.contracts))
+        if report.resumed_from:
+            tok = checkpoint.sidecar_meta(report.resumed_from) \
+                .get("monitors")
+            if tok:
+                # a contract-set mismatch is refused (from_token), never a
+                # silent verdict reset
+                monitors = ContractMonitors.from_token(
+                    tok, tuple(sup.contracts))
+                report.log("verdict_resume",
+                           statuses=list(monitors.statuses))
 
     journal = None
     if sup.health_path and sup.write_files:
@@ -746,12 +834,28 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
 
     def dispatch(src, src_stamp, c_done: int, ticks: int, info: dict,
                  donate: bool, hook=_chunk_hook) -> _Pending:
+        anchor_src = src
+        frame = None
+        if ingest is not None and not info.get("catchup"):
+            # the boundary drain (cached per chunk_start: a retry gets the
+            # SAME frame), applied with the BASE cfg out of place
+            frame = ingest.frame_for(start_tick + c_done, ticks)
+            if frame.count:
+                src = ingest.apply(src, cfg, tp, frame)
+            info["directives"] = int(frame.count)
+            info["ingest_frame"] = frame
         keys_chunk = None
-        if not (fold and cfg.invariant_mode != "raise"):
+        if not (fold and not traced and cfg.invariant_mode != "raise"):
             keys_chunk = chunk_keys(c_done, c_done + ticks)
-        return _dispatch_chunk(src, exec_cfg, tp, keys_chunk, key, sup,
-                               hook, info, donate=donate,
-                               src_stamp=src_stamp)
+        p = _dispatch_chunk(src, exec_cfg, tp, keys_chunk, key, sup,
+                            traced, hook, info, donate=donate,
+                            src_stamp=src_stamp)
+        if frame is not None:
+            # a retry resets the carry to the recorded input and
+            # re-applies the cached frame: the PRE-apply state, or the
+            # frame would apply twice
+            p.src = anchor_src
+        return p
 
     def handle_failure(e: Exception, info: dict, fail_done: int,
                        this_chunk: int, last_good, last_stamp,
@@ -811,33 +915,125 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         nonlocal done, carry, carry_stamp, carry_done, next_ckpt, failures
         nonlocal anchor_state, anchor_done, window_end_hit
         done_wall = time.time()
+        fr = p.info.pop("ingest_frame", None)
         failures = 0
         done += p.ticks
         carry, carry_stamp, carry_done = p.out, p.out_stamp, done
         report.chunks_run += 1
         report.ticks_run += p.ticks
         report.log("chunk_ok", **p.info)
+        if events_out is not None:
+            events_out.extend(p.events)
+        if health_out is not None:
+            health_out.extend(p.health)
         if journal is not None:
-            # the SUCCESSFUL chunk's records (a failed attempt's died with
-            # its discarded output), already in pinned host memory
+            # the SUCCESSFUL chunk's rows (a failed attempt's died with its
+            # discarded output): the records already in pinned host
+            # memory, or the traced lane's row dicts
             t0, tks = start_tick + done - p.ticks, p.ticks
-            writer.submit(lambda rec=p.fence.records: journal.append_records(
-                rec, tick_start=t0, ticks=tks, done_wall=done_wall))
+            if p.fence.records is not None:
+                writer.submit(lambda rec=p.fence.records:
+                              journal.append_records(
+                                  rec, tick_start=t0, ticks=tks,
+                                  done_wall=done_wall))
+            elif traced and p.health:
+                writer.submit(lambda rows=list(p.health):
+                              journal.append_dicts(
+                                  rows, tick_start=t0, ticks=tks,
+                                  done_wall=done_wall))
+            else:
+                writer.submit(lambda: journal.note(
+                    "chunk", rows=0, tick_start=t0, ticks=tks,
+                    done_wall=done_wall))
+        if journal is not None and fr is not None:
+            # ingest markers journal after the chunk that carried them
+            # confirmed: a discarded attempt's journal when its retry
+            # lands, never twice (the frame cache hands the retry the same
+            # notes)
+            for kind, meta in fr.notes:
+                writer.submit(lambda k=kind, m=dict(meta):
+                              journal.note(k, **m))
+            writer.submit(lambda f=fr, t=start_tick + done: journal.note(
+                "ingest", tick=t, directives=f.count, shed=f.shed,
+                shed_total=f.shed_total, refused_total=f.refused_total,
+                queue_depth=f.depth, lag_ticks=f.lag, offset=f.offset,
+                coasting=f.coasting))
+        # live verdicts: fold this chunk's rows (host side, main thread),
+        # journal every transition BEFORE the boundary's checkpoint (a
+        # checkpoint whose sidecar says "these verdicts happened" exists
+        # only after their notes were journaled), arm the FAIL response
+        force_ckpt = False
+        abort_ev = None
+        if monitors is not None:
+            rows = None
+            if p.fence.records is not None:
+                from .telemetry import records_to_rows, rows_to_dicts
+                rows = rows_to_dicts(*records_to_rows(p.fence.records))
+            elif traced and p.health:
+                rows = list(p.health)
+            new_events = monitors.fold_rows(rows) if rows else []
+            if done >= n_ticks:
+                # the true run end only (a bounded window resumes later):
+                # pending contracts settle
+                new_events = new_events + monitors.finalize()
+            for ev in new_events:
+                report.log("contract_verdict", contract=ev["contract"],
+                           kind=ev["kind"], status=ev["status"],
+                           tick=ev["tick"], id=ev["id"])
+                if journal is not None:
+                    # the contract's kind travels as contract_kind: "kind"
+                    # is the note's own type tag
+                    writer.submit(lambda e=dict(ev): journal.note(
+                        "contract_verdict",
+                        **{("contract_kind" if k == "kind" else k): v
+                           for k, v in e.items()}))
+            failed = [ev for ev in new_events if ev["status"] == "fail"]
+            if failed:
+                # never a silent continue: every policy leaves a named
+                # trail, and only "abort" stops the run
+                if sup.verdict_policy == "abort":
+                    abort_ev = dict(failed[0])
+                    force_ckpt = True   # the breach state lands durably
+                elif sup.verdict_policy == "snapshot":
+                    force_ckpt = True   # off-cadence breach checkpoint
+                    if not sup.checkpoint_dir and journal is not None:
+                        writer.submit(lambda e=dict(failed[0]): journal.note(
+                            "contract_snapshot_skipped",
+                            reason="no checkpoint_dir",
+                            contract=e["contract"],
+                            contract_kind=e["kind"], tick=e["tick"]))
+                elif journal is not None:       # "journal"
+                    for ev in failed:
+                        writer.submit(lambda e=dict(ev): journal.note(
+                            "contract_alarm", policy="journal",
+                            contract=e["contract"],
+                            contract_kind=e["kind"], tick=e["tick"],
+                            id=e["id"], detail=e["detail"]))
         window_end = sup.max_chunks is not None \
             and report.chunks_run >= sup.max_chunks and done < n_ticks
         # a window end is ALWAYS a boundary: "stop cleanly (checkpoint
         # written if a dir is set)"
-        if done >= next_ckpt or done >= n_ticks or window_end:
+        if done >= next_ckpt or done >= n_ticks or window_end or force_ckpt:
             pause_t0 = time.perf_counter()
             if sup.checkpoint_dir and sup.write_files:
                 to_save = _to_host(p.out, p.fence.event)
                 path = _ckpt_path(sup.checkpoint_dir, start_tick + done)
                 report.checkpoints.append(path)
                 report.log("checkpoint", tick=start_tick + done, path=path)
+                # exactly-once stamps: the consumed stream offset as of
+                # this chunk's frame and the monitors after this chunk's
+                # fold (a whitespace-free token: sidecar_meta splits on
+                # whitespace)
+                extra = {}
+                if fr is not None:
+                    extra["stream_offset"] = fr.offset
+                if monitors is not None:
+                    extra["monitors"] = monitors.state_token()
 
-                def save(to_save=to_save, path=path):
+                def save(to_save=to_save, path=path, extra=extra or None):
                     os.makedirs(sup.checkpoint_dir, exist_ok=True)
-                    checkpoint.save(path, to_save, cfg=cfg)  # crash-atomic
+                    checkpoint.save(path, to_save, cfg=cfg,
+                                    extra=extra)    # crash-atomic
                     _prune_checkpoints(sup.checkpoint_dir,
                                        sup.keep_checkpoints)
                 writer.submit(save)
@@ -859,6 +1055,23 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
             report.log("window_end", chunks=report.chunks_run,
                        tick=start_tick + done)
             window_end_hit = True
+        if abort_ev is not None:
+            # "abort": this boundary is the safe point; the breach
+            # checkpoint was submitted above, the note names the failing
+            # contract, and the drain makes both durable before the raise
+            if journal is not None:
+                writer.submit(lambda e=dict(abort_ev): journal.note(
+                    "verdict_abort", policy="abort",
+                    contract=e["contract"], contract_kind=e["kind"],
+                    tick=e["tick"], id=e["id"], detail=e["detail"]))
+            writer.drain(raise_errors=False)
+            report.log("verdict_abort", contract=abort_ev["contract"],
+                       kind=abort_ev["kind"], tick=abort_ev["tick"])
+            raise VerdictAbort(
+                f"contract {abort_ev['contract']} "
+                f"({abort_ev['kind']}) FAILED at tick "
+                f"{abort_ev['tick']} under verdict_policy='abort': "
+                f"{abort_ev['detail']}", event=abort_ev, report=report)
 
     try:
         while done < n_ticks and not window_end_hit:
@@ -918,9 +1131,14 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
                 s_info = {"chunk_start": start_tick + p_end,
                           "chunk_ticks": s_ticks, "attempt": 0,
                           "degrade_level": report.degrade_level}
+                # live contracts can force an off-cadence checkpoint at any
+                # confirm, and a catch-up would lose applied frames: no
+                # donation while either is attached
+                donate = not p_boundary and sup.commands is None \
+                    and not sup.contracts
                 try:
                     spec = dispatch(pend.out, pend.out_stamp, p_end, s_ticks,
-                                    s_info, donate=not p_boundary)
+                                    s_info, donate=donate)
                 except Exception as e:
                     spec_exc = (e, s_info, s_ticks)
                 except BaseException:
@@ -969,11 +1187,21 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         if journal is not None:
             # terminal marker: a bounded-window stop (max_chunks) is a
             # PAUSE the caller resumes; only true completion is "run_end"
+            ing_meta = {}
+            if ingest is not None:
+                ing_meta = {
+                    "commands_applied": int(
+                        getattr(ingest, "applied_total", 0)),
+                    "commands_shed": int(getattr(ingest, "shed_total", 0)),
+                    "commands_refused": int(
+                        getattr(ingest, "refused_total", 0)),
+                    "ingest_offset": int(
+                        getattr(ingest, "consumed_offset", 0))}
             writer.submit(lambda: journal.note(
                 "window_end" if done < n_ticks else "run_end",
                 tick=start_tick + done, chunks=report.chunks_run,
                 retries=report.retries,
-                degrade_level=report.degrade_level))
+                degrade_level=report.degrade_level, **ing_meta))
         # drain barrier: every checkpoint is durable and the journal
         # fsync'd before the caller sees the final state
         writer.drain()

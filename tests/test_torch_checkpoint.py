@@ -103,6 +103,23 @@ def test_resume_equals_the_uninterrupted_run(net, tmp_path):
     _assert_equal(state_to_numpy(want), state_to_numpy(got), "resumed")
 
 
+def test_restored_planes_are_contiguous(net, tmp_path):
+    """A CPU run leaves some planes as transposed views (``deliver_tick``,
+    ``iwant_pending``), which ``.npz`` stores in Fortran order; a restored
+    or converted state is contiguous all the same, as the card's kernels
+    need (a CPU checkpoint resumed on the card fed ``iwant_resolve`` a
+    strided ``pend``, which it refuses)."""
+    _, (cfg, tp, st) = net
+    half = engine.run_keys(st, cfg, tp, _keys()[:4], device="cpu")
+    path = str(tmp_path / "ck")
+    checkpoint.save(path, half, cfg=cfg)
+    for back in (checkpoint.restore(path, st, cfg=cfg),
+                 state_from_reference(state_to_numpy(half), device="cpu")):
+        assert [f for f, x in zip(back._fields, back)
+                if not x.is_contiguous()] == []
+        _assert_equal(state_to_numpy(half), state_to_numpy(back))
+
+
 def test_checkpoints_cross_between_packages(net, tmp_path):
     (jcfg, jtp, jst, jhalf, jwhole), (cfg, tp, st) = net
     keys = _keys()

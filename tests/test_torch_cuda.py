@@ -818,3 +818,205 @@ def test_supervised_retry_on_the_card_keeps_the_kernels():
     have = state_to_numpy(got)
     for f, a in want.items():
         np.testing.assert_array_equal(have[f], a, err_msg=f)
+
+
+# --- the command plane and the trace loop (sim/commands.py, trace/) --------
+
+def _attack_state(dev):
+    """single_topic_1k at 512 peers with eight sybils, after three ticks
+    (on the CPU, then moved), and the frame of a storm, an eclipse and a
+    censor directive."""
+    from go_libp2p_pubsub_tpu_torch.sim import (run, scenarios,
+                                                state_from_reference,
+                                                state_to_numpy, topology)
+    from go_libp2p_pubsub_tpu_torch.sim import commands
+    topo = topology.sparse(512, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = scenarios.single_topic_1k(512, device="cpu", topo=topo)
+    mal = torch.zeros(512, dtype=torch.bool)
+    mal[400:408] = True
+    st = run(st._replace(malicious=mal), cfg, tp,
+             rng.PRNGKey(1, device="cpu"), 3, device="cpu")
+    st = state_from_reference(state_to_numpy(st), device=dev)
+    tp = type(tp)(*(x.to(dev) for x in tp))
+    slots = 16
+    op = np.zeros(slots, np.int32)
+    a, b, c = (np.zeros(slots, np.int32) for _ in range(3))
+    lanes = [(commands.OP_PUBLISH, 5, 3), (commands.OP_PUBLISH, 6, 4),
+             (commands.OP_JOIN, 9, -1), (commands.OP_ECLIPSE, 0, -1),
+             (commands.OP_ECLIPSE, 1, -1), (commands.OP_ECLIPSE, 2, -1),
+             (commands.OP_CENSOR, 50, -1), (commands.OP_CENSOR, 51, -1)]
+    for i, (o, p, s) in enumerate(lanes):
+        op[i], a[i], b[i] = o, p, s
+    frame = commands.empty_frame(slots)._replace(op=op, a=a, b=b, c=c,
+                                                 count=len(lanes))
+    return cfg, tp, st, frame
+
+
+def test_apply_frame_with_attack_lanes_cuda_equals_cpu():
+    """A frame with publish, join, eclipse and censor lanes applied on the
+    card equals the CPU's in every field, makes no synchronization (sync
+    debug "error"), and leaves the input state as it was."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import commands, state_to_numpy
+    cfg, tp, st, frame = _attack_state("cuda")
+    ccfg, ctp, cst, _ = _attack_state("cpu")
+    before = state_to_numpy(st)
+    commands.apply_frame(st, cfg, tp, frame)        # first use, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = commands.apply_frame(st, cfg, tp, frame)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = state_to_numpy(commands.apply_frame(cst, ccfg, ctp, frame))
+    have = state_to_numpy(got)
+    for f, x in want.items():
+        np.testing.assert_array_equal(have[f], x, err_msg=f)
+    for f, x in state_to_numpy(st).items():
+        np.testing.assert_array_equal(x, before[f], err_msg=f)
+    assert int(have["fault_flags"]) & (1 << 7) and \
+        int(have["fault_flags"]) & (1 << 8)
+
+
+def _traced_case(dev, ticks=3):
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, topology
+    from go_libp2p_pubsub_tpu_torch.sim.trace_export import run_traced
+    topo = topology.sparse(256, 16, degree=6, seed=scenarios.SEED)
+    cfg, tp, st = scenarios.single_topic_1k(256, 16, 6, device=dev,
+                                            topo=topo)
+    cfg = dataclasses.replace(cfg, record_provenance=True)
+    rows = []
+    out, events = run_traced(st, cfg, tp, None, 0, health_out=rows,
+                             keys=rng.split(rng.PRNGKey(5, device=dev),
+                                            ticks), device=dev)
+    return cfg, tp, out, events, rows, topo
+
+
+def test_run_traced_events_cuda_equal_cpu():
+    """``run_traced`` on the card: the same events, list for list, the same
+    final state and the same health rows (float32 columns to rtol 1e-6,
+    ``score_mean`` to 1e-5) as on the CPU."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+    _, _, out, events, rows, _ = _traced_case("cuda")
+    _, _, cout, cevents, crows, _ = _traced_case("cpu")
+    assert events == cevents and len(events) > 256
+    have, want = state_to_numpy(out), state_to_numpy(cout)
+    for f, x in want.items():
+        np.testing.assert_array_equal(have[f], x, err_msg=f)
+    for r, w in zip(rows, crows):
+        for k in w:
+            if isinstance(w[k], float):
+                np.testing.assert_allclose(
+                    r[k], w[k], rtol=1e-5 if k == "score_mean" else 1e-6)
+            else:
+                assert r[k] == w[k], k
+
+
+def test_replay_feed_cuda_makes_no_sync_and_equals_cpu():
+    """The exported events of a traced CPU run, tensorized and replayed
+    into a fresh state on the card under sync debug "error" (no op reads
+    the device), equal the CPU's replay in every field."""
+    _need_card()
+    import importlib
+    from go_libp2p_pubsub_tpu_torch.sim import (init_state, state_to_numpy)
+    rp = importlib.import_module("go_libp2p_pubsub_tpu_torch.trace.replay")
+    cfg, tp, _, events, _, topo = _traced_case("cpu")
+    pre = [{"type": "JOIN", "peerID": f"p{i}", "timestamp": 0.1,
+            "join": {"topic": "t0"}} for i in range(256)]
+    feed = rp.tensorize_trace(pre + events, {f"p{i}": i for i in range(256)},
+                              {"t0": 0}, msg_window=cfg.msg_window,
+                              t_end=3.0)
+    fresh = np.zeros((256, 1), bool)
+    want = state_to_numpy(rp.replay_feed(
+        init_state(cfg, topo, subscribed=fresh, device="cpu"), cfg, tp,
+        feed))
+    st = init_state(cfg, topo, subscribed=fresh, device="cuda")
+    gtp = type(tp)(*(x.cuda() for x in tp))
+    rp.replay_feed(st, cfg, gtp, feed._replace(
+        op=feed.op[:64], a=feed.a[:64], b=feed.b[:64], c=feed.c[:64]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rp.replay_feed(st, cfg, gtp, feed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    have = state_to_numpy(got)
+    for f, x in want.items():
+        np.testing.assert_array_equal(have[f], x, err_msg=f)
+
+
+def test_supervised_commands_on_the_card_leave_frames_intact(tmp_path):
+    """A supervised run on the card fed a directive stream (publishes, a
+    join, eclipse and censor attacks, a malformed line) equals the
+    unsupervised loop that applies the same frames at the same boundaries
+    and steps with ``run_keys``; no donated executable is built while the
+    command plane is attached; and a frame applied to a donated chunk's
+    result (its graph's static state) leaves those buffers as they
+    were."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (commands, run_keys,
+                                                state_to_numpy)
+    from go_libp2p_pubsub_tpu_torch.sim.supervisor import (SupervisorConfig,
+                                                           supervised_run)
+    cfg, tp, st, frame = _attack_state("cuda")
+    src = str(tmp_path / "s.ndjson")
+    directives = [
+        {"op": "publish", "tick": 1, "peer": 3, "topic": 0},
+        {"op": "join", "tick": 2, "peer": 7, "topic": 0},
+        {"op": "attack", "tick": 5, "kind": "eclipse", "peers": [0, 1, 2]},
+        {"op": "attack", "tick": 6, "kind": "censor", "peers": [20, 21]},
+        {"op": "frobnicate", "tick": 6},
+    ]
+    commands.write_stream(src, directives)
+    key = rng.PRNGKey(8, device="cuda")
+
+    def queue():
+        return commands.CommandQueue(src, n_peers=512, n_topics=1,
+                                     msg_window=cfg.msg_window, slots=8,
+                                     stall_timeout_s=30.0)
+
+    q = queue()
+    compile_plan.clear_caches()
+    try:
+        got, rep = supervised_run(
+            st, cfg, tp, key, 12, SupervisorConfig(
+                chunk_ticks=4, checkpoint_every_ticks=12, commands=q),
+            device="cuda")
+        donated = [k for k, e in compile_plan._ENGINE_PLANS.items()
+                   if e.donate]
+    finally:
+        q.close()
+        compile_plan.clear_caches()
+    assert rep.retries == 0 and not donated
+    # the unsupervised loop: the same frames at the same boundaries
+    q = queue().start(0)
+    keys = rng.split(key, 12)
+    want = st
+    t0 = int(st.tick)                   # the state after three ticks
+    try:
+        for start in (0, 4, 8):
+            f = q.frame_for(t0 + start, 4)
+            if f.count:
+                want = commands.apply_frame(want, cfg, tp, f)
+            want = run_keys(want, cfg, tp, keys[start:start + 4],
+                            device="cuda")
+    finally:
+        q.close()
+    assert q.refused_total == 1
+    have, want = state_to_numpy(got), state_to_numpy(want)
+    for f, x in want.items():
+        np.testing.assert_array_equal(have[f], x, err_msg=f)
+    # a frame applied to a donated result writes none of its buffers
+    try:
+        exe = compile_plan.engine_chunk(cfg, st, tp, keys[:4], donate=True)
+        out = exe(st, tp, keys[:4])
+        before = [x.clone() for x in out]
+        applied = commands.apply_frame(out, cfg, tp, frame)
+        for f, x, y in zip(out._fields, out, before):
+            assert torch.equal(x, y), f
+        assert any(a is not b for a, b in zip(applied, out))
+    finally:
+        compile_plan.clear_caches()

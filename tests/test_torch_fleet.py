@@ -330,7 +330,9 @@ def test_placement_is_one_device(base):
 
 
 @pytest.mark.parametrize("hook, item", [
-    ({"commands": object()}, "item 9"),
+    # the reference's fleet plane never reads commands: refused, naming
+    # the directives a fleet would drop
+    ({"commands": object()}, "drop every directive"),
     ({"run_fn": lambda *a: None}, "item 7"),
     ({"liveness": object()}, "item 7"),
 ])

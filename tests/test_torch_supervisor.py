@@ -393,20 +393,68 @@ def test_replay_reproduces_clean_and_tripped(plain, tmp_path):
 
 
 def test_replay_refusals_name_their_item(plain, tmp_path, capsys):
+    """A stamped name that is not a ``SCENARIOS`` key is refused naming
+    the known ones, as the reference's replay refuses it; a dump with no
+    stamp asks for ``--scenario``; a drifted config names the
+    fingerprint."""
+    from scripts.replay_crash import replay as jreplay
     _, (cfg, tp, st, key), _ = plain
     with pytest.raises(SupervisorCrash) as ei:
         _run((cfg, tp, st, key), sup=_sup(max_retries=0,
                                           crash_dir=str(tmp_path),
                                           scenario="single_topic_1k"),
              _chunk_hook=_boom)
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(SystemExit) as want:
+        jreplay(ei.value.dump_dir)
+    with pytest.raises(SystemExit, match="unknown scenario") as got:
         replay_crash.replay(ei.value.dump_dir, device="cpu")
-    assert replay_crash.main([ei.value.dump_dir]) == 1
-    assert "item 9" in json.loads(capsys.readouterr().out)["error"]
+    assert str(got.value) == str(want.value)
+    assert replay_crash.main([ei.value.dump_dir, "--device", "cpu"]) == 1
+    assert "unknown scenario" in json.loads(
+        capsys.readouterr().out)["error"]
+    assert replay_crash.main([ei.value.dump_dir, "--scenario", "nope"]) == 1
+    assert "known" in json.loads(capsys.readouterr().out)
+    with pytest.raises(SupervisorCrash) as ei2:
+        _run((cfg, tp, st, key), sup=_sup(max_retries=0,
+                                          crash_dir=str(tmp_path / "b")),
+             _chunk_hook=_boom)
+    with pytest.raises(SystemExit, match="no scenario metadata"):
+        replay_crash.replay(ei2.value.dump_dir, device="cpu")
     other = dataclasses.replace(cfg, publishers_per_tick=3)
     with pytest.raises(SystemExit, match="fingerprint"):
         replay_crash.replay(ei.value.dump_dir, like=st, cfg=other, tp=tp,
                             device="cpu")
+
+
+def test_replay_by_scenario_equals_the_reference(tmp_path, capsys):
+    """A dump stamped with a ``SCENARIOS`` name and its keyword arguments
+    replays from the stamp alone, and from ``--scenario``/``--kwargs``, as
+    the reference's replay does; the reference replays the port's dump the
+    same way."""
+    from scripts.replay_crash import replay as jreplay
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios
+    kwargs = {"n_peers": 64, "k_slots": 8, "degree": 3}
+    cfg, tp, st = scenarios.SCENARIOS["sybil_small"](**kwargs, device="cpu")
+    rcfg = dataclasses.replace(cfg, invariant_mode="raise")
+    with pytest.raises(SupervisorCrash) as ei:
+        supervised_run(st, cfg, tp, rng.PRNGKey(3, device="cpu"), 6,
+                       _sup(chunk_ticks=3, max_retries=0,
+                            crash_dir=str(tmp_path), scenario="sybil_small",
+                            scenario_kwargs=kwargs),
+                       device="cpu", _chunk_hook=lambda i: (
+                           _boom(i) if i["chunk_start"] >= 3 else None))
+    dump = ei.value.dump_dir
+    got = replay_crash.replay(dump, invariant_mode="record", device="cpu")
+    want = jreplay(dump, invariant_mode="record")
+    assert got == want and got["tripped"] is False
+    assert (got["tick_start"], got["tick_end"]) == (3, 6)
+    assert replay_crash.main([dump, "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == jreplay(dump)
+    assert replay_crash.main([dump, "--device", "cpu", "--scenario",
+                              "sybil_small", "--kwargs",
+                              json.dumps(kwargs)]) == 0
+    assert json.loads(capsys.readouterr().out)["ticks"] == 3
+    assert rcfg.invariant_mode == "raise"
 
 
 class _Sink:
@@ -427,22 +475,161 @@ def test_sinks_hard_flushed_on_failure(plain, tmp_path):
 
 
 @pytest.mark.parametrize("hook, item", [
-    ({"commands": object()}, "item 9"),
-    ({"contracts": (object(),)}, "item 9"),
-    ({"verdict_policy": "abort"}, "item 9"),
     ({"run_fn": lambda *a: None}, "item 7"),
     ({"state_to_host": lambda s: s}, "item 7"),
     ({"state_from_host": lambda s: s}, "item 7"),
     ({"liveness": object()}, "item 7"),
-    ({"chaos": object()}, "items 7 and 9"),
-    ({"traced": True}, "item 9"),
+    ({"chaos": object()}, "item 7"),
 ])
 def test_unported_hooks_are_refused_by_item(plain, hook, item):
     _, port, _ = plain
-    hook = dict(hook)
-    traced = hook.pop("traced", False)
     with pytest.raises(NotImplementedError, match=item):
-        _run(port, sup=_sup(**hook), traced=traced)
+        _run(port, sup=_sup(**hook))
+
+
+# --- the lifted hooks against the reference -----------------------------------
+
+# contracts on the 13-tick run whose verdicts move: a floor that fails, a
+# recovery that passes, a response that stays pending until tick 5 fails it
+CONTRACTS = ({"kind": "delivery_floor", "floor": 0.99, "start": 1},
+             {"kind": "recovery_ceiling", "after": 3, "within": 4,
+              "floor": 0.5},
+             {"kind": "score_response", "by": 5, "attacker_frac": 0.5})
+
+HOOKS = {
+    "commands": dict(commands=True),
+    "contracts": dict(contracts=True),
+    "verdict_policy snapshot": dict(contracts=True, verdict_policy="snapshot",
+                                    checkpoint_dir=True),
+    "verdict_policy abort": dict(contracts=True, verdict_policy="abort",
+                                 checkpoint_dir=True),
+    "traced": dict(traced=True),
+}
+LIFTED_STREAM = [
+    {"op": "publish", "tick": 1, "peer": 3, "topic": 0},
+    {"op": "join", "tick": 4, "peer": 7, "topic": 0},
+    {"op": "attack", "tick": 6, "kind": "eclipse", "peers": [0, 1, 2]},
+    {"op": "attack", "tick": 7, "kind": "censor", "peers": [20, 21]},
+    {"op": "bogus", "tick": 8},
+    {"op": "leave", "tick": 10, "peer": 7, "topic": 0},
+]
+
+
+def _lifted(pkg, hook, cfg, tp, st, key, d):
+    """One supervised run of ``pkg`` (the reference's modules, or the
+    port's) with ``hook``: its final state (or None after an abort), the
+    raised VerdictAbort's message, the report, the journal, the traced
+    lane's events and rows."""
+    from go_libp2p_pubsub_tpu.sim import adversary as jadversary
+    from go_libp2p_pubsub_tpu.sim import commands as jcommands
+    from go_libp2p_pubsub_tpu_torch.sim import adversary, commands
+    from go_libp2p_pubsub_tpu_torch.sim import supervisor
+    ref = pkg == "reference"
+    adv, cmds = (jadversary, jcommands) if ref else (adversary, commands)
+    sv = jsupervisor if ref else supervisor
+    kw = dict(chunk_ticks=5, backoff_base_s=0.0, sleep=lambda s: None,
+              health_path=str(d / "h.ndjson"))
+    traced = hook.get("traced", False)
+    q = None
+    if hook.get("commands"):
+        src = str(d.parent / "stream.ndjson")
+        cmds.write_stream(src, LIFTED_STREAM)
+        q = cmds.CommandQueue(src, n_peers=cfg.n_peers, n_topics=1,
+                              msg_window=cfg.msg_window, slots=4,
+                              stall_timeout_s=30.0)
+        kw["commands"] = q
+    if hook.get("contracts"):
+        kw["contracts"] = adv.contracts_from_json(CONTRACTS)
+        kw["verdict_policy"] = hook.get("verdict_policy", "journal")
+    if hook.get("checkpoint_dir"):
+        kw["checkpoint_dir"] = str(d / "ck")
+    events, rows = [], []
+    out = abort = None
+    extra = {} if ref else {"device": "cpu"}
+    try:
+        out, rep = sv.supervised_run(
+            st, cfg, tp, key, N_TICKS, sv.SupervisorConfig(**kw),
+            traced=traced, events_out=events, health_out=rows, **extra)
+    except sv.VerdictAbort as e:
+        abort, rep = str(e), e.report
+    finally:
+        if q is not None:
+            q.close()
+    j = telemetry.read_journal(str(d / "h.ndjson"))
+    return out, abort, rep, j, events, rows
+
+
+def _strip(notes):
+    """Notes without their wall clocks, paths by base name."""
+    return [{k: (os.path.basename(v) if k == "path" else v)
+             for k, v in n.items() if k not in ("wall", "done_wall")}
+            for n in notes]
+
+
+@pytest.mark.parametrize("name", list(HOOKS))
+def test_lifted_hooks_equal_the_reference(plain, tmp_path, name):
+    """``commands``, ``contracts`` under each verdict policy, and
+    ``traced=True``, each against the reference's ``supervised_run`` of
+    the same input: final state, journal rows and every journal note
+    (verdicts, alarms, ingest, checkpoints), the checkpoints' ticks, the
+    verdict events of the report, the traced lane's events and rows."""
+    (jcfg, jtp, jst, jkey), (cfg, tp, st, key), _ = plain
+    hook = HOOKS[name]
+    if hook.get("traced"):
+        jcfg = dataclasses.replace(jcfg, record_provenance=True)
+        cfg = dataclasses.replace(cfg, record_provenance=True)
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jckpt, "_HAVE_ORBAX", False)
+    try:
+        want = _lifted("reference", hook, jcfg, jtp, jst, jkey,
+                       tmp_path / "ref")
+    finally:
+        mp.undo()
+    got = _lifted("port", hook, cfg, tp, st, key, tmp_path / "port")
+    (w_out, w_abort, w_rep, w_j, w_ev, w_rows) = want
+    (g_out, g_abort, g_rep, g_j, g_ev, g_rows) = got
+    assert g_abort == w_abort
+    if w_out is not None:
+        _assert_equal(_arrays(w_out), g_out, name)
+    _assert_rows_equal(w_j["rows"], g_j["rows"])
+    assert _strip(g_j["notes"]) == _strip(w_j["notes"])
+    assert [os.path.basename(p) for p in g_rep.checkpoints] == \
+        [os.path.basename(p) for p in w_rep.checkpoints]
+    verdicts = [e for e in g_rep.events if e["event"] == "contract_verdict"]
+    assert verdicts == [e for e in w_rep.events
+                        if e["event"] == "contract_verdict"]
+    assert g_ev == w_ev
+    _assert_rows_equal(w_rows, g_rows) if w_rows else None
+    assert len(g_rows) == len(w_rows)
+    if hook.get("contracts"):
+        assert verdicts and any(e["status"] == "fail" for e in verdicts)
+        # the reference's dashboard reads the port's journal as its own
+        from scripts.dashboard import render, snapshot
+        port_snap = snapshot(str(tmp_path / "port" / "h.ndjson"))
+        ref_snap = snapshot(str(tmp_path / "ref" / "h.ndjson"))
+        assert port_snap["contracts"] == ref_snap["contracts"]
+        assert port_snap.get("verdict_abort") == ref_snap.get(
+            "verdict_abort")
+        assert "delivery_floor" in render(port_snap)
+    if hook.get("verdict_policy") == "abort":
+        assert "verdict_policy='abort'" in g_abort
+    if hook.get("commands"):
+        assert any(n["kind"] == "directive_refused" for n in g_j["notes"])
+    if hook.get("traced"):
+        assert g_ev and len(g_rows) == N_TICKS
+
+
+def test_contract_checks_refuse_by_name(plain):
+    from go_libp2p_pubsub_tpu_torch.sim.adversary import contracts_from_json
+    _, port, _ = plain
+    cs = contracts_from_json(CONTRACTS[:1])
+    with pytest.raises(ValueError, match="verdict_policy 'loud' unknown"):
+        _run(port, sup=_sup(contracts=cs, verdict_policy="loud",
+                            health_path="/dev/null"))
+    with pytest.raises(ValueError, match="telemetry lane"):
+        _run(port, sup=_sup(contracts=cs))
 
 
 def test_run_refuses_the_cpu_without_device(plain):
