@@ -197,7 +197,26 @@ Phases, each printing its own lines and its seconds:
    ticks, its events equal to the CPU run's list for list, then
    ``tensorize_trace`` and ``replay_feed`` into a fresh state under sync
    debug "error", equal to the CPU's replay;
-8. the ``kernels`` JSON line, then the device JSON line last.
+8. the degree-bucketed engine (sim/bucketed.py), after 7d: 8a a 1024-peer
+   power-law network on its degree buckets (d 4-16: scoring, the gater,
+   connection churn, link drop and duplication, an eclipse of the hub
+   bucket) for 8 ticks under each ``bucketed_rng``, every array of ``g``,
+   of every bucket and of ``rev`` after every tick equal to a CPU run of
+   the port (float32 rtol 1e-6, the rest exact; the CPU side runs in a
+   child process started with the underlay builds), no hand kernel
+   launched; 8b ``powerlaw_1m`` at 1,048,576 peers (its own config:
+   compact, ``"bucket"`` draws) on its power-law underlay: stored bytes
+   equal to ``state_nbytes``, one warm tick, then 4 ticks timed by CUDA
+   events (eager hb/s), the peak device memory above the start, the
+   underlay's ``degree_stats``, delivery and ``fault_flags`` (no
+   violation), kernels 1-7 launched 0 times, and one more tick under sync
+   debug "error"; 8c ``heavytail_eclipse`` at 131,072 peers for 10 ticks
+   (the window is [3, 8): the eclipse bit must be set), then under
+   ``bucketed_rng="dense"`` and f32 the densified state after 4 ticks
+   equal in every field to the dense ``run`` on the same graph on the
+   card, which runs kernels 1-4 (their launches printed). The two
+   power-law underlays build in child processes with the others;
+9. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -312,6 +331,13 @@ PATH_KERNELS = {
                        {"gather_words", "take_words"}),
     "supervised eclipse": ({"edge_table", "hop", "iwant_resolve", "emit"},
                            {"gather_words", "take_words"}),
+    # phase 8: the degree-bucketed engine runs no hand kernel; the dense
+    # engine on the heavy-tailed graph runs kernels 1-4 (and churn's
+    # payload permute)
+    "powerlaw_1m": (set(), set(REPLACES)),
+    "heavytail_eclipse": (set(), set(REPLACES)),
+    "heavytail dense": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                        {"gather_words", "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -331,6 +357,8 @@ FORMS = ("scalar", "rows", "sort", "pallas", "mxu")
 N_FAMILY = 512                   # phase 7a: the families' own width
 SCALE_TICKS = 40                 # phase 7b: ticks of each bench family
 N_TRACE, TRACE_TICKS = 1024, 4   # phase 7d: the traced single_topic_1k
+N_BUCKETED, BUCKETED_TICKS = 1024, 8   # phase 8a
+N_POWERLAW_1M, N_POWERLAW_100K = 1 << 20, 1 << 17   # phases 8b, 8c
 # the formulation cases of phase 4e, each at 1024 peers
 FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
                      "headline, sort, flood publish", "churn_50k, sort",
@@ -502,6 +530,80 @@ def _phase7_cpu(conn):
                     _fingerprint(state_to_numpy(rep)))
     conn.send(out)
     conn.close()
+
+
+def bucketed_case(dev, rng_mode):
+    """8a's network on ``dev``: 1024 peers on a power-law underlay (d
+    4-16) in its degree buckets, scoring, the gater, connection churn,
+    link drop and duplication and an eclipse of the hub bucket, under
+    the fold_in schedule."""
+    import numpy as np
+    from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, bucketed,
+                                                scenarios, topology)
+    from go_libp2p_pubsub_tpu_torch.sim.faults import EclipseWindow, FaultPlan
+    n = N_BUCKETED
+    buckets = topology.powerlaw_buckets(n, d_min=4, d_max=16)
+    k = buckets[0][1]
+    plan = FaultPlan(link_drop_prob=0.02, link_dup_prob=0.02,
+                     eclipses=(EclipseWindow(2, 6,
+                                             fraction=buckets[0][0] / n),),
+                     seed=5)
+    cfg = SimConfig(n_peers=n, k_slots=k, n_topics=2, msg_window=8,
+                    publishers_per_tick=4, prop_substeps=4,
+                    scoring_enabled=True, gater_enabled=True,
+                    churn_disconnect_prob=0.05, churn_reconnect_prob=0.2,
+                    fault_plan=plan, degree_buckets=buckets,
+                    bucketed_rng=rng_mode, key_schedule="fold_in")
+    topo = topology.powerlaw(n, k, d_min=4, d_max=16, seed=11)
+    bs = bucketed.init_bucketed_state(cfg, topo, device=dev,
+                                      malicious=np.arange(n) >= n - n // 8)
+    return cfg, scenarios.default_topic_params(2, device=dev), bs
+
+
+def _bucketed_ticks(dev, rng_mode):
+    """Fingerprints of 8a's state after each tick on ``dev``."""
+    from go_libp2p_pubsub_tpu_torch import rng
+    from go_libp2p_pubsub_tpu_torch.sim import bucketed
+    cfg, tp, bs = bucketed_case(dev, rng_mode)
+    key = rng.PRNGKey(0, device=dev)
+    out = []
+    for _ in range(BUCKETED_TICKS):
+        bs = bucketed.bucketed_run(bs, cfg, tp, key, 1, device=dev)
+        out.append(_fingerprint(bucketed.bucketed_state_to_numpy(bs)))
+    return out, int(bs.fault_flags) & 0xFFFFFFFF
+
+
+def _phase8_cpu(conn):
+    """Child process: 8a's CPU runs of the port under each bucketed_rng."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    conn.send({mode: _bucketed_ticks("cpu", mode)
+               for mode in ("bucket", "dense")})
+    conn.close()
+
+
+def _build_powerlaw(conn, n):
+    """Child process: the power-law scenarios' underlay at ``n`` peers
+    (``scenarios.powerlaw_spec``'s own build: d 8-64, alpha 2, K = 64)."""
+    sys.path.insert(0, REPO)
+    from go_libp2p_pubsub_tpu_torch.sim import scenarios, topology
+    cfg = scenarios.powerlaw_cfg(n)
+    conn.send(tuple(topology.powerlaw(n, cfg.k_slots, seed=scenarios.SEED)))
+    conn.close()
+
+
+def bucketed_formulations(cfg):
+    """What the bucketed fork runs at each seam: its own flat exchange,
+    plain word gathers and non-fused hops whatever ``edge_gather_mode`` and
+    ``hop_mode`` say, and each bucket's selection as ``selection_mode``
+    resolves at that bucket's width."""
+    from go_libp2p_pubsub_tpu_torch.ops.dispatch import resolved_formulations
+    sel = {b: v["selection"]
+           for b, v in resolved_formulations(cfg)["bucketed"].items()}
+    return json.dumps({"exchange": "flat reverse-edge index",
+                       "gathers": "plain indexing", "hop": "non-fused",
+                       "selection": sel}, sort_keys=True)
 
 
 def _trace_case(dev):
@@ -1177,10 +1279,11 @@ class Smoke:
         self.check_resolve("T=1,pull tick (prop_substeps=1)", args[:9],
                            args[9])
 
-    def check_launches(self, path, launches, cfg):
+    def check_launches(self, path, launches, cfg, forms=None):
         """Every kernel of ``path`` launched, and none it must not; the
-        formulations ``cfg`` resolves to printed before."""
-        print(f"{path} formulations: {formulations(cfg)}", flush=True)
+        formulations ``cfg`` resolves to (or ``forms``) printed before."""
+        print(f"{path} formulations: {forms or formulations(cfg)}",
+              flush=True)
         must, must_not = PATH_KERNELS[path]
         zero = sorted(name for name in must if launches[name] == 0)
         if zero:
@@ -3158,6 +3261,192 @@ class Smoke:
               f"{n_ops / secs:.1f} ops/s, equal to the CPU's replay",
               flush=True)
 
+    # ---- phase 8: the degree-bucketed engine (sim/bucketed.py) ----------
+    def phase_bucketed_trajectory(self, cpu):
+        """8a: the 1024-peer bucketed network under each bucketed_rng, every
+        array after every tick against the CPU child's, no hand kernel."""
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import topology
+        buckets = topology.powerlaw_buckets(N_BUCKETED, d_min=4, d_max=16)
+        for mode in ("bucket", "dense"):
+            want, want_flags = cpu[mode]
+            cudalib.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            got, flags = _bucketed_ticks(self.dev, mode)
+            secs = time.perf_counter() - t0
+            for i, (g, w) in enumerate(zip(got, want, strict=True)):
+                _same_fingerprint(f"phase 8a [{mode}] tick {i}", g, w)
+            launched = {k: v for k, v in cudalib.LAUNCHES.items() if v}
+            if launched:
+                raise AssertionError(f"phase 8a [{mode}]: hand kernels "
+                                     f"launched on the bucketed path: "
+                                     f"{launched}")
+            if flags != want_flags or not flags & 0x80:
+                raise AssertionError(f"phase 8a [{mode}]: fault_flags "
+                                     f"0x{flags:08x} against the CPU's "
+                                     f"0x{want_flags:08x} (eclipse bit 0x80 "
+                                     "expected)")
+            print(f"phase 8a [{mode}]: {N_BUCKETED} peers in buckets "
+                  f"{buckets}, {BUCKETED_TICKS} ticks in "
+                  f"{secs:.3f} s (each tick fingerprinted), every array of "
+                  f"g, the buckets and rev equal to the CPU run after every "
+                  f"tick; fault_flags 0x{flags:08x}; no hand kernel "
+                  "launched", flush=True)
+
+    def phase_powerlaw_1m(self, topo):
+        """8b: ``powerlaw_1m`` at 1,048,576 peers, its own config (compact,
+        ``"bucket"`` draws): stored bytes against ``state_nbytes``, one warm
+        tick and 4 ticks timed by CUDA events, peak memory above the start,
+        kernels 1-7 launched 0 times, one more tick under sync debug
+        "error"."""
+        import dataclasses
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import (bucketed,
+                                                    delivery_fraction,
+                                                    scenarios, state_nbytes,
+                                                    topology)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            VIOLATION_MASK, decode_flags)
+        dev = self.dev
+        self.sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg, tp, bs = scenarios.powerlaw_1m(device=dev, topo=topo)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        stored = sum(v.numel() * v.element_size()
+                     for _, v, _ in bucketed.named_leaves(bs))
+        priced = state_nbytes(cfg)["total"]
+        dense = state_nbytes(dataclasses.replace(cfg, degree_buckets=None))
+        if stored != priced:
+            raise AssertionError(f"phase 8b: stored {stored} bytes, "
+                                 f"state_nbytes prices {priced}")
+        print(f"phase 8b [powerlaw_1m]: {cfg.n_peers} peers, buckets "
+              f"{cfg.degree_buckets}, T={cfg.n_topics}, M={cfg.msg_window}, "
+              f"{cfg.state_precision}, bucketed_rng={cfg.bucketed_rng}; "
+              f"degree_stats {json.dumps(topology.degree_stats(topo))}; "
+              f"state built on the card in {build_s:.1f} s; stored "
+              f"{stored} bytes = {stored / 2 ** 30:.3f} GiB, equal to "
+              f"state_nbytes (the dense-padded layout would price "
+              f"{dense['total'] / 2 ** 30:.3f} GiB)", flush=True)
+        key = rng.PRNGKey(0, device=dev)
+        keys = rng.split(key, 6)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        bs = bucketed.bucketed_step(bs, cfg, tp, keys[0], device=dev)
+        self.sync()
+        warm_s = time.perf_counter() - w0
+        cudalib.reset_launches()
+        a.record()
+        for i in range(1, 5):
+            bs = bucketed.bucketed_step(bs, cfg, tp, keys[i], device=dev)
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        launches = dict(cudalib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - start
+        print(f"phase 8b [powerlaw_1m] launches: {json.dumps(launches)}",
+              flush=True)
+        self.check_launches("powerlaw_1m", launches, cfg,
+                            forms=bucketed_formulations(cfg))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bs = bucketed.bucketed_step(bs, cfg, tp, keys[5], device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.sync()
+        flags = int(bs.fault_flags) & 0xFFFFFFFF
+        dlv = float(delivery_fraction(bs.g, cfg, min_age_ticks=2))
+        print(f"phase 8b [powerlaw_1m]: warm tick {warm_s:.3f} s; 4 ticks "
+              f"in {ms:.1f} ms (CUDA events) = {4000 / ms:.3f} hb/s eager; "
+              f"peak device memory {peak / 2 ** 30:.3f} GiB above the "
+              f"start ({start / 2 ** 30:.3f} GiB allocated then, "
+              f"{(start - base) / 2 ** 30:.3f} GiB of it the state); one "
+              f"more tick under sync debug 'error' made no synchronization; "
+              f"delivery_fraction (age>=2) {dlv:.6f}; delivered_total "
+              f"{float(bs.g.delivered_total):.0f}; fault_flags "
+              f"0x{flags:08x} {decode_flags(flags)}", flush=True)
+        if flags & VIOLATION_MASK or float(bs.g.delivered_total) <= 0:
+            raise AssertionError(f"phase 8b: fault_flags 0x{flags:x}, "
+                                 f"delivered {float(bs.g.delivered_total)}")
+
+    def phase_heavytail(self, topo):
+        """8c: ``heavytail_eclipse`` at 131,072 peers for 10 ticks (eclipse
+        window [3, 8)); then under ``bucketed_rng="dense"`` and f32 the
+        densified state after 4 ticks against the dense ``run`` on the
+        card (kernels 1-4), every field bit for bit."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import (bucketed,
+                                                    delivery_fraction, run,
+                                                    scenarios)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            FAULT_ECLIPSE, VIOLATION_MASK, decode_flags)
+        dev = self.dev
+        cfg, tp, bs = scenarios.heavytail_eclipse(device=dev, topo=topo)
+        key = rng.PRNGKey(0, device=dev)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        out = bucketed.bucketed_run(bs, cfg, tp, key, 10, device=dev)
+        self.sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = dict(cudalib.LAUNCHES)
+        self.check_launches("heavytail_eclipse", launches, cfg,
+                            forms=bucketed_formulations(cfg))
+        flags = int(out.fault_flags) & 0xFFFFFFFF
+        print(f"phase 8c [heavytail_eclipse]: {cfg.n_peers} peers, buckets "
+              f"{cfg.degree_buckets}, {cfg.state_precision}, bucketed_rng="
+              f"{cfg.bucketed_rng}, {int(out.g.malicious.sum())} sybils; 10 "
+              f"ticks of bucketed_run in {secs:.3f} s = {10 / secs:.3f} hb/s "
+              f"(host clock, first use included); peak "
+              f"{peak / 2 ** 30:.3f} GiB above the start; delivery_fraction "
+              f"(age>=2) "
+              f"{float(delivery_fraction(out.g, cfg, min_age_ticks=2)):.6f};"
+              f" fault_flags 0x{flags:08x} {decode_flags(flags)}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        if not flags & FAULT_ECLIPSE or flags & VIOLATION_MASK:
+            raise AssertionError(f"phase 8c: fault_flags 0x{flags:x} "
+                                 "(the eclipse bit set, no violation "
+                                 "expected)")
+        del out, bs
+        cfg, tp, bs = scenarios.heavytail_eclipse(
+            device=dev, topo=topo, state_precision="f32",
+            bucketed_rng="dense")
+        dense0 = bucketed.densify_state(bs, cfg)
+        got = bucketed.densify_state(
+            bucketed.bucketed_run(bs, cfg, tp, key, 4, device=dev), cfg)
+        del bs
+        self.sync()
+        cudalib.reset_launches()
+        want = run(dense0, cfg, tp, key, 4, device=dev)
+        self.sync()
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 8c [heavytail dense] launches: {json.dumps(launches)}",
+              flush=True)
+        self.check_launches("heavytail dense", launches, cfg)
+        bad = self.differ(want, got)
+        if bad:
+            raise AssertionError(f"phase 8c: the densified bucketed state "
+                                 f"differs from the dense run in {bad}")
+        print(f"phase 8c [heavytail dense]: bucketed_rng='dense', f32, 4 "
+              f"ticks: the densified bucketed state equals the dense run "
+              f"(kernels 1-4 under the cuda dispatch entry) in every field, "
+              f"bit for bit; fault_flags 0x{int(want.fault_flags):08x}",
+              flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -3213,6 +3502,20 @@ def main() -> int:
         proc.start()
         child.close()
         topo_jobs[shape] = (parent, proc)
+    # the power-law underlays of phase 8
+    powerlaw_jobs = {}
+    for n in (N_POWERLAW_1M, N_POWERLAW_100K):
+        parent, child = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_build_powerlaw, args=(child, n),
+                           daemon=True)
+        proc.start()
+        child.close()
+        powerlaw_jobs[n] = (parent, proc)
+    # phase 8a's CPU runs
+    cpu8_parent, child = ctx.Pipe(duplex=False)
+    cpu8_proc = ctx.Process(target=_phase8_cpu, args=(child,), daemon=True)
+    cpu8_proc.start()
+    child.close()
     # phase 7's CPU runs of the port, beside the builds
     cpu7_parent, child = ctx.Pipe(duplex=False)
     cpu7_proc = ctx.Process(target=_phase7_cpu, args=(child,), daemon=True)
@@ -3225,6 +3528,18 @@ def main() -> int:
             cpu7.update(cpu7_parent.recv())
             cpu7_proc.join()
         return cpu7
+
+    def phase8_cpu():
+        out = cpu8_parent.recv()
+        cpu8_proc.join()
+        return out
+
+    def powerlaw_of(n):
+        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+        parent, proc = powerlaw_jobs.pop(n)
+        topo = Topology(*parent.recv())
+        proc.join()
+        return topo
 
     topos = {}
 
@@ -3293,6 +3608,12 @@ def main() -> int:
         timed("7c (supervised eclipse with commands)",
               lambda: smoke.phase_supervised_eclipse(topology_of(N_CHURN)))
         timed("7d (trace loop)", lambda: smoke.phase_trace(phase7_cpu()))
+        timed("8a (bucketed trajectories)",
+              lambda: smoke.phase_bucketed_trajectory(phase8_cpu()))
+        timed("8b (powerlaw_1m)", lambda: smoke.phase_powerlaw_1m(
+            powerlaw_of(N_POWERLAW_1M)))
+        timed("8c (heavytail_eclipse)", lambda: smoke.phase_heavytail(
+            powerlaw_of(N_POWERLAW_100K)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):
@@ -3313,7 +3634,9 @@ def main() -> int:
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     finally:
-        for proc in [p for _, p in topo_jobs.values()] + [cpu7_proc]:
+        for proc in [p for _, p in topo_jobs.values()] + [
+                p for _, p in powerlaw_jobs.values()] + [cpu7_proc,
+                                                         cpu8_proc]:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()

@@ -1,18 +1,21 @@
-"""Exact network checkpoints: save and restore the whole SimState (port of
-sim/checkpoint.py, its ``.npz`` form; the reference's orbax form needs
-JAX).
+"""Exact network checkpoints: save and restore the whole SimState or
+degree-bucketed BucketedState (port of sim/checkpoint.py, its ``.npz``
+form; the reference's orbax form needs JAX).
 
 A checkpoint is one compressed ``.npz`` of every field, in the
 reference's dtypes (``state.state_to_numpy``: uint32 words, uint16 bf16
 patterns), so a checkpoint either package saved restores in the other,
-bit for bit, in either storage layout. Resuming from it lands on the
-uninterrupted trajectory.
+bit for bit, in either storage layout. A BucketedState's arrays are keyed
+as the reference keys them (``g.<field>``, ``e<b>.<field>``, ``rev<b>``;
+``bucketed.named_leaves``). Resuming from it lands on the uninterrupted
+trajectory.
 
 - ``save(path, state, cfg=...)`` also writes a ``<path>.fingerprint``
   sidecar: the config's digest (:func:`config_fingerprint`, the
   reference's ``sha256(repr(cfg))``), then ``fleet=``,
-  ``state_precision=``, ``processes=`` and caller-supplied ``extra``
-  lines in clear (:func:`sidecar_meta`).
+  ``state_precision=``, ``degree_buckets=`` (the bucket partition, under
+  a bucketed config), ``processes=`` and caller-supplied ``extra`` lines
+  in clear (:func:`sidecar_meta`).
 - Crash atomicity: payload and sidecar each go to a temp path and are
   renamed into place, payload first, so an interrupted save leaves the
   previous checkpoint or nothing at ``path``. A torn payload raises
@@ -20,11 +23,9 @@ uninterrupted trajectory.
 - ``restore(path, like, cfg=...)`` checks every field against ``like``
   and raises ``ValueError`` naming the field on a shape or dtype
   mismatch; a field missing from the file restores from ``like``. With
-  ``cfg`` the digest is compared, and a mismatch of the fleet axis or of
-  the storage precision is refused by name.
-
-The degree-bucketed state (ROADMAP.md, Queue 1 item 8) is refused by
-name.
+  ``cfg`` the digest is compared, and a mismatch of the bucket
+  partition, of the fleet axis or of the storage precision is refused by
+  name.
 """
 
 from __future__ import annotations
@@ -36,11 +37,9 @@ import os
 import numpy as np
 import torch
 
-from .state import (SimState, field_from_reference, reference_dtype,
-                    state_to_numpy)
-
-_BUCKETED = ("the degree-bucketed state is not ported yet (ROADMAP.md, "
-             "Queue 1 item 8)")
+from .bucketed import BucketedState, EdgePlanes, named_leaves
+from .hostio import fetch_local
+from .state import SimState, field_from_reference, reference_dtype
 
 
 class CheckpointCorrupt(ValueError):
@@ -71,13 +70,41 @@ def _sidecar(path: str) -> str:
     return path + ".fingerprint"
 
 
-def _check_dense(state, cfg) -> None:
-    if cfg is not None and cfg.degree_buckets is not None:
-        raise NotImplementedError(f"checkpoint: {_BUCKETED}")
-    if not isinstance(state, SimState):
-        raise TypeError(
-            f"checkpoint: unsupported state type {type(state).__name__}; "
-            f"expected SimState ({_BUCKETED})")
+def _named_leaves(state) -> list:
+    """``[(name, tensor, reference dtype), ...]`` of a checkpointable
+    state, in the reference's order (checkpoint.py:91-111): a SimState
+    names its fields, a BucketedState ``g.<field>``, ``e<b>.<field>``,
+    ``rev<b>``."""
+    if isinstance(state, SimState):
+        return [(f, v, reference_dtype(state, f))
+                for f, v in zip(SimState._fields, state)]
+    if isinstance(state, BucketedState):
+        return named_leaves(state)
+    raise TypeError(
+        f"checkpoint: unsupported state type {type(state).__name__}; "
+        "expected SimState or BucketedState")
+
+
+def _bucket_string(cfg) -> str:
+    """The sidecar's clear form of a degree-bucket partition:
+    ``"512x64,512x32,..."`` (rows x k_ceil, hubs first), "" when dense."""
+    bks = cfg.degree_buckets
+    if bks is None:
+        return ""
+    return ",".join(f"{int(r)}x{int(k)}" for r, k in bks)
+
+
+def _unflatten(like, values: list):
+    """A state of ``like``'s kind from its leaves' values in
+    :func:`_named_leaves` order."""
+    if isinstance(like, SimState):
+        return SimState(*values)
+    nf, ne = len(SimState._fields), len(EdgePlanes._fields)
+    nb = len(like.e)
+    g = SimState(*values[:nf])
+    e = tuple(EdgePlanes(*values[nf + b * ne:nf + (b + 1) * ne])
+              for b in range(nb))
+    return BucketedState(g=g, e=e, rev=tuple(values[nf + nb * ne:]))
 
 
 def _process_count() -> int:
@@ -87,14 +114,14 @@ def _process_count() -> int:
     return 1
 
 
-def save(path: str, state: SimState, cfg=None, processes=None,
+def save(path: str, state, cfg=None, processes=None,
          extra: dict | None = None) -> None:
     """Write ``path`` (``.npz`` added when missing) and, with ``cfg``, its
     fingerprint sidecar. ``processes`` is the process count the state was
     gathered at (default: the ``torch.distributed`` world size, else 1),
     written in clear and never a refusal; ``extra`` adds ``key=value``
     lines."""
-    _check_dense(state, cfg)
+    leaves = _named_leaves(state)
     path = os.path.abspath(path)
     tmp = f"{path}.tmp{os.getpid()}"
     # stale temps of killed saves, of any pid (one writer per path)
@@ -104,7 +131,7 @@ def save(path: str, state: SimState, cfg=None, processes=None,
             os.remove(stale)
         except OSError:
             pass
-    arrs = state_to_numpy(state)
+    arrs = {name: fetch_local(v, dt) for name, v, dt in leaves}
     final = path if path.endswith(".npz") else path + ".npz"
     with open(tmp, "wb") as fh:
         np.savez_compressed(fh, **arrs)
@@ -120,6 +147,9 @@ def save(path: str, state: SimState, cfg=None, processes=None,
         if fleet is not None:
             f.write(f"fleet={fleet}\n")
         f.write(f"state_precision={cfg.state_precision}\n")
+        bks = _bucket_string(cfg)
+        if bks:
+            f.write(f"degree_buckets={bks}\n")
         p = _process_count() if processes is None else int(processes)
         f.write(f"processes={p}\n")
         for k, v in (extra or {}).items():
@@ -144,7 +174,7 @@ def sidecar_meta(path: str) -> dict:
     return out
 
 
-def _check_fingerprint(path: str, like: SimState, cfg) -> None:
+def _check_fingerprint(path: str, like, cfg) -> None:
     meta = sidecar_meta(path)
     if not meta:
         return                           # an older checkpoint: no sidecar
@@ -153,10 +183,17 @@ def _check_fingerprint(path: str, like: SimState, cfg) -> None:
     want = config_fingerprint(cfg, fleet=fleet)
     if stamped == want:
         return
-    if meta.get("degree_buckets"):
+    saved_bks = meta.get("degree_buckets", "")
+    want_bks = _bucket_string(cfg)
+    if saved_bks != want_bks:
+        def _part(s):
+            return f"buckets [{s}]" if s else "the dense layout"
         raise ValueError(
-            f"checkpoint {path!r} was saved under buckets "
-            f"[{meta['degree_buckets']}]: {_BUCKETED}")
+            f"checkpoint {path!r} bucket-partition mismatch: saved under "
+            f"{_part(saved_bks)} but this run expects {_part(want_bks)} — a "
+            "bucketed checkpoint only resumes under its own bucket "
+            "partition (realign with topology.align_degree_buckets BEFORE "
+            "the first run, not between resumes)")
     saved_fleet = meta.get("fleet")
     if saved_fleet != (None if fleet is None else str(fleet)):
         def _axis(b):
@@ -190,11 +227,12 @@ def _validate(field: str, got: np.ndarray, shape: tuple,
             "window); pass the matching `like` state or re-run from scratch")
 
 
-def restore(path: str, like: SimState, cfg=None) -> SimState:
-    """Load a checkpoint onto ``like``'s device. ``like`` gives every
-    field's shape and dtype (the module docstring's validation); a field
-    the file lacks is ``like``'s own."""
-    _check_dense(like, cfg)
+def restore(path: str, like, cfg=None):
+    """Load a checkpoint onto ``like``'s device (a SimState or a
+    BucketedState). ``like`` gives every leaf's shape and dtype (the
+    module docstring's validation); a leaf the file lacks is ``like``'s
+    own."""
+    leaves = _named_leaves(like)
     path = os.path.abspath(path)
     if cfg is not None:
         _check_fingerprint(path, like, cfg)
@@ -205,19 +243,19 @@ def restore(path: str, like: SimState, cfg=None) -> SimState:
         raise CheckpointCorrupt(
             f"checkpoint {npz_path!r} is unreadable (torn or incomplete "
             f"write): {type(e).__name__}: {e}") from e
-    out = {}
+    out = []
     with npz:
-        for f in SimState._fields:
-            want = getattr(like, f)
-            if f not in npz.files:
-                out[f] = want
+        for name, want, dtype in leaves:
+            if name not in npz.files:
+                out.append(want)
                 continue
             try:
-                arr = npz[f]
+                arr = npz[name]
             except Exception as e:           # member truncated mid-archive
                 raise CheckpointCorrupt(
-                    f"checkpoint {npz_path!r} field {f!r} is unreadable "
+                    f"checkpoint {npz_path!r} field {name!r} is unreadable "
                     f"(torn write): {type(e).__name__}: {e}") from e
-            _validate(f, arr, tuple(want.shape), reference_dtype(like, f))
-            out[f] = field_from_reference(f, arr, want.device)
-    return SimState(**out)
+            _validate(name, arr, tuple(want.shape), dtype)
+            out.append(field_from_reference(name.split(".")[-1], arr,
+                                            want.device))
+    return _unflatten(like, out)

@@ -39,8 +39,11 @@ reference's ``lax.scan``s do on device:
   :func:`~.telemetry.health_record` of each tick's post-step state,
   stacked to ``[C]`` leaves, on the device (sim/telemetry.py).
 
-Configs outside the ported paths raise NotImplementedError
-(:func:`check_slice`).
+An unknown storage precision, compact storage at k_slots > 127 or an
+unknown formulation raises ValueError (:func:`check_slice`). The dense
+step ignores ``degree_buckets``, as the reference's does: it runs the
+config on its dense [N, k_slots] layout; the degree-bucketed layout runs
+through sim/bucketed.py.
 """
 
 from __future__ import annotations
@@ -66,25 +69,19 @@ from .state import (NEVER, SimState, check_precision, decode_state,
 from .telemetry import health_record, stack_records
 
 
-def _later(item: int) -> str:
-    return f"is not ported yet (ROADMAP.md, Queue 1 item {item})"
-
-
 def check_slice(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for any config outside the ported paths:
-    the step under every router (gossipsub with scoring, floodsub,
-    randomsub), flood publish, the peer gater, the validation and edge
-    queue caps, provenance, every fault-plan family, connection churn
-    with PX and subscription churn, on the fused kernels or the non-fused
-    data path (hop_mode ``auto``/``pallas``/``pallas-mxu``/``xla``) in
-    every gather formulation (``auto``, ``pallas``, ``mxu``, ``scalar``,
-    ``rows``, ``sort``) and selection formulation, uint8 or int32 hop
-    counts (int32 on the non-fused path), under every invariant mode, key
-    schedule and storage precision. The refusal names the queue item that
-    lifts it; an unknown precision, or compact storage at k_slots > 127,
-    raises ValueError."""
-    if cfg.degree_buckets is not None:
-        raise NotImplementedError(f"degree_buckets {_later(8)}")
+    """Check a config against the step's paths: every router (gossipsub
+    with scoring, floodsub, randomsub), flood publish, the peer gater, the
+    validation and edge queue caps, provenance, every fault-plan family,
+    connection churn with PX and subscription churn, on the fused kernels
+    or the non-fused data path (hop_mode ``auto``/``pallas``/
+    ``pallas-mxu``/``xla``) in every gather formulation (``auto``,
+    ``pallas``, ``mxu``, ``scalar``, ``rows``, ``sort``) and selection
+    formulation, uint8 or int32 hop counts (int32 on the non-fused path),
+    under every invariant mode, key schedule and storage precision, with
+    or without ``degree_buckets`` (which the dense step does not read). An
+    unknown precision, compact storage at k_slots > 127, or an unknown
+    formulation raises ValueError."""
     check_precision(cfg)
     resolved_formulations(cfg)
 

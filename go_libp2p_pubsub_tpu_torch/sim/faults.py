@@ -535,13 +535,19 @@ def _slow_edge_hash_host(i: int, j: int, salt: int) -> int:
     return _mix32_host(((a * 0x9E3779B1) ^ b ^ salt) & _M32)
 
 
-def slow_edge_hash(neighbors: torch.Tensor, salt: int) -> torch.Tensor:
+def slow_edge_hash(neighbors: torch.Tensor, salt: int, row_start: int = 0,
+                   n_global: int | None = None) -> torch.Tensor:
     """[N, K] int64 symmetric per-edge hash (both directions of an edge
     hash alike: min/max endpoint order), equal to
-    :func:`_slow_edge_hash_host` bit for bit."""
-    n, k = neighbors.shape
-    i = torch.arange(n, dtype=torch.int64,
-                     device=neighbors.device)[:, None].expand(n, k)
+    :func:`_slow_edge_hash_host` bit for bit. ``row_start``/``n_global``
+    locate a row slice of a larger graph (a degree-bucket view,
+    sim/bucketed.py): row r is peer ``row_start + r`` and neighbor ids are
+    global, so each edge hashes as in the whole graph (faults.py:527-545)."""
+    rows, k = neighbors.shape
+    n = n_global if n_global is not None else rows
+    i = (row_start + torch.arange(rows, dtype=torch.int64,
+                                  device=neighbors.device))[:, None]
+    i = i.expand(rows, k)
     j = neighbors.clamp(0, n - 1).to(torch.int64)
     a, b = torch.minimum(i, j), torch.maximum(i, j)
     return _mix32((((a * 0x9E3779B1) & _M32) ^ b ^ salt) & _M32)
@@ -579,28 +585,29 @@ def edge_cut_mask(plan: FaultPlan, tick: torch.Tensor,
     cut set is a function of peer ids, so the masks are edge-symmetric.
     ``malicious`` gates the eclipse cut and is required by eclipse plans.
 
-    The row-slice arguments ``row_start``/``n_global`` serve the bucketed
-    engine, which is not ported: only their defaults are taken."""
+    ``row_start``/``n_global`` locate a row slice of a larger graph (a
+    degree-bucket view, sim/bucketed.py): row r is peer ``row_start + r``,
+    neighbor ids and ``malicious`` are global, so the slices' masks
+    concatenate into the whole graph's."""
     nrows, k = neighbors.shape
-    if row_start != 0 or (n_global is not None and n_global != nrows):
-        raise NotImplementedError(
-            "edge_cut_mask over a row slice (row_start/n_global) serves the "
-            "bucketed engine, which is not ported yet (ROADMAP.md, Queue 1 "
-            "item 8)")
-    n = nrows
+    n = n_global if n_global is not None else nrows
     dev = neighbors.device
     known = (neighbors >= 0) & (reverse_slot >= 0)
     nbr = neighbors.clamp(0, n - 1).long()
 
+    def rsl(a):
+        """The slice's rows of a global [N] peer predicate."""
+        return a[row_start:row_start + nrows]
+
     wins = []                   # (start, end, cut set, injected bit)
     for w in plan.partitions:
         comp = torch.arange(n, dtype=I32, device=dev) % w.components
-        cross = (comp[:, None] != comp[nbr]) & known
+        cross = (rsl(comp)[:, None] != comp[nbr]) & known
         wins.append((w.start, w.end, cross, FAULT_PARTITION))
     for i, w in enumerate(plan.outages):
         dark = outage_peers(n, i, plan, dev)
-        wins.append((w.start, w.end, (dark[:, None] | dark[nbr]) & known,
-                     FAULT_OUTAGE))
+        wins.append((w.start, w.end,
+                     (rsl(dark)[:, None] | dark[nbr]) & known, FAULT_OUTAGE))
     if plan.eclipses and malicious is None:
         raise ValueError("edge_cut_mask: a plan with eclipse windows "
                          "needs the malicious mask (sybil edges are the "
@@ -608,12 +615,12 @@ def edge_cut_mask(plan: FaultPlan, tick: torch.Tensor,
     for w in plan.eclipses:
         lim = max(1, int(math.ceil(w.fraction * n)))
         tgt = (torch.arange(n, device=dev) < lim) & ~malicious
-        honest2 = (~malicious)[:, None] & ~malicious[nbr]
-        cross = (tgt[:, None] ^ tgt[nbr]) & honest2 & known
+        honest2 = rsl(~malicious)[:, None] & ~malicious[nbr]
+        cross = (rsl(tgt)[:, None] ^ tgt[nbr]) & honest2 & known
         wins.append((w.start, w.end, cross, FAULT_ECLIPSE))
     for i, w in enumerate(plan.waves):
         dark = wave_peers(n, i, plan, dev)
-        cut = (dark[:, None] | dark[nbr]) & known
+        cut = (rsl(dark)[:, None] | dark[nbr]) & known
         for s, e in wave_windows(w):
             wins.append((s, e, cut, FAULT_WAVE))
 

@@ -53,11 +53,19 @@ def _bit(cond: torch.Tensor, bit: int) -> torch.Tensor:
     return torch.where(cond, bit, 0).to(torch.int32)
 
 
-def violation_flags(state: SimState, cfg: SimConfig) -> torch.Tensor:
+def violation_flags(state: SimState, cfg: SimConfig,
+                    n_global: int | None = None) -> torch.Tensor:
     """int32 scalar of violation bits for the END-OF-TICK state (called by
     engine.step before the tick increments). NaN fails every ``>= 0`` and
-    ``< inf`` comparison, so it lands in the nonfinite bit only."""
+    ``< inf`` comparison, so it lands in the nonfinite bit only.
+
+    ``n_global`` bounds the publisher ids of a row slice of a larger
+    network (a degree-bucket view, sim/bucketed.py), whose own row count
+    is not the id space (invariants.py:128-146). Every check is an any()
+    reduction, so the words of the slices OR into the whole network's."""
     n, t, k = state.mesh.shape
+    if n_global is not None:
+        n = n_global
     tick = state.tick
     nonneg = [state.first_message_deliveries, state.mesh_message_deliveries,
               state.mesh_failure_penalty, state.invalid_message_deliveries,
@@ -110,26 +118,29 @@ class InvariantViolation(ValueError):
 
 
 def tick_flags(state: SimState, cfg: SimConfig,
-               injected: torch.Tensor | None = None) -> torch.Tensor:
+               injected: torch.Tensor | None = None,
+               n_global: int | None = None) -> torch.Tensor:
     """This tick's (violation | injected) bits, the word
-    :func:`record_flags` ORs into the state."""
+    :func:`record_flags` ORs into the state (``n_global`` as
+    :func:`violation_flags`')."""
     if cfg.invariant_mode not in ("record", "raise"):
         raise ValueError(
             f"invariant_mode={cfg.invariant_mode!r}: expected 'off', "
             "'record', or 'raise'")
-    flags = violation_flags(state, cfg)
+    flags = violation_flags(state, cfg, n_global=n_global)
     if injected is not None:
         flags = flags | injected
     return flags
 
 
 def record_flags(state: SimState, cfg: SimConfig,
-                 injected: torch.Tensor | None = None) -> SimState:
+                 injected: torch.Tensor | None = None,
+                 n_global: int | None = None) -> SimState:
     """OR this tick's violation bits, and the fault plane's ``injected``
     bits when given, into ``state.fault_flags`` (``"record"`` and
     ``"raise"``; the engine skips the call under ``"off"``)."""
-    return state._replace(
-        fault_flags=state.fault_flags | tick_flags(state, cfg, injected))
+    return state._replace(fault_flags=state.fault_flags | tick_flags(
+        state, cfg, injected, n_global=n_global))
 
 
 _NAMES = {

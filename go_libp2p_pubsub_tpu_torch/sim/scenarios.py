@@ -1,5 +1,5 @@
 """Named benchmark scenarios as reproducible constructors (port of
-sim/scenarios.py; all but the power-law family).
+sim/scenarios.py).
 
 Each constructor returns ``(cfg, tp, state)`` ready for ``engine.run``, with
 the state on ``device`` (cuda unless the caller passes ``device="cpu"``),
@@ -48,6 +48,12 @@ The adversary families (sim/adversary.py; scenarios.py:385-441):
 ``slowlink_small``, ``diurnal_small`` and the bench-scale ``eclipse_50k``
 and ``flashcrowd_50k``. :data:`SCENARIOS` is the reference's name
 registry.
+
+The heavy-tailed family (scenarios.py:479-627): ``powerlaw_cfg``,
+``powerlaw_spec``, ``powerlaw_mh_spec``, ``powerlaw_bucketed``,
+``powerlaw_100k``/``_1m``/``_10m`` and ``heavytail_eclipse`` (a
+hub-targeted eclipse) return ``(cfg, tp, BucketedState)`` for
+``sim.bucketed.bucketed_run``; :data:`BUCKETED_SCENARIOS` names them.
 
 Seeds are fixed (314159, the reference's test seed).
 """
@@ -457,10 +463,164 @@ def flashcrowd_50k(n_peers: int = 50_000, k_slots: int = 32,
                                        degree=degree, **kw)[:3])
 
 
+# --- the heavy-tailed family (sim/bucketed.py; scenarios.py:479-627) ----
+# Truncated power-law degree sequences (topology.powerlaw), run on the
+# degree-bucketed layout, so a tick's work and the resting bytes scale
+# with the sum of degrees instead of N * D_max. The builders return
+# (cfg, tp, BucketedState) for sim.bucketed.bucketed_run, not engine.run,
+# so they live in BUCKETED_SCENARIOS, not SCENARIOS.
+
+POWERLAW_NS = {"powerlaw_100k": 131_072, "powerlaw_1m": 1_048_576,
+               "powerlaw_10m": 10_485_760}
+
+# Row alignment of a multi-process bucketed run: every bucket boundary
+# rounds to a multiple of this, independent of the process count, so the
+# partition (and the checkpoint fingerprint) is the same at every count
+# dividing it.
+POWERLAW_MH_ALIGN = 64
+
+
+def powerlaw_cfg(n_peers: int, d_min: int = 8, d_max: int = 64,
+                 alpha: float = 2.0, n_topics: int = 2,
+                 msg_window: int = 64, state_precision: str = "compact",
+                 bucketed_rng: str = "bucket",
+                 shard_align: int | None = None) -> SimConfig:
+    """The heavy-tail SimConfig alone, with no topology build: the bucket
+    partition is closed-form (topology.powerlaw_buckets), so the pricing
+    sees the bucketed layout before anything is built. ``shard_align``
+    rounds the partition for a row-sharded run
+    (topology.align_degree_buckets; POWERLAW_MH_ALIGN)."""
+    buckets = topology.powerlaw_buckets(n_peers, d_min=d_min, d_max=d_max,
+                                        alpha=alpha)
+    if shard_align is not None:
+        buckets = topology.align_degree_buckets(buckets, shard_align)
+    return SimConfig(
+        n_peers=n_peers, k_slots=buckets[0][1], n_topics=n_topics,
+        msg_window=msg_window, publishers_per_tick=16, prop_substeps=8,
+        scoring_enabled=True, behaviour_penalty_weight=-10.0,
+        behaviour_penalty_decay=0.999, gossip_threshold=-100.0,
+        publish_threshold=-200.0, graylist_threshold=-300.0,
+        churn_disconnect_prob=0.002, churn_reconnect_prob=0.2,
+        retain_score_ticks=30, state_precision=state_precision,
+        degree_buckets=buckets, bucketed_rng=bucketed_rng)
+
+
+def _powerlaw_subscriptions(n_peers: int, n_topics: int,
+                            subnet_fraction: float) -> np.ndarray:
+    rng = np.random.default_rng(SEED)
+    subscribed = np.zeros((n_peers, n_topics), dtype=bool)
+    subscribed[:, 0] = True
+    for t in range(1, n_topics):
+        subscribed[:, t] = rng.random(n_peers) < subnet_fraction
+    return subscribed
+
+
+def powerlaw_spec(n_peers: int, d_min: int = 8, d_max: int = 64,
+                  alpha: float = 2.0, subnet_fraction: float = 0.3,
+                  rows: tuple[int, int] | None = None, device=None,
+                  topo: topology.Topology | None = None, **cfg_kw,
+                  ) -> tuple[SimConfig, TopicParams, topology.Topology,
+                             np.ndarray]:
+    """The heavy-tail scenario without device state: ``(cfg, tp, topo,
+    subscribed)``. ``rows=(start, count)`` builds only that shard of the
+    underlay (topology.powerlaw is a pure function of the row id); ``topo``
+    is the caller's prebuilt ``topology.powerlaw(n_peers, cfg.k_slots,
+    d_min=d_min, d_max=d_max, alpha=alpha, seed=SEED)``."""
+    cfg = powerlaw_cfg(n_peers, d_min=d_min, d_max=d_max, alpha=alpha,
+                       **cfg_kw)
+    subscribed = _powerlaw_subscriptions(n_peers, cfg.n_topics,
+                                         subnet_fraction)
+    if topo is None:
+        topo = topology.powerlaw(n_peers, cfg.k_slots, d_min=d_min,
+                                 d_max=d_max, alpha=alpha, seed=SEED,
+                                 rows=rows)
+    return cfg, default_topic_params(cfg.n_topics, device=device), topo, \
+        subscribed
+
+
+def powerlaw_mh_spec(n_peers: int, d_min: int = 8, d_max: int = 64,
+                     alpha: float = 2.0, subnet_fraction: float = 0.3,
+                     device=None, **cfg_kw):
+    """The multi-process heavy-tail spec: ``(cfg, tp, topo_rows,
+    subscribed)``, ``topo_rows(start, count)`` building only those
+    underlay rows. The partition is shard-aligned by default
+    (POWERLAW_MH_ALIGN)."""
+    cfg_kw.setdefault("shard_align", POWERLAW_MH_ALIGN)
+    cfg = powerlaw_cfg(n_peers, d_min=d_min, d_max=d_max, alpha=alpha,
+                       **cfg_kw)
+    subscribed = _powerlaw_subscriptions(n_peers, cfg.n_topics,
+                                         subnet_fraction)
+
+    def topo_rows(start: int, count: int) -> topology.Topology:
+        return topology.powerlaw(n_peers, cfg.k_slots, d_min=d_min,
+                                 d_max=d_max, alpha=alpha, seed=SEED,
+                                 rows=(start, count))
+
+    return cfg, default_topic_params(cfg.n_topics, device=device), \
+        topo_rows, subscribed
+
+
+def powerlaw_bucketed(n_peers: int, device=None, **kw):
+    """Single-process heavy-tail constructor: (cfg, tp, BucketedState) on
+    ``device`` (cuda unless the caller passes ``device="cpu"``)."""
+    from . import bucketed
+    cfg, tp, topo, subscribed = powerlaw_spec(n_peers, device=device, **kw)
+    return cfg, tp, bucketed.init_bucketed_state(
+        cfg, topo, device=device, subscribed=subscribed)
+
+
+def powerlaw_100k(n_peers: int = POWERLAW_NS["powerlaw_100k"], **kw):
+    return powerlaw_bucketed(n_peers, **kw)
+
+
+def powerlaw_1m(n_peers: int = POWERLAW_NS["powerlaw_1m"], **kw):
+    return powerlaw_bucketed(n_peers, **kw)
+
+
+def powerlaw_10m(n_peers: int = POWERLAW_NS["powerlaw_10m"], **kw):
+    """The 10M heavy-tailed network, its partition shard-aligned. On one
+    process it builds whole; the row-sharded launch is item 7's."""
+    kw.setdefault("shard_align", POWERLAW_MH_ALIGN)
+    return powerlaw_bucketed(n_peers, **kw)
+
+
+def heavytail_eclipse(n_peers: int = POWERLAW_NS["powerlaw_100k"],
+                      start: int = 3, end: int = 8,
+                      sybil_fraction: float = 0.1, device=None, **kw):
+    """Hub-targeted eclipse on the heavy-tailed underlay: the power law
+    puts the hubs at the low ids, the contiguous region EclipseWindow
+    targets, so the window's fraction covers the hub bucket and the
+    sybils are drawn from the tail. Cutting the hub bucket severs the
+    underlay's high-degree core."""
+    import dataclasses
+
+    from . import bucketed
+    from .faults import EclipseWindow
+    cfg, tp, topo, subscribed = powerlaw_spec(n_peers, device=device, **kw)
+    n_hub = cfg.degree_buckets[0][0]
+    rng = np.random.default_rng(SEED)
+    malicious = np.zeros(n_peers, dtype=bool)
+    tail = np.arange(n_hub, n_peers)
+    malicious[rng.choice(tail, size=min(len(tail),
+                                        int(sybil_fraction * n_peers)),
+                         replace=False)] = True
+    cfg = dataclasses.replace(cfg, fault_plan=FaultPlan(eclipses=(
+        EclipseWindow(start, end, fraction=n_hub / n_peers),)))
+    return cfg, tp, bucketed.init_bucketed_state(
+        cfg, topo, device=device, subscribed=subscribed,
+        malicious=malicious)
+
+
+BUCKETED_SCENARIOS = {
+    "powerlaw_100k": powerlaw_100k,
+    "powerlaw_1m": powerlaw_1m,
+    "powerlaw_10m": powerlaw_10m,
+    "heavytail_eclipse": heavytail_eclipse,
+}
+
+
 # name -> builder, the reference's registry (scenarios.py:628-650): the
-# names crash dumps stamp and replay_crash.py rebuilds a run from. The
-# power-law family (BUCKETED_SCENARIOS) waits for the bucketed engine
-# (ROADMAP.md, Queue 1 item 8).
+# names crash dumps stamp and replay_crash.py rebuilds a run from
 SCENARIOS = {
     "1k_single_topic": single_topic_1k,
     "10k_beacon": beacon_10k,

@@ -23,6 +23,7 @@ dtypes before anything is allocated.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -170,8 +171,6 @@ _TICK16_NEVER = 32767     # reserved int16 encoding of the NEVER sentinel
 _TICK16_SAT = 32766       # saturation bound for live relative ticks
 _BF16_QNAN = 0x7FC0       # bf16 quiet NaN
 _BF16_NEG_QNAN = 0xFFC0 - 0x10000   # with the sign bit, as an int16
-_BUCKETED = ("degree_buckets (the bucketed layout's pricing) is not ported "
-             "yet (ROADMAP.md, Queue 1 item 8)")
 
 
 def _check_compact(cfg: SimConfig) -> None:
@@ -299,6 +298,23 @@ _ENCODE = {"bf16": _encode_bf16, "tick16": _encode_tick16,
            "packK": _encode_pack, "slot8": _encode_slot8}
 
 
+def decode_plane(codec: str, v: torch.Tensor, tick: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """One stored plane back in the compute layout: the inverse of
+    ``_ENCODE[codec]`` (``k``: the slot count a packed plane unpacks to)."""
+    if codec == "bf16":
+        return v.view(torch.bfloat16).to(torch.float32)
+    if codec == "tick16":
+        e = v.to(torch.int32)
+        return (tick + e).masked_fill(e == _TICK16_NEVER, NEVER)
+    if codec == "packK":
+        from ..ops.bits import unpack_bool
+        return unpack_bool(v, k)
+    if codec == "slot8":
+        return v.to(torch.int32)
+    raise ValueError(f"unknown storage codec {codec!r}")
+
+
 def encode_state(state: SimState, cfg: SimConfig) -> SimState:
     """The STORED representation of a compute-layout state
     (state.py:298-330): identity under ``"f32"``; under ``"compact"`` the
@@ -328,20 +344,9 @@ def decode_state(state: SimState, cfg: SimConfig) -> SimState:
     if not is_compact(state):
         raise TypeError(
             "decode_state: state is already in the compute layout")
-    from ..ops.bits import unpack_bool
-    out = {}
-    for f, codec in _COMPACT_CODECS.items():
-        v = getattr(state, f)
-        if codec == "bf16":
-            out[f] = v.view(torch.bfloat16).to(torch.float32)
-        elif codec == "tick16":
-            e = v.to(torch.int32)
-            out[f] = (state.tick + e).masked_fill(e == _TICK16_NEVER, NEVER)
-        elif codec == "packK":
-            out[f] = unpack_bool(v, cfg.k_slots)
-        elif codec == "slot8":
-            out[f] = v.to(torch.int32)
-    return state._replace(**out)
+    return state._replace(**{
+        f: decode_plane(codec, getattr(state, f), state.tick, cfg.k_slots)
+        for f, codec in _COMPACT_CODECS.items() if codec is not None})
 
 
 def per_peer_byte_ceilings(cfg: SimConfig) -> dict:
@@ -391,8 +396,33 @@ def per_peer_byte_ceilings(cfg: SimConfig) -> dict:
 
 
 def bucketed_edge_nbytes(cfg: SimConfig, per_bucket: bool = False):
-    """The bucketed layout's edge-plane pricing (state.py:414-446)."""
-    raise NotImplementedError(f"bucketed_edge_nbytes: {_BUCKETED}")
+    """field -> bytes of each K-axis edge plane under the degree-bucketed
+    layout (sim/bucketed.py; state.py:414-446): the sum over buckets of
+    the field priced at the bucket's ``(n_rows, k_ceil)`` by
+    :func:`state_spec`, plus ``bucket_rev``, the flat int32 reverse-index
+    planes. ``per_bucket=True`` returns the unsummed list, one ``{"rows":
+    n_b, "k_ceil": k_b, <field>: bytes, ..., "bucket_rev": b}`` per
+    bucket."""
+    from .bucketed import EDGE_FIELDS, _buckets, check_bucketable
+    check_bucketable(cfg)
+    out = {f: 0 for f in EDGE_FIELDS}
+    rev = 0
+    buckets = []
+    for _, n_b, k_b in _buckets(cfg):
+        sub_spec = state_spec(dataclasses.replace(
+            cfg, n_peers=n_b, k_slots=k_b, degree_buckets=None))
+        entry = {"rows": n_b, "k_ceil": k_b}
+        for f in EDGE_FIELDS:
+            shape, dtype, _ = sub_spec[f]
+            nb = int(np.prod(shape, dtype=np.int64)) \
+                * np.dtype(dtype).itemsize
+            out[f] += nb
+            entry[f] = nb
+        rev += n_b * k_b * 4
+        entry["bucket_rev"] = n_b * k_b * 4
+        buckets.append(entry)
+    out["bucket_rev"] = rev
+    return buckets if per_bucket else out
 
 
 def state_nbytes(cfg: SimConfig, n_dev: int | dict = 1) -> dict:
@@ -401,7 +431,11 @@ def state_nbytes(cfg: SimConfig, n_dev: int | dict = 1) -> dict:
     shard of an ``n_dev``-way peer sharding (peer-major fields divide
     their N axis, the rest replicate). ``n_dev`` may be a mesh dict such
     as ``{'dcn': 2, 'peers': 4}``: the peer axis shards over every mesh
-    axis."""
+    axis. Under ``degree_buckets`` the K-axis planes are priced at the
+    bucketed layout (:func:`bucketed_edge_nbytes`, each plane padded to
+    its bucket's ceiling, plus ``bucket_rev``), and ``bucket_shards``
+    lists each bucket's planes split over the shards (a one-row ceiling
+    where a bucket's rows do not divide)."""
     mesh = None
     if isinstance(n_dev, dict):
         mesh = dict(n_dev)
@@ -411,16 +445,34 @@ def state_nbytes(cfg: SimConfig, n_dev: int | dict = 1) -> dict:
         raise ValueError(
             f"state_nbytes: n_peers={n} must divide evenly over "
             f"n_dev={n_dev} (the peer sharding raises the same)")
-    if cfg.degree_buckets is not None:
-        raise NotImplementedError(f"state_nbytes: {_BUCKETED}")
     fields, total, per_shard = {}, 0, 0
     for f, (shape, dtype, peer_major) in state_spec(cfg).items():
         nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
         fields[f] = nbytes
         total += nbytes
         per_shard += nbytes // n_dev if peer_major else nbytes
+    bucket_shards = None
+    if cfg.degree_buckets is not None:
+        agg = {f: 0 for f in bucketed_edge_nbytes(cfg)}
+        bucket_shards = []
+        for entry in bucketed_edge_nbytes(cfg, per_bucket=True):
+            shard_entry = {"rows": entry["rows"], "k_ceil": entry["k_ceil"]}
+            for f, nb in entry.items():
+                if f in ("rows", "k_ceil"):
+                    continue
+                agg[f] += nb
+                shard_entry[f] = -(-nb // n_dev)
+                per_shard += shard_entry[f]
+            bucket_shards.append(shard_entry)
+        for f, nbytes in agg.items():
+            old = fields.get(f, 0)
+            fields[f] = nbytes
+            total += nbytes - old
+            per_shard -= old // n_dev
     out = {"total": total, "per_shard": per_shard, "n_dev": n_dev,
            "fields": fields}
+    if bucket_shards is not None:
+        out["bucket_shards"] = bucket_shards
     if mesh is not None:
         out["mesh"] = mesh
     return out
@@ -452,16 +504,30 @@ def check_hbm_budget(cfg: SimConfig, n_dev: int | dict = 1,
     """Price the state (:func:`state_nbytes`) and refuse with a ValueError
     naming the four largest planes when the bytes per shard exceed
     ``budget`` (state.py:531-576). ``budget=None`` reads
-    ``GRAFT_HBM_BUDGET``; with no gate set the pricing is returned."""
+    ``GRAFT_HBM_BUDGET``; with no gate set the pricing is returned. Under
+    ``degree_buckets`` the refusal names the worst (field x bucket)
+    planes, such as ``mesh[b0 16384x64]``."""
     acct = state_nbytes(cfg, n_dev)
     if budget is None:
         budget = hbm_budget_bytes()
     if budget is None or acct["per_shard"] <= budget:
         return acct
     spec = state_spec(cfg)
-    shard_fields = {f: (b // acct["n_dev"] if spec[f][2] else b)
-                    for f, b in acct["fields"].items()}
-    worst = sorted(shard_fields.items(), key=lambda kv: -kv[1])[:4]
+    if "bucket_shards" in acct:
+        per_bucket = []
+        for b, entry in enumerate(acct["bucket_shards"]):
+            tag = f"b{b} {entry['rows']}x{entry['k_ceil']}"
+            per_bucket += [(f"{f}[{tag}]", nb) for f, nb in entry.items()
+                           if f not in ("rows", "k_ceil")]
+        edge = set(f for e in acct["bucket_shards"] for f in e)
+        per_bucket += [(f, b // acct["n_dev"] if f not in spec or spec[f][2]
+                        else b)
+                       for f, b in acct["fields"].items() if f not in edge]
+        worst = sorted(per_bucket, key=lambda kv: -kv[1])[:4]
+    else:
+        shard_fields = {f: (b // acct["n_dev"] if spec[f][2] else b)
+                        for f, b in acct["fields"].items()}
+        worst = sorted(shard_fields.items(), key=lambda kv: -kv[1])[:4]
     names = ", ".join(f"{f}={b / 2 ** 20:.1f}MiB" for f, b in worst)
     raise ValueError(
         f"GRAFT_HBM_BUDGET: {what} prices "

@@ -5,7 +5,9 @@ the same arguments: ``sparse``/``dense`` (floodsub_test.go:75-91),
 ``full`` (connectAll, floodsub_test.go:93-100), ``star``
 (gossipsub_test.go:1044-1127), and the frontier-scale underlays
 ``sparse_fast``, ``sparse_hash`` and ``powerlaw`` (the last two
-shard-constructible through ``rows=(start, count)``). Results are padded
+shard-constructible through ``rows=(start, count)``), with the power-law
+graph's degree-bucket partition (``powerlaw_buckets``,
+``align_degree_buckets``) and ``degree_stats``. Results are padded
 arrays:
 
 - ``neighbors [N, K] int32``: peer index per slot, -1 for empty
@@ -415,6 +417,73 @@ def _powerlaw_fill(n, k, cnt, r0, levels, offs, col_m, col_off, col_out,
         c0 = c1
     degree_arr = (neighbors >= 0).sum(axis=1).astype(np.int32)
     return Topology(neighbors, outbound, reverse_slot, degree_arr)
+
+
+def powerlaw_buckets(n: int, d_min: int = 8, d_max: int = 64,
+                     alpha: float = 2.0, round_to: int = 8,
+                     ) -> tuple[tuple[int, int], ...]:
+    """The degree-bucket partition a :func:`powerlaw` graph induces
+    (topology.py:430-449): ``((n_rows, k_ceil), ...)`` in id order, one
+    bucket per maximal contiguous equal-degree id range (the level-prefix
+    boundaries), each ceiling rounded up to ``round_to`` slots. This is
+    the value ``SimConfig.degree_buckets`` takes; ``k_slots`` must equal
+    the first (hub) bucket's ceiling (``sim.bucketed.check_bucketable``)."""
+    levels = powerlaw_levels(n, d_min=d_min, d_max=d_max, alpha=alpha)
+    bounds = sorted({m for m, _ in levels})             # ascending prefixes
+    out = []
+    prev = 0
+    for m in bounds:
+        deg = 2 * sum(c for (ml, c) in levels if ml >= m)
+        ceil = -(-max(deg, 1) // round_to) * round_to
+        out.append((m - prev, ceil))
+        prev = m
+    return tuple(out)
+
+
+def align_degree_buckets(buckets, align: int) -> tuple:
+    """``buckets`` with every cumulative bucket boundary rounded UP to a
+    multiple of ``align`` (topology.py:452-485): the partition a
+    row-sharded bucketed state needs. Rounding up moves boundary rows into
+    the earlier, wider bucket, so their edges still fit; buckets emptied
+    by the move drop out."""
+    bks = tuple((int(r), int(k)) for r, k in buckets)
+    n = sum(r for r, _ in bks)
+    if align <= 0 or n % align:
+        raise ValueError(
+            f"align_degree_buckets: {n} rows do not tile align={align}; "
+            "the id space itself must be a multiple of the alignment")
+    out, prev = [], 0
+    end = 0
+    for r, kb in bks:
+        end += r
+        new_end = min(n, -(-end // align) * align)
+        new_end = max(new_end, prev)             # keep boundaries monotone
+        if new_end > prev:
+            out.append((new_end - prev, kb))
+        prev = new_end
+    return tuple(out)
+
+
+def degree_stats(topo: "Topology | np.ndarray") -> dict:
+    """Shape summary of an underlay's degree sequence (topology.py:
+    488-509): min/mean/p99/max degree and the Gini coefficient of the
+    distribution (0 = uniform degree, ~0.5+ = heavy-tailed)."""
+    deg = np.asarray(topo.degree if isinstance(topo, Topology) else topo,
+                     np.int64)
+    if deg.size == 0:
+        raise ValueError("degree_stats: empty degree sequence")
+    srt = np.sort(deg)
+    total = int(srt.sum())
+    if total > 0:
+        cum = np.cumsum(srt, dtype=np.int64)
+        gini = float((deg.size + 1 - 2 * (cum.sum() / total)) / deg.size)
+    else:
+        gini = 0.0
+    return {"n": int(deg.size), "sum": total,
+            "min": int(srt[0]), "max": int(srt[-1]),
+            "mean": round(float(srt.mean()), 3),
+            "p99": int(np.percentile(srt, 99, method="lower")),
+            "gini": round(gini, 4)}
 
 
 def full(n: int, k: int) -> Topology:

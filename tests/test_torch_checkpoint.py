@@ -10,9 +10,12 @@ checkpoint.py) against the JAX package's on the CPU.
   config, one with a fault plan, a compact one, a fleet axis);
 - ``restore``'s validation: a shape or a dtype mismatch names the field,
   a field missing from the file restores from ``like``, a torn payload
-  raises ``CheckpointCorrupt``, a cross-precision restore and another
-  config are refused by name, the bucketed state by its queue item; the
-  crash-atomic save leaves no temp files."""
+  raises ``CheckpointCorrupt``, a cross-precision restore, another
+  bucket partition and another config are refused by name; the
+  crash-atomic save leaves no temp files;
+- a degree-bucketed state (sim/bucketed.py) saved by either package
+  restores in the other, bit for bit, in either layout, and resumes to
+  the uninterrupted trajectory."""
 
 import dataclasses
 import os
@@ -31,9 +34,9 @@ from go_libp2p_pubsub_tpu.sim.engine import run_keys as jrun_keys
 from go_libp2p_pubsub_tpu.sim.state import encode_state as jencode
 from go_libp2p_pubsub_tpu_torch import rng
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
-                                            checkpoint, engine,
+                                            checkpoint, engine, scenarios,
                                             state_from_reference,
-                                            state_to_numpy)
+                                            state_to_numpy, topology)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -219,11 +222,64 @@ def test_refusals_by_name(tmp_path):
     # a compact checkpoint under an f32 like without cfg: field by field
     with pytest.raises(ValueError, match="checkpoint field 'connected'"):
         checkpoint.restore(path, st_f)
+    # a state saved under one bucket partition restores under no other
+    # (the dense layout included), refused by name as the reference does
     bucketed = dataclasses.replace(cfg_f, degree_buckets=((256, 16),))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 8\)"):
-        checkpoint.save(path, st_f, cfg=bucketed)
+    checkpoint.save(path, st_f, cfg=bucketed)
+    assert checkpoint.sidecar_meta(path)["degree_buckets"] == "256x16"
+    jckpt.save(jpath, jst_f, cfg=dataclasses.replace(
+        jcfg_f, degree_buckets=((256, 16),)))
+    assert jckpt.sidecar_meta(jpath) == checkpoint.sidecar_meta(path)
+    with pytest.raises(ValueError, match="bucket-partition mismatch") as want:
+        jckpt.restore(jpath, jst_f, cfg=jcfg_f)
+    with pytest.raises(ValueError, match="bucket-partition mismatch") as got:
+        checkpoint.restore(jpath, st_f, cfg=cfg_f)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="bucket-partition mismatch"):
+        checkpoint.restore(path, st_f, cfg=cfg_f)
     with pytest.raises(TypeError, match="SimState"):
         checkpoint.save(path, tuple(st_f))
     assert sorted(os.listdir(tmp_path)) == ["ck.npz", "ck.npz.fingerprint",
                                             "jck.npz", "jck.npz.fingerprint"]
     assert jnp.asarray(jst_c.mesh).dtype == jnp.uint32
+
+
+@pytest.mark.parametrize("precision", ["f32", "compact"])
+def test_bucketed_checkpoints_cross_between_packages(precision, tmp_path):
+    """A BucketedState after a tick of ``powerlaw_bucketed(1024)``: the
+    port's ``.npz`` restores in the reference and the reference's in the
+    port, every ``g.``/``e<b>.``/``rev<b>`` array equal, sidecars equal;
+    the restored state steps on to the uninterrupted tick."""
+    from go_libp2p_pubsub_tpu_torch.sim import bucketed
+
+    jcfg, _, jbs = jscenarios.powerlaw_bucketed(1024,
+                                                state_precision=precision)
+    cfg, tp, bs = scenarios.powerlaw_bucketed(1024, state_precision=precision,
+                                              device="cpu")
+    assert SimConfig(**dataclasses.asdict(jcfg)) == cfg
+    keys = _keys()
+    one = bucketed.bucketed_step(bs, cfg, tp, keys[0], device="cpu")
+    want = bucketed.bucketed_step(one, cfg, tp, keys[1], device="cpu")
+    arrays = bucketed.bucketed_state_to_numpy(one)
+    port_path = str(tmp_path / "port.npz")
+    checkpoint.save(port_path, one, cfg=cfg, processes=1)
+    jback = jckpt.restore(port_path, jbs, cfg=jcfg)
+    _assert_equal(arrays, {n: np.asarray(v)
+                           for n, v in jckpt._named_leaves(jback)},
+                  "into reference")
+    ref_path = str(tmp_path / "ref.npz")
+    jckpt.save(ref_path, jback, cfg=jcfg, processes=1)
+    assert jckpt.sidecar_meta(ref_path) == checkpoint.sidecar_meta(port_path)
+    assert checkpoint.sidecar_meta(ref_path)["degree_buckets"] == \
+        ",".join(f"{r}x{k}" for r, k in cfg.degree_buckets)
+    back = checkpoint.restore(ref_path, bs, cfg=cfg)
+    _assert_equal(arrays, bucketed.bucketed_state_to_numpy(back),
+                  "from reference")
+    got = bucketed.bucketed_step(back, cfg, tp, keys[1], device="cpu")
+    _assert_equal(bucketed.bucketed_state_to_numpy(want),
+                  bucketed.bucketed_state_to_numpy(got), "resumed")
+    other = dataclasses.replace(cfg, degree_buckets=tuple(
+        (r, k) for r, k in topology.align_degree_buckets(
+            cfg.degree_buckets, 256)))
+    with pytest.raises(ValueError, match="bucket-partition mismatch"):
+        checkpoint.restore(ref_path, bs, cfg=other)

@@ -1020,3 +1020,105 @@ def test_supervised_commands_on_the_card_leave_frames_intact(tmp_path):
         assert any(a is not b for a, b in zip(applied, out))
     finally:
         compile_plan.clear_caches()
+
+
+# --- the degree-bucketed engine (sim/bucketed.py) ---------------------------
+
+def _bucketed_case(dev, rng_mode="bucket", precision="f32"):
+    """A 1024-peer power-law network on its degree buckets (d 4-16):
+    scoring, the gater, connection churn, link drop and duplication and an
+    eclipse of the hub bucket, on ``dev``, under the fold_in schedule (a
+    one-tick ``bucketed_run`` per tick lands on the run's trajectory)."""
+    from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, bucketed,
+                                                scenarios, topology)
+    from go_libp2p_pubsub_tpu_torch.sim.faults import EclipseWindow, FaultPlan
+    n = 1024
+    buckets = topology.powerlaw_buckets(n, d_min=4, d_max=16)
+    k = buckets[0][1]
+    plan = FaultPlan(link_drop_prob=0.02, link_dup_prob=0.02,
+                     eclipses=(EclipseWindow(2, 6,
+                                             fraction=buckets[0][0] / n),),
+                     seed=5)
+    cfg = SimConfig(n_peers=n, k_slots=k, n_topics=2, msg_window=8,
+                    publishers_per_tick=4, prop_substeps=4,
+                    scoring_enabled=True, gater_enabled=True,
+                    churn_disconnect_prob=0.05, churn_reconnect_prob=0.2,
+                    fault_plan=plan, degree_buckets=buckets,
+                    bucketed_rng=rng_mode, state_precision=precision,
+                    key_schedule="fold_in")
+    topo = topology.powerlaw(n, k, d_min=4, d_max=16, seed=11)
+    bs = bucketed.init_bucketed_state(cfg, topo, device=dev,
+                                      malicious=np.arange(n) >= 896)
+    return cfg, scenarios.default_topic_params(2, device=dev), bs
+
+
+def _same_leaves(got: dict, want: dict):
+    for name, a in want.items():
+        b = got[name]
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+@pytest.mark.parametrize("rng_mode", ["bucket", "dense"])
+def test_bucketed_trajectory_cuda_equals_cpu(rng_mode):
+    """6 ticks of the 1024-peer bucketed network: after every tick every
+    array of ``g``, of every bucket and of ``rev`` on the card equals the
+    CPU's (float32 within rtol 1e-6), and no hand kernel launches."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.ops import cudalib
+    from go_libp2p_pubsub_tpu_torch.sim import bucketed
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, tp, bs = _bucketed_case(dev, rng_mode)
+        key = rng.PRNGKey(0, device=dev)
+        cudalib.reset_launches()
+        ticks = []
+        for _ in range(6):
+            bs = bucketed.bucketed_run(bs, cfg, tp, key, 1, device=dev)
+            ticks.append(bucketed.bucketed_state_to_numpy(bs))
+        runs[dev] = ticks
+        if dev == "cuda":
+            assert not any(cudalib.LAUNCHES.values()), cudalib.LAUNCHES
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        _same_leaves(got, want)
+    assert int(runs["cuda"][-1]["g.fault_flags"]) & 0x80
+
+
+def test_bucketed_tick_makes_no_sync():
+    """A compact bucketed tick on the card raises nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import bucketed
+    cfg, tp, bs = _bucketed_case("cuda", precision="compact")
+    key = rng.PRNGKey(0, device="cuda")
+    bs = bucketed.bucketed_step(bs, cfg, tp, key, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bs = bucketed.bucketed_step(bs, cfg, tp, key, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_bucketed_checkpoint_from_the_cpu_steps_on_the_card(tmp_path):
+    """A compact bucketed ``.npz`` saved after 2 CPU ticks restores onto a
+    card state and steps there equal to the CPU's next tick."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.sim import bucketed, checkpoint
+    cfg, tp, bs = _bucketed_case("cpu", precision="compact")
+    key = rng.PRNGKey(3, device="cpu")
+    bs = bucketed.bucketed_run(bs, cfg, tp, key, 2, device="cpu")
+    path = str(tmp_path / "bucketed.npz")
+    checkpoint.save(path, bs, cfg=cfg)
+    want = bucketed.bucketed_run(bs, cfg, tp, key, 1, device="cpu")
+    _, tp_c, like = _bucketed_case("cuda", precision="compact")
+    back = checkpoint.restore(path, like, cfg=cfg)
+    assert back.g.tick.device.type == "cuda"
+    got = bucketed.bucketed_run(back, cfg, tp_c,
+                                rng.PRNGKey(3, device="cuda"), 1,
+                                device="cuda")
+    _same_leaves(bucketed.bucketed_state_to_numpy(got),
+                 bucketed.bucketed_state_to_numpy(want))

@@ -5,7 +5,8 @@ against the JAX package's sim/faults.py on the CPU.
   reference config (``SimConfig(**dataclasses.asdict(cfg))``);
 - every peer and edge hash bit-equal to the JAX and the host versions;
 - ``edge_cut_mask``, ``apply_faults``, ``storm_publishers``,
-  ``censor_word_mask`` and ``attacker_mask`` on a fixed state;
+  ``censor_word_mask`` and ``attacker_mask`` on a fixed state, and
+  ``edge_cut_mask`` and ``slow_edge_hash`` over row slices;
 - a forward_tick with IWANTs pending on dropped links (a link-eaten answer
   is a broken promise, a graylist/gater drop is not);
 - an 8-tick ``engine.run`` per fault family and one with every family,
@@ -312,12 +313,47 @@ def test_edge_cut_mask_and_apply_faults_equal(network, tick):
 
 
 def test_edge_cut_mask_refuses_row_slices(network):
-    jst = network[2]
-    st = state_from_reference(_arrays(jst), device="cpu")
-    plan = faults.FaultPlan.parse("partition=2@1:3")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 8"):
-        faults.edge_cut_mask(plan, st.tick, st.neighbors, st.reverse_slot,
-                             row_start=16)
+    """edge_cut_mask and slow_edge_hash over row slices (the bucketed
+    engine's degree-bucket views: ``row_start``/``n_global``): at ticks
+    inside and at the end of the windows, the slices' masks and hashes
+    concatenate into the reference's full-graph ones, and each slice equals
+    the reference's own slice call. An eclipse plan without the malicious
+    mask is still refused."""
+    jtp = network[1]
+    jc, jst = network[4]["every family"]
+    cfg, _, st = _port(jc, jtp, jst)
+    cuts = ((0, 40), (40, 100), (140, 116))
+    for tick in (3, 4, 6):
+        jt, t = jnp.int32(tick), torch.full((), tick, dtype=torch.int32)
+        full = jfaults.edge_cut_mask(
+            jc.fault_plan, jt, jst.neighbors, jst.reverse_slot,
+            disconnect_tick=jst.disconnect_tick, malicious=jst.malicious)
+        parts = []
+        for r0, cnt in cuts:
+            sl = slice(r0, r0 + cnt)
+            want = jfaults.edge_cut_mask(
+                jc.fault_plan, jt, jst.neighbors[sl], jst.reverse_slot[sl],
+                disconnect_tick=jst.disconnect_tick[sl],
+                malicious=jst.malicious, row_start=r0, n_global=N)
+            got = faults.edge_cut_mask(
+                cfg.fault_plan, t, st.neighbors[sl], st.reverse_slot[sl],
+                disconnect_tick=st.disconnect_tick[sl],
+                malicious=st.malicious, row_start=r0, n_global=N)
+            for name, a, b in zip(("want_down", "heal", "injected"), want,
+                                  got):
+                _same(a, b, f"{name} rows {r0}+{cnt} tick {tick}")
+            parts.append(got)
+        for i, name in enumerate(("want_down", "heal")):
+            _same(full[i], torch.cat([p[i] for p in parts]), name)
+        inj = parts[0][2] | parts[1][2] | parts[2][2]
+        _same(full[2], inj, "injected")
+    salt = 0xDAA66D2B
+    whole = jfaults._slow_edge_hash_jax(jst.neighbors, salt)
+    parts = [faults.slow_edge_hash(st.neighbors[r0:r0 + cnt], salt,
+                                   row_start=r0, n_global=N)
+             for r0, cnt in cuts]
+    np.testing.assert_array_equal(torch.cat(parts).numpy(),
+                                  np.asarray(whole).astype(np.int64))
     with pytest.raises(ValueError, match="malicious"):
         faults.edge_cut_mask(faults.FaultPlan.parse("eclipse=0.1@1:3"),
                              st.tick, st.neighbors, st.reverse_slot)
@@ -487,9 +523,11 @@ def test_fault_scenario_over_its_heal(name):
 def test_lifted_configs_run_and_refusals_name_their_item():
     """Every config the port covers runs a step (the data plane's branches,
     since Queue 1 item 2 subscription churn, the raise and off invariant
-    modes and the fold_in key schedule, and since item 3 the sort and
-    scalar gathers and the iter selection); every refusal left names the
-    queue item that lifts it, and none names item 1, 2 or 3."""
+    modes and the fold_in key schedule, since item 3 the sort and scalar
+    gathers and the iter selection, and since item 8 a config with
+    degree_buckets, which the dense step ignores as the reference's does);
+    every refusal left names the queue item that lifts it, and none names
+    item 1, 2 or 3."""
     from go_libp2p_pubsub_tpu_torch.sim import build_headline
     cfg, tp, st = build_headline(64, k_slots=8, degree=4, device="cpu")
     key = rng.PRNGKey(0, device="cpu")
@@ -519,10 +557,14 @@ def test_lifted_configs_run_and_refusals_name_their_item():
     want = jstep(jencode(jst, jcfg), cfg=jcfg, tp=jtp,
                  key=jax.random.PRNGKey(0))
     _assert_equal(_arrays(want), state_to_numpy(out), "compact")
-    for over, item in ((dict(degree_buckets=((64, 8),)), 8),):
-        with pytest.raises(NotImplementedError,
-                           match=rf"Queue 1 item {item}\)"):
-            step(st, dataclasses.replace(cfg, **over), tp, key, device="cpu")
+    # Queue 1 item 8: the dense step ignores degree_buckets, as the
+    # reference's does (its engine never reads them)
+    jbk = dataclasses.replace(_build(64, 8, 4, publishers=8)[0],
+                              degree_buckets=((32, 8), (32, 4)))
+    out = step(st, SimConfig(**dataclasses.asdict(jbk)), tp, key,
+               device="cpu")
+    want = jstep(jst, cfg=jbk, tp=jtp, key=jax.random.PRNGKey(0))
+    _assert_equal(_arrays(want), state_to_numpy(out), "degree_buckets")
     with pytest.raises(ValueError, match="router"):
         step(st, dataclasses.replace(cfg, router="meshsub"), tp, key,
              device="cpu")

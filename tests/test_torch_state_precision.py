@@ -21,8 +21,10 @@
   trajectory; ``mesh_degrees`` and ``delivery_latency_ticks`` on a
   compact state;
 - the refusals by name: k_slots > 127, an unknown precision, a state
-  handed to the wrong codec direction (TypeError, as the reference's),
-  the bucketed pricing (ROADMAP.md, Queue 1 item 8)."""
+  handed to the wrong codec direction (TypeError, as the reference's);
+  and the bucketed pricing (``bucketed_edge_nbytes``, ``state_nbytes``
+  with ``bucket_shards``, ``check_hbm_budget`` and its refusal text)
+  equal to the reference's on the power-law configs."""
 
 import dataclasses
 
@@ -343,9 +345,35 @@ def test_refusals_by_name():
     enc = state.encode_state(st, ccfg)
     with pytest.raises(TypeError, match="already in the compact"):
         state.encode_state(enc, ccfg)
-    bucketed = dataclasses.replace(cfg, degree_buckets=((64, 8),))
-    for call in (lambda: state.state_nbytes(bucketed),
-                 lambda: state.check_hbm_budget(bucketed),
-                 lambda: state.bucketed_edge_nbytes(bucketed)):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 8\)"):
-            call()
+    # Queue 1 item 8: the bucketed pricing equals the reference's, its
+    # per-bucket list and per-shard split included, on a one-bucket
+    # config and the power-law family (powerlaw_10m shard-aligned); a
+    # partition that does not tile the id space is refused as there
+    jcfgs = [dataclasses.replace(_build(64, 8, 4)[0],
+                                 degree_buckets=((64, 8),))]
+    jcfgs += [jscenarios.powerlaw_cfg(n, state_precision=p)
+              for n in (131_072, 1_048_576) for p in ("f32", "compact")]
+    jcfgs.append(jscenarios.powerlaw_cfg(
+        10_485_760, shard_align=jscenarios.POWERLAW_MH_ALIGN))
+    for jcfg in jcfgs:
+        bcfg = SimConfig(**dataclasses.asdict(jcfg))
+        for per_bucket in (False, True):
+            assert state.bucketed_edge_nbytes(bcfg, per_bucket) == \
+                jstate.bucketed_edge_nbytes(jcfg, per_bucket)
+        for n_dev in (1, 8, {"dcn": 2, "peers": 4}):
+            got = state.state_nbytes(bcfg, n_dev)
+            assert got == jstate.state_nbytes(jcfg, n_dev)
+            assert len(got["bucket_shards"]) == len(bcfg.degree_buckets)
+        assert state.check_hbm_budget(bcfg, 8, budget=2 ** 50) == \
+            jstate.check_hbm_budget(jcfg, 8, budget=2 ** 50)
+        small = jstate.state_nbytes(jcfg)["per_shard"] // 3
+        with pytest.raises(ValueError) as want:
+            jstate.check_hbm_budget(jcfg, budget=small)
+        with pytest.raises(ValueError) as got:
+            state.check_hbm_budget(bcfg, budget=small)
+        assert str(got.value) == str(want.value)
+    assert round(state.state_nbytes(SimConfig(**dataclasses.asdict(
+        jcfgs[4])))["total"] / 2 ** 30, 3) == 1.397
+    untiled = dataclasses.replace(cfg, degree_buckets=((32, 8),))
+    with pytest.raises(ValueError, match="tile the id space"):
+        state.state_nbytes(untiled)
