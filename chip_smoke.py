@@ -216,7 +216,27 @@ Phases, each printing its own lines and its seconds:
    equal in every field to the dense ``run`` on the same graph on the
    card, which runs kernels 1-4 (their launches printed). The two
    power-law underlays build in child processes with the others;
-9. the ``kernels`` JSON line, then the device JSON line last.
+9. the multi-device plane (parallel/), after 8c: two ranks of ``python
+   -m go_libp2p_pubsub_tpu_torch.run_multihost``, both on ``cuda:0`` in a
+   gloo group (NCCL refuses two ranks on one device), started after the
+   kernels are built, a failed rank failing the phase. 9a the headline
+   (102400, kernels 1-4 on each rank's 51,200 rows) for 8 ticks: the
+   whole state's digests after every tick and the gathered final state
+   equal to the single-process card run of the same keys, then one more
+   tick whose every kernel call is held against its plain version on the
+   rank's own inputs; each rank prints its hb/s (two ranks sharing one
+   card, not a scaling figure), collective bytes per tick and launches.
+   9b the headline under ``sort`` and the halo route (4 ticks, overflow
+   0, equal to the single-process run), its starved control
+   (``halo_bucket_capacity=1`` must set ``halo_overflow`` and its flag),
+   and churn_50k (51200) under ``pallas`` for 4 ticks with kernels 4-6
+   checked on each rank. 9c ``mh_supervisor`` runs two ranks of
+   single_topic_1k(1024) for 16 ticks in chunks of 8, ``GRAFT_CHAOS``
+   kills rank 1 at tick 8, the group relaunches from the checkpoint, and
+   the final state equals the uninterrupted run. 9d heavytail_eclipse
+   (131,072) on the row-sharded bucketed step for 10 ticks, equal leaf
+   for leaf to the single-process card run, the eclipse bit set;
+10. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -3447,6 +3467,308 @@ class Smoke:
               f"bit for bit; fault_flags 0x{int(want.fault_flags):08x}",
               flush=True)
 
+    # ---- phase 9: the multi-device plane, two ranks on one card ----------
+    def _ranks(self, tag, args, nproc=2, timeout=600, module="run_multihost",
+               env_extra=None):
+        """``nproc`` ranks of ``python -m go_libp2p_pubsub_tpu_torch.run_
+        multihost`` (gloo over the card's tensors, a file rendezvous) with
+        ``args`` (``{d}`` replaced by the leg's directory); a failed rank
+        fails the phase. Returns (directory, each rank's ``--stats``).
+        ``module="mh_supervisor"`` runs the relaunch driver instead, which
+        starts the ranks itself."""
+        import tempfile
+        d = tempfile.mkdtemp(prefix=f"smoke{tag}")
+        args = [a.replace("{d}", d) for a in args]
+        env = {k: v for k, v in os.environ.items() if k != "GRAFT_CHAOS"}
+        env["PYTHONPATH"] = REPO
+        env["GRAFT_CRASH_DIR"] = os.path.join(d, "crash")
+        env.update(env_extra or {})
+        if module == "mh_supervisor":
+            res = subprocess.run(
+                [sys.executable, "-m", "go_libp2p_pubsub_tpu_torch."
+                 "mh_supervisor", "--procs", str(nproc), "--backend",
+                 "gloo", "--device", "cuda", "--rendezvous", "file",
+                 "--run-dir", os.path.join(d, "mh")] + args,
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=timeout)
+            if res.returncode:
+                logs = "".join(
+                    open(os.path.join(d, "mh", f)).read()[-2000:]
+                    for f in sorted(os.listdir(os.path.join(d, "mh")))
+                    if f.endswith(".log"))
+                raise AssertionError(f"phase {tag}: mh_supervisor exited "
+                                     f"{res.returncode}\n{res.stdout}\n"
+                                     f"{res.stderr[-2000:]}\n{logs}")
+            return d, res.stdout
+        procs = []
+        for r in range(nproc):
+            log = open(os.path.join(d, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m",
+                 "go_libp2p_pubsub_tpu_torch.run_multihost",
+                 "--backend", "gloo", "--device", "cuda",
+                 "--coordinator", f"file://{d}/rdv",
+                 "--num-processes", str(nproc), "--process-id", str(r),
+                 "--stats", os.path.join(d, "s{rank}.json")] + args,
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        try:
+            codes = [p.wait(timeout=timeout) for p, _ in procs]
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        if any(codes):
+            tails = "\n".join(open(os.path.join(d, f"rank{r}.log")).read()
+                               [-3000:] for r in range(nproc))
+            raise AssertionError(f"phase {tag}: rank exit codes "
+                                 f"{codes}\n{tails}")
+        stats = []
+        for r in range(nproc):
+            with open(os.path.join(d, f"s{r}.json")) as f:
+                stats.append(json.load(f))
+        return d, stats
+
+    def _rank_report(self, leg, stats, path=None):
+        for st in stats:
+            print(f"phase {leg} rank {st['rank']} ({st['backend']} on "
+                  f"{st['device']}): {st['hbps']:.3f} hb/s, two ranks "
+                  f"sharing one card (not a scaling figure); collective "
+                  f"bytes per tick "
+                  f"{json.dumps(st['collective_bytes_per_tick'])}, "
+                  f"{st['collectives_per_tick']:.1f} collectives per tick, "
+                  f"largest result elements "
+                  f"{json.dumps(st['max_result_elements'])}; launches "
+                  f"{json.dumps(st['launches'])}; kernel calls held "
+                  f"against their plain versions on the rank's rows: "
+                  f"{json.dumps(st['checked_calls'])}", flush=True)
+            if path is not None:
+                self.path_launches[f"{path} rank {st['rank']}"] = \
+                    st["launches"]
+
+    def _single_digests(self, cfg, tp, st, n_ticks):
+        """The single-process card run of ``n_ticks`` under the ranks' keys
+        (``rng.split(PRNGKey(0), n_ticks)``): (final state, per-tick
+        digests)."""
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.parallel.sharding import \
+            state_digests
+        from go_libp2p_pubsub_tpu_torch.sim.engine import _step
+        keys = rng.split(rng.PRNGKey(0, device=self.dev), n_ticks)
+        out = []
+        for i in range(n_ticks):
+            st = _step(st, cfg, tp, keys[i])[0]
+            out.append(state_digests(st, cfg))
+        return st, out
+
+    def _same_run(self, leg, d, want_digests, want_state):
+        """The ranks' per-tick digests and gathered final state against the
+        single-process run's; returns the final ``halo_overflow``."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+        if want_digests is not None:
+            with open(os.path.join(d, "d.json")) as f:
+                got = json.load(f)
+            if len(got) != len(want_digests):
+                raise AssertionError(f"phase {leg}: {len(got)} ticks of "
+                                     "digests")
+            for i, (g, w) in enumerate(zip(got, want_digests)):
+                bad = [f for f in w if g[f] != w[f]]
+                if bad:
+                    raise AssertionError(
+                        f"phase {leg}: tick {i} fields {bad} differ from "
+                        "the single-process run")
+        want = state_to_numpy(want_state)
+        with np.load(os.path.join(d, "f.npz")) as z:
+            bad = [f for f in want if not np.array_equal(z[f], want[f])]
+            overflow = int(z["halo_overflow"])
+        if bad:
+            raise AssertionError(f"phase {leg}: the gathered final state "
+                                 f"differs in {bad}")
+        return overflow
+
+    def _save_topology(self, topo):
+        import tempfile
+
+        import numpy as np
+        fd, path = tempfile.mkstemp(suffix=".npz", prefix="smoke9topo")
+        os.close(fd)
+        np.savez(path, neighbors=topo.neighbors, outbound=topo.outbound,
+                 reverse_slot=topo.reverse_slot, degree=topo.degree)
+        return path
+
+    def phase_multirank(self, topo, topo_churn):
+        """9a/9b: two run_multihost ranks of the headline on kernels 1-4,
+        of the headline under the halo route and its starved control, and
+        of churn_50k on kernels 4-6; each leg's per-tick digests and final
+        state against the single-process card run of the same keys, and a
+        checked tick whose every kernel call is held against its plain
+        version on the rank's own inputs."""
+        import dataclasses
+
+        from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import \
+            FLAG_HALO_OVERFLOW
+        tfile = self._save_topology(topo)
+        cfile = self._save_topology(topo_churn)
+        halo = {"edge_gather_mode": "sort", "sharded_route": "halo",
+                "hop_mode": "xla"}
+        legs = [
+            ("9a", "headline", "headline", {"n_peers": self.n}, {}, 8,
+             tfile, ("edge_table", "hop", "iwant_resolve", "emit")),
+            ("9b", "headline halo", "headline", {"n_peers": self.n}, halo,
+             4, tfile, ()),
+            ("9b", "churn_50k pallas", "churn_50k", {"n_peers": N_CHURN},
+             {"hop_mode": "xla", "edge_gather_mode": "pallas"}, 4, cfile,
+             ("edge_table", "gather_words", "permutation_gather")),
+        ]
+        try:
+            for leg, label, scen, kw, over, ticks, tf, kernels in legs:
+                t0 = time.perf_counter()
+                d, stats = self._ranks(leg, [
+                    "--scenario", scen, "--kwargs", json.dumps(kw),
+                    "--cfg", json.dumps(over), "--topology-file", tf,
+                    "--ticks", str(ticks), "--digests", "{d}/d.json",
+                    "--dump-state", "{d}/f"]
+                    + (["--check-kernels"] if kernels else []))
+                ranks_s = time.perf_counter() - t0
+                self._rank_report(f"{leg} [{label}]", stats,
+                                  f"{leg} {label}" if kernels else None)
+                for st in stats:
+                    missing = [k for k in kernels
+                               if not st["launches"][k]
+                               or not st["checked_calls"].get(k)]
+                    if missing:
+                        raise AssertionError(
+                            f"phase {leg} [{label}] rank {st['rank']}: "
+                            f"kernels {missing} not launched or not "
+                            "checked on the rank's rows")
+                topo_l = topo if tf == tfile else topo_churn
+                if scen == "headline":
+                    cfg, tp, st0 = build_headline(self.n, device=self.dev,
+                                                  topo=topo_l)
+                else:
+                    cfg, tp, st0 = scenarios.churn_50k(
+                        n_peers=N_CHURN, device=self.dev, topo=topo_l)
+                cfg = dataclasses.replace(cfg, **over)
+                want, digests = self._single_digests(cfg, tp, st0, ticks)
+                overflow = self._same_run(f"{leg} [{label}]", d, digests,
+                                          want)
+                if overflow:
+                    raise AssertionError(f"phase {leg} [{label}]: "
+                                         f"halo_overflow {overflow}")
+                print(f"phase {leg} [{label}]: {cfg.n_peers} peers, "
+                      f"{ticks} ticks on two ranks ({ranks_s:.1f} s with "
+                      "start-up): the per-tick digests and the gathered "
+                      "final state equal the single-process card run in "
+                      "every field, halo_overflow 0", flush=True)
+                del want, st0
+            # the starved control: one-slot buckets overflow, counted and
+            # flagged on every rank
+            d, stats = self._ranks("9b", [
+                "--scenario", "headline", "--kwargs",
+                json.dumps({"n_peers": self.n}), "--cfg",
+                json.dumps({**halo, "halo_bucket_capacity": 1}),
+                "--topology-file", tfile, "--ticks", "1",
+                "--digests", "{d}/d.json", "--dump-state", "{d}/f"])
+            import numpy as np
+            with np.load(os.path.join(d, "f.npz")) as z:
+                ovf = int(z["halo_overflow"])
+                flags = int(z["fault_flags"])
+            if ovf <= 0 or not flags & FLAG_HALO_OVERFLOW:
+                raise AssertionError(f"phase 9b: the starved control "
+                                     f"ended with halo_overflow {ovf}, "
+                                     f"fault_flags 0x{flags:x}")
+            print(f"phase 9b [starved control]: halo_bucket_capacity=1 "
+                  f"sets halo_overflow {ovf} and the halo-overflow bit "
+                  f"(fault_flags 0x{flags:08x})", flush=True)
+        finally:
+            os.remove(tfile)
+            os.remove(cfile)
+
+    def phase_bucketed_ranks(self, topo):
+        """9d: two run_multihost ranks of heavytail_eclipse (131,072 peers,
+        compact, ``"bucket"`` draws) on the row-sharded bucketed step, 10
+        ticks; the gathered final state equals the single-process card
+        run of the same keys leaf for leaf, with the eclipse bit set."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import bucketed, scenarios
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            FAULT_ECLIPSE, VIOLATION_MASK)
+        tfile = self._save_topology(topo)
+        ticks = 10
+        try:
+            t0 = time.perf_counter()
+            d, stats = self._ranks("9d", [
+                "--engine", "bucketed", "--scenario", "heavytail_eclipse",
+                "--kwargs", json.dumps({"n_peers": N_POWERLAW_100K}),
+                "--topology-file", tfile, "--ticks", str(ticks),
+                "--unsupervised", "--dump-state", "{d}/f"])
+            ranks_s = time.perf_counter() - t0
+        finally:
+            os.remove(tfile)
+        self._rank_report("9d [heavytail_eclipse]", stats)
+        cfg, tp, bs = scenarios.heavytail_eclipse(device=self.dev,
+                                                  topo=topo)
+        keys = rng.split(rng.PRNGKey(0, device=self.dev), ticks)
+        for i in range(ticks):
+            bs = bucketed.bucketed_step(bs, cfg, tp, keys[i],
+                                        device=self.dev)
+        want = bucketed.bucketed_state_to_numpy(bs)
+        with np.load(os.path.join(d, "f.npz")) as z:
+            bad = [k for k in want if not np.array_equal(z[k], want[k])]
+            flags = int(z["g.fault_flags"])
+        if bad:
+            raise AssertionError(f"phase 9d: the gathered bucketed state "
+                                 f"differs in {bad[:8]}")
+        if not flags & FAULT_ECLIPSE or flags & VIOLATION_MASK:
+            raise AssertionError(f"phase 9d: fault_flags 0x{flags:x}")
+        print(f"phase 9d [heavytail_eclipse]: {cfg.n_peers} peers in "
+              f"buckets {list(cfg.degree_buckets)}, {ticks} ticks on two "
+              f"ranks ({ranks_s:.1f} s with start-up): the gathered state "
+              f"equals the single-process card run in every leaf; "
+              f"fault_flags 0x{flags:08x} (the eclipse bit)", flush=True)
+
+    def phase_mh_resilience(self):
+        """9c: mh_supervisor runs two ranks of single_topic_1k(1024), 16
+        ticks in chunks of 8 with a checkpoint at each; GRAFT_CHAOS kills
+        rank 1 at tick 8; the group relaunches from the checkpoint, and
+        its final state equals the uninterrupted single-process run."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import run, scenarios, \
+            state_to_numpy
+        t0 = time.perf_counter()
+        d, out = self._ranks("9c", [
+            "--scenario", "single_topic_1k", "--kwargs",
+            json.dumps({"n_peers": 1024}), "--ticks", "16",
+            "--chunk-ticks", "8", "--dump-state", "{d}/f",
+            "--backoff-base-s", "0.5"], module="mh_supervisor",
+            env_extra={"GRAFT_CHAOS": "kill@1:8"})
+        secs = time.perf_counter() - t0
+        lines = [json.loads(x) for x in out.splitlines()
+                 if x.startswith("{")]
+        steps = [x["mh"] for x in lines]
+        if steps != ["launch", "failure", "launch", "done"] \
+                or lines[2].get("ckpt_tick") != 8:
+            raise AssertionError(f"phase 9c: the relaunch went {lines}")
+        cfg, tp, st = scenarios.single_topic_1k(1024, device=self.dev)
+        want = state_to_numpy(run(st, cfg, tp, rng.PRNGKey(0,
+                                                           device=self.dev),
+                                  16, device=self.dev))
+        with np.load(os.path.join(d, "f.npz")) as z:
+            bad = [f for f in want if not np.array_equal(z[f], want[f])]
+        if bad:
+            raise AssertionError(f"phase 9c: the relaunched run differs "
+                                 f"from the uninterrupted one in {bad}")
+        print(f"phase 9c [mh_supervisor]: rank 1 SIGKILLed at tick 8 "
+              f"({lines[1]['why']}), the group relaunched from the tick-8 "
+              f"checkpoint, 16 ticks equal the uninterrupted card run in "
+              f"every field ({secs:.1f} s)", flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -3534,12 +3856,15 @@ def main() -> int:
         cpu8_proc.join()
         return out
 
+    powerlaw_topos = {}
+
     def powerlaw_of(n):
-        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
-        parent, proc = powerlaw_jobs.pop(n)
-        topo = Topology(*parent.recv())
-        proc.join()
-        return topo
+        if n not in powerlaw_topos:
+            from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+            parent, proc = powerlaw_jobs.pop(n)
+            powerlaw_topos[n] = Topology(*parent.recv())
+            proc.join()
+        return powerlaw_topos[n]
 
     topos = {}
 
@@ -3614,6 +3939,12 @@ def main() -> int:
             powerlaw_of(N_POWERLAW_1M)))
         timed("8c (heavytail_eclipse)", lambda: smoke.phase_heavytail(
             powerlaw_of(N_POWERLAW_100K)))
+        timed("9a/9b (two ranks on one card)", lambda: smoke.phase_multirank(
+            topology_of(smoke.n), topology_of(N_CHURN)))
+        timed("9c (multi-process resilience)", smoke.phase_mh_resilience)
+        timed("9d (row-sharded heavytail_eclipse)",
+              lambda: smoke.phase_bucketed_ranks(
+                  powerlaw_of(N_POWERLAW_100K)))
         timed("4 (trajectory)", smoke.phase_trajectory)
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):

@@ -9,9 +9,10 @@ dropped, and the score is retained. An edge coming back after more than
 Both directions of an edge go down and up together: the lower-id
 endpoint's draw wins, exchanged through the reverse-edge permutation
 (``permutation_gather`` in the formulation ``edge_gather_mode``
-resolves to: kernel 6 under ``"pallas"``). Subscription churn
-(:func:`churn_subscriptions`) is the topic Join/Leave round. The sharded
-halo route is a later slice (ROADMAP.md, Queue 1 item 7).
+resolves to: kernel 6 under ``"pallas"``; inside a peer group with
+``sharded_route="halo"`` a sort-resolved exchange rides the halo route,
+parallel/halo.py). Subscription churn (:func:`churn_subscriptions`) is
+the topic Join/Leave round.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState, refresh_nbr_subscribed
 from .bits import pack_bool, to_i32
@@ -31,22 +33,29 @@ def _edge_exchange(state: SimState, x: torch.Tensor,
                    mode: str = "auto") -> torch.Tensor:
     """One [N, K] 4-byte payload routed through the reverse-edge
     involution: ``out[n, k] = x[jn, rk]`` (churn.py:39-61), the sort
-    formulation by the n-major ``edge_sort_key``. The reference's sharded
-    halo route needs a kernel mesh: ROADMAP.md, Queue 1 item 7."""
+    formulation by the n-major ``edge_sort_key``. Inside a peer group
+    with ``sharded_route="halo"`` a sort-resolved exchange rides the halo
+    route (churn.py:39-61)."""
     n, k = state.neighbors.shape
-    nbr = state.neighbors.clamp(0, n - 1)
+    ng = kc.global_rows(n)
+    sort = resolve_mode(mode, x.dtype, ng, k, have_sort_key=True) == "sort"
+    ctx = kc.current_kernel_mesh()
+    if sort and ctx is not None and ctx.route == "halo":
+        from ..parallel.halo import route_payloads_halo
+        return route_payloads_halo([x], state.neighbors,
+                                   state.reverse_slot)[0]
+    nbr = state.neighbors.clamp(0, ng - 1)
     rk = state.reverse_slot.clamp(0, k - 1)
     sk = edge_sort_key(state.neighbors, state.reverse_slot, k_major=False) \
-        if resolve_mode(mode, x.dtype, n, k, have_sort_key=True) == "sort" \
-        else None
+        if sort else None
     return permutation_gather(x, nbr, rk, mode, sort_key=sk)
 
 
 def _mine_wins(state: SimState) -> torch.Tensor:
     """[N, K]: this endpoint has the lower id, so its value wins."""
     n = state.neighbors.shape[0]
-    nbr = state.neighbors.clamp(0, n - 1)
-    return torch.arange(n, device=nbr.device)[:, None] < nbr
+    nbr = state.neighbors.clamp(0, kc.global_rows(n) - 1)
+    return kc.row_ids(n, nbr.device)[:, None] < nbr
 
 
 def _symmetric_value(state: SimState, x: torch.Tensor,
@@ -87,8 +96,11 @@ def churn_subscriptions(state: SimState, cfg: SimConfig, tp: TopicParams,
     masks, so they ride the packed exchange."""
     n, t, k = state.mesh.shape
     kj, kl = rng.split(key, 2)
-    leave = state.subscribed & (rng.uniform(kl, (n, t)) < cfg.sub_leave_prob)
-    join = ~state.subscribed & (rng.uniform(kj, (n, t)) < cfg.sub_join_prob)
+    r0 = kc.row0()
+    leave = state.subscribed & (rng.uniform(kl, (n, t), row0=r0)
+                                < cfg.sub_leave_prob)
+    join = ~state.subscribed & (rng.uniform(kj, (n, t), row0=r0)
+                                < cfg.sub_join_prob)
 
     mode = cfg.edge_gather_mode
     removed = state.mesh & leave[:, :, None]
@@ -184,7 +196,8 @@ def churn_edges(state: SimState, cfg: SimConfig, tp: TopicParams,
     down = known & ~state.connected
     live = known & state.connected
     n, k = state.neighbors.shape
-    d_down = rng.uniform(kd, (n, k)) < cfg.churn_disconnect_prob
+    d_down = rng.uniform(kd, (n, k), row0=kc.row0()) \
+        < cfg.churn_disconnect_prob
     if cfg.px_enabled:
         # PX-seeded reconnects (gossipsub.go:893-973): edges to peers the
         # dialer scores below accept_px_threshold come back at a fraction
@@ -200,7 +213,7 @@ def churn_edges(state: SimState, cfg: SimConfig, tp: TopicParams,
                            cfg.churn_reconnect_prob * cfg.px_low_score_factor)
     else:
         p_up = cfg.churn_reconnect_prob
-    d_up = rng.uniform(ku, (n, k)) < p_up
+    d_up = rng.uniform(ku, (n, k), row0=kc.row0()) < p_up
     # the decisions are taken locally and the lower-id endpoint's bits are
     # exchanged in one packed gather
     d_down, d_up, direct_low = _symmetric_bools(

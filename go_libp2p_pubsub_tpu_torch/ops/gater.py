@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig
 from ..sim.state import SimState
 
@@ -55,5 +56,5 @@ def accept_data(state: SimState, cfg: SimConfig, key: torch.Tensor,
              + cfg.gater_reject_weight * state.gater_reject)          # [N, K]
     p = (1.0 + state.gater_deliver) / (1.0 + total)
     if noise is None:
-        noise = rng.uniform(key, (n, k))
+        noise = rng.uniform(key, (n, k), row0=kc.row0())
     return gate_off[:, None] | (total == 0.0) | (noise < p)

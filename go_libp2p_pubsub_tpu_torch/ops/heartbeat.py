@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
 from .bits import I32, pack_bool, prefix_count, to_i32
@@ -51,7 +52,8 @@ def edge_gather(x: torch.Tensor, state: SimState, fill=False,
     if x.dtype == torch.bool and fill is False:
         return edge_gather_packed([x], state, mode)[0][0]
     n, t, k = x.shape
-    j = state.neighbors.clamp(0, n - 1).long()[:, None, :]
+    j = state.neighbors.clamp(0, kc.global_rows(n) - 1).long()[:, None, :]
+    x = kc.replicate(x)
     rk = state.reverse_slot.clamp(0, k - 1).long()[:, None, :]
     tt = torch.arange(t, device=x.device)[None, :, None]
     y = x[j, tt, rk]
@@ -105,10 +107,11 @@ def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",
     n, t, k = masks[0].shape
     planes = torch.cat(masks, dim=1)                       # [N, B, K]
     b = planes.shape[1]
-    jn = state.neighbors.clamp(0, n - 1)
+    jn = state.neighbors.clamp(0, kc.global_rows(n) - 1)
     rk = state.reverse_slot.clamp(0, k - 1)
     valid = ((state.neighbors >= 0) & (state.reverse_slot >= 0))[:, None, :]
-    mode = resolve_edge_packed_mode(mode, n, k, b)
+    mode = resolve_edge_packed_mode(mode, kc.global_rows(n), k, b)
+    ctx = kc.current_kernel_mesh()
     if extra_words and mode not in ("sort", "mxu"):
         raise ValueError(f"extra_words requires the sort or mxu formulation "
                          f"(resolved {mode!r}); callers gate on "
@@ -123,15 +126,30 @@ def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",
             groups = edge_table(table, jn, rk, b)
     else:
         payloads = _plane_payloads(planes)
-        if mode == "sort":
-            # the reference's sharded halo route (heartbeat.py:137-145)
-            # needs a kernel mesh: ROADMAP.md, Queue 1 item 7
+        if mode == "sort" and ctx is not None and ctx.route == "halo":
+            # every group and extra lane rides one halo route
+            # (heartbeat.py:155-162): an extra lane carries tab[w, j] on
+            # each of j's K slots
+            from ..parallel.halo import route_payloads_halo
+            lanes = [tab[i][:, None].expand(n, k).contiguous()
+                     for tab in extra_words for i in range(tab.shape[0])]
+            routed = route_payloads_halo(payloads + lanes, state.neighbors,
+                                         state.reverse_slot)
+            groups, ofs = routed[:len(payloads)], len(payloads)
+            for tab in extra_words:
+                wt = tab.shape[0]
+                extras_views.append(torch.stack(
+                    [routed[ofs + i].T for i in range(wt)]))
+                ofs += wt                                  # [W_i, K, N]
+        elif mode == "sort":
             perm = sort_permutation(edge_sort_key(
                 state.neighbors, state.reverse_slot, k_major=False))
-            groups = [p.reshape(-1)[perm].reshape(n, k) for p in payloads]
+            groups = [kc.replicate(p).reshape(-1)[perm].reshape(n, k)
+                      for p in payloads]
             # an extra lane carries tab[w, j] on each of j's K slots
             src = torch.div(perm, k, rounding_mode="floor")
-            extras_views = [tab[:, src].reshape(-1, n, k).transpose(1, 2)
+            extras_views = [kc.replicate(tab, dim=1)[:, src]
+                            .reshape(-1, n, k).transpose(1, 2)
                             for tab in extra_words]        # [W_i, K, N]
         else:
             groups = [permutation_gather(p, jn, rk, mode) for p in payloads]

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import kernel_context as kc
 from . import cudalib
 from .bits import I32, exclusive_prefix_or, pack_words, popcount, \
     prefix_count_words, reduce_or, unpack_words
@@ -197,7 +198,10 @@ def hop(frontier, have, dlv, dlv_new, vm, inv_n, window_old, valid_msg,
 
     On CUDA, have/dlv/dlv_new/nv/ni/dup are updated IN PLACE (as the Pallas
     kernel's aliases) and returned; new_valid is a new buffer. Callers must
-    not reuse those inputs."""
+    not reuse those inputs. Inside a peer group the frontier is this
+    rank's columns, replicated here (the kernel reads the whole table and
+    runs this rank's receiver rows)."""
+    frontier = kc.replicate(frontier, dim=1)
     args = (frontier, have, dlv, dlv_new, vm, inv_n, window_old, valid_msg,
             nbr, fwd_u8, mesh_u8, topic_bits, nv, ni, dup)
     if not cudalib.use_kernel("hop", *args):
@@ -274,7 +278,9 @@ def iwant_resolve(pend, answers, have, vm, inv_n, alive, data_ok_u8,
     graylist admission; topic_bits: [T, W]; nbr pre-clipped. The kernel
     takes W <= 8 and any K up to its tile of counts, (2T+1) * K <= 32768
     (:func:`_fused_shape_ok`); other shapes and M > 32 W are refused here,
-    before any launch."""
+    before any launch. Inside a peer group ``answers`` is this rank's
+    columns, replicated here."""
+    answers = kc.replicate(answers, dim=1)
     args = (pend, answers, have, vm, inv_n, alive, data_ok_u8, topic_bits,
             nbr)
     if not cudalib.use_kernel("iwant_resolve", *args):
@@ -332,7 +338,9 @@ def emit(window, have, gossip_u8, topic_bits, nbr, m, budget) -> torch.Tensor:
     sets; gossip_u8: [N, T, K] uint8 receiver-view gossip-edge planes
     (valid-slot and gossip-threshold masking applied); topic_bits: [T, W];
     nbr pre-clipped; budget: the per-sender iasked cap. Returns
-    iwant_pending [N, M] int32 (chosen slot per message, -1 none)."""
+    iwant_pending [N, M] int32 (chosen slot per message, -1 none). Inside
+    a peer group ``window`` is this rank's columns, replicated here."""
+    window = kc.replicate(window, dim=1)
     args = (window, have, gossip_u8, topic_bits, nbr)
     if not cudalib.use_kernel("emit", *args):
         return emit_plain(*args, m, budget)

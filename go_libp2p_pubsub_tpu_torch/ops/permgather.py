@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import kernel_context as kc
 from . import cudalib
 from .bits import I32
 
@@ -70,7 +71,11 @@ def _payload_eligible(mode: str, itemsize: int, have_sort_key: bool) -> str:
     """``mode`` if it can run a payload of ``itemsize`` bytes, else the
     formulation it degrades to (permgather.py:485-505 without the VMEM
     gates): the flat take and the kernel move 4-byte words."""
-    if mode == "mxu" and itemsize != 4:
+    if mode == "mxu" and (itemsize != 4
+                          or kc.current_kernel_mesh() is not None):
+        # the flat payload take needs the whole table; inside a peer
+        # group the reference's resolver sends it to scalar
+        # (permgather.py:484-491)
         return "scalar"
     if mode == "sort" and not have_sort_key:
         return "scalar"
@@ -145,14 +150,21 @@ def edge_sort_key(neighbors: torch.Tensor, reverse_slot: torch.Tensor,
     edge map is an involution: valid slots map valid <-> valid) and the
     sort never sees a duplicate key. ``k_major``: True -> destination flat
     order ``k * N + n`` (for [W, K, N] outputs), False -> ``n * K + k``
-    (for [N, K] outputs). int32 while N*K < 2**31, else int64."""
-    n, k = neighbors.shape
+    (for [N, K] outputs). int32 while N*K < 2**31, else int64.
+
+    Inside a peer group (parallel/kernel_context.py) ``neighbors`` holds
+    this rank's rows and the keys are those rows' keys in the whole
+    network: global destinations and global own indices. The involution
+    makes a slot's key also the source of that slot as a destination, so
+    :func:`sort_permutation` of a rank's keys is the keys themselves."""
+    nl, k = neighbors.shape
+    n = kc.global_rows(nl)
     dt = I32 if n * k < 2 ** 31 else torch.int64
     dev = neighbors.device
     valid = (neighbors >= 0) & (reverse_slot >= 0)
     jn = neighbors.clamp(0, n - 1).to(dt)
     rk = reverse_slot.clamp(0, k - 1).to(dt)
-    ar_n = torch.arange(n, dtype=dt, device=dev)[:, None]
+    ar_n = (torch.arange(nl, dtype=dt, device=dev) + kc.row0())[:, None]
     ar_k = torch.arange(k, dtype=dt, device=dev)[None, :]
     if k_major:
         dest, own = rk * n + jn, ar_k * n + ar_n
@@ -165,15 +177,20 @@ def sort_permutation(sort_key: torch.Tensor) -> torch.Tensor:
     """The permutation one sort of the destination keys gives:
     ``out_flat[d] = in_flat[perm[d]]`` moves every source slot's value to
     its destination. The keys are distinct, so any sort gives this
-    order; the reference's ``lax.sort`` gives the same."""
+    order; the reference's ``lax.sort`` gives the same. Inside a peer
+    group a rank's own destinations are its own slots, and the source of
+    each is its n-major key (:func:`edge_sort_key`): no sort runs, and the
+    payload the result indexes is the replicated one."""
+    if kc.current_kernel_mesh() is not None:
+        return sort_key.long()
     return torch.sort(sort_key, stable=True).indices
 
 
 def _gather_sort(payload, sort_key):
     """``out_flat[dest] = payload_flat[src]`` by the sort's permutation,
     n-major destination keys -> [N, K]."""
-    n, k = payload.shape
-    return payload.reshape(-1)[sort_permutation(sort_key)].reshape(n, k)
+    k = payload.shape[1]
+    return payload.reshape(-1)[sort_permutation(sort_key)].reshape(-1, k)
 
 
 def _gather_scalar(payload, jn, rk):
@@ -237,6 +254,7 @@ def edge_table(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
     ``ceil(b_planes/32)`` tensors of [N, K] int32. On the card a table
     whose rows are not :func:`edge_table_row_words` wide is padded here,
     and one at an address that is no multiple of 16 bytes is copied."""
+    table = kc.replicate(table)          # the table whole, rows local
     if not cudalib.use_kernel("edge_table", table, jn, rk):
         return edge_table_plain(table, jn, rk, b_planes)
     n, wb, nr, k, n_groups = _check(table, jn, rk, b_planes)
@@ -267,7 +285,8 @@ def _edge_table_mxu(table: torch.Tensor, jn: torch.Tensor, rk: torch.Tensor,
     from .mxutake import take_rows
 
     _, wb, nr, k, n_groups = _check(table, jn, rk, b_planes)
-    tabs = torch.cat([table, *(e.T for e in extra_words)], dim=1)
+    tabs = kc.replicate(torch.cat([table, *(e.T for e in extra_words)],
+                                  dim=1))
     rows_all = take_rows(tabs, jn.reshape(-1)).reshape(nr, k, tabs.shape[1])
     groups = _extract_bits(rows_all[..., :wb], rk, b_planes, k, n_groups)
     extras, ofs = [], wb
@@ -311,10 +330,16 @@ def gather_words(x_w: torch.Tensor, nbr: torch.Tensor,
     each source's words carried along its K slots by the permutation of
     the k-major ``sort_key`` (:func:`edge_sort_key`; needs N_src = N)."""
     _check_words(x_w, nbr)
-    w, n_src = x_w.shape
     n, k = nbr.shape
-    mode = resolve_words_mode(mode, w, n, k, x_w.element_size(),
+    mode = resolve_words_mode(mode, x_w.shape[0], kc.global_rows(n), k,
+                              x_w.element_size(),
                               have_sort_key=sort_key is not None)
+    x_w = kc.replicate(x_w, dim=1)       # the table whole, rows local
+    w, n_src = x_w.shape
+    if mode == "sort" and kc.current_kernel_mesh() is not None:
+        # a rank's destination (n, k) reads the source row its k-major
+        # key names (edge_sort_key): jn, or n itself for an invalid slot
+        return x_w[:, (sort_key.long() % n_src).reshape(n, k).T]
     if mode == "sort":
         # source slot s = n * K + k carries x_w[:, n]; out[:, d] takes the
         # slot the permutation brings to d
@@ -375,8 +400,10 @@ def permutation_gather(payload: torch.Tensor, jn: torch.Tensor,
     and the row gathers, any dtype. ``"sort"``: the permutation of the
     n-major ``sort_key`` (:func:`edge_sort_key`) applied to an [N, K]
     payload."""
-    mode = resolve_mode(mode, payload.dtype, *payload.shape,
+    mode = resolve_mode(mode, payload.dtype,
+                        kc.global_rows(payload.shape[0]), payload.shape[1],
                         have_sort_key=sort_key is not None)
+    payload = kc.replicate(payload)      # the payload whole, rows local
     if mode == "sort":
         return _gather_sort(payload, sort_key)
     if mode == "scalar":

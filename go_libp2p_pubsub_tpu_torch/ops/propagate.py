@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
 from .bits import (
@@ -50,6 +51,7 @@ from .bits import (
     gather_words_rows,
     pack_bool,
     pack_words,
+    popcount,
     popcount_sum,
     prefix_count_words,
     reduce_or,
@@ -81,6 +83,7 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     in flight: honest receivers REJECT them as they do a sybil's."""
     p = publishers.shape[0]
     m = cfg.msg_window
+    n = state.have.shape[0]
     if p > m:
         raise ValueError(
             f"publish: {p} publishers per tick exceed msg_window={m}; "
@@ -90,8 +93,13 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     pub = publishers.long()
     top = topics.long()
     slots = ((tick.long() * p + torch.arange(p, device=dev)) % m)
+    # inside a peer group a rank writes its own publishers' rows (the
+    # others' land on a scratch row) and reads the publishers' malicious
+    # flags, which the replicated message table takes, from the group
+    lp = kc.own_rows(pub, n)
+    mal_pub = kc.owner_rows(state.malicious, pub)
 
-    invalid_pub = state.malicious[pub]
+    invalid_pub = mal_pub
     if corrupt is not None:
         invalid_pub = invalid_pub | corrupt
     msg_topic = state.msg_topic.clone()
@@ -102,7 +110,7 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     msg_invalid[slots] = invalid_pub
     if cfg.ignore_fraction > 0.0 and key is not None:
         ign = (rng.uniform(key, (p,)) < cfg.ignore_fraction) \
-            & ~state.malicious[pub]
+            & ~mal_pub
     else:
         ign = torch.zeros((p,), dtype=torch.bool, device=dev)
     msg_ignored = state.msg_ignored.clone()
@@ -121,17 +129,21 @@ def publish(state: SimState, cfg: SimConfig, publishers: torch.Tensor,
     have = state.have & ~clear_w[None, :]
     bit = (torch.ones_like(slots) << (slots % 32))
     bit = torch.where(bit >= 2 ** 31, bit - 2 ** 32, bit).to(I32)
-    have = have.index_put((pub, slots // 32), bit, accumulate=True)
+    have = kc.scratch_row(have).index_put((lp, slots // 32), bit,
+                                          accumulate=True)[:n]
     # the scalar fills are index_fill's (a Python scalar assigned through
     # indexing would be made into a tensor from host data first)
-    deliver_tick = state.deliver_tick.index_fill(1, slots, NEVER)
-    deliver_tick[pub, slots] = tick
+    deliver_tick = kc.scratch_row(
+        state.deliver_tick.index_fill(1, slots, NEVER))
+    deliver_tick[lp, slots] = tick
+    deliver_tick = deliver_tick[:n]
     iwant_pending = state.iwant_pending.index_fill(1, slots, -1)
     # fanout lastpub for non-subscribed publishers
-    sub_pub = state.subscribed[pub, top]
-    cur_lp = state.fanout_lastpub[pub, top]
-    fanout_lastpub = state.fanout_lastpub.clone()
-    fanout_lastpub[pub, top] = torch.where(sub_pub, cur_lp, tick)
+    sub_pub = kc.scratch_row(state.subscribed)[lp, top]
+    fanout_lastpub = kc.scratch_row(state.fanout_lastpub).clone()
+    cur_lp = fanout_lastpub[lp, top]
+    fanout_lastpub[lp, top] = torch.where(sub_pub, cur_lp, tick)
+    fanout_lastpub = fanout_lastpub[:n]
     return state._replace(msg_topic=msg_topic, msg_publish_tick=msg_publish_tick,
                           msg_invalid=msg_invalid, msg_ignored=msg_ignored,
                           msg_publisher=msg_publisher, have=have,
@@ -316,14 +328,25 @@ def _flood_offer(state: SimState, cfg: SimConfig, tb: _Tables,
     w = tb.topic_bits.shape[1]
     mode = cfg.edge_gather_mode
     rk = state.reverse_slot.clamp(0, k - 1)
+    ctx = kc.current_kernel_mesh()
     if cfg.scoring_enabled:
-        if resolve_mode(mode, torch.float32, n, k,
-                        have_sort_key=True) == "sort":
+        sort = resolve_mode(mode, torch.float32, kc.global_rows(n), k,
+                            have_sort_key=True) == "sort"
+        if sort and ctx is not None and ctx.route == "halo":
+            # both planes ride one halo route (propagate.py:508-519)
+            from ..parallel.halo import route_payloads_halo
+            sender_scores_me, sd = route_payloads_halo(
+                [scores, state.direct.to(I32)], state.neighbors,
+                state.reverse_slot)
+            sender_direct_me = sd != 0
+        elif sort:
             # both sender-side planes take one sort's permutation
             perm = sort_permutation(edge_sort_key(
                 state.neighbors, state.reverse_slot, k_major=False))
-            sender_scores_me = scores.reshape(-1)[perm].reshape(n, k)
-            sender_direct_me = state.direct.reshape(-1)[perm].reshape(n, k)
+            sender_scores_me = kc.replicate(scores).reshape(-1)[perm] \
+                .reshape(n, k)
+            sender_direct_me = kc.replicate(state.direct).reshape(-1)[perm] \
+                .reshape(n, k)
         else:
             sender_scores_me = permutation_gather(scores, nbr, rk, mode)
             sender_direct_me = permutation_gather(
@@ -435,7 +458,8 @@ def _xla_traffic(state: SimState, cfg: SimConfig, tb: _Tables, have_bits,
     # 0, the gater's ig and gdup by 0, provenance ORs in nothing.
     extras = [x for x in (flood_offer, dup_offer) if x is not None]
     if extras:
-        started = torch.where((frontier != 0).any(), -1, 0).to(I32)
+        started = torch.where(kc.pany((frontier != 0).any()), -1, 0) \
+            .to(I32)
     for i in range(cfg.prop_substeps):
         # censors hold censored messages out of their offers; they did
         # receive them, so have and frontier keep them
@@ -536,20 +560,28 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     k_fwd, k_gate = rng.split(key, 2)
     dev = state.mesh.device
     tick = state.tick
-    nbr = state.neighbors.clamp(0, n - 1)                  # [N, K]
+    nbr = state.neighbors.clamp(0, kc.global_rows(n) - 1)  # [N, K]
     mal = state.malicious
     zero = torch.zeros((), dtype=I32, device=dev)
 
     # the k-major destination keys of the sort formulation, made once a
     # tick and only when the words gathers resolve to it
-    # (propagate.py:289-308)
+    # (propagate.py:289-308); inside a peer group with
+    # sharded_route="halo" a sort-resolved gather rides the halo route
+    sort_w = resolve_words_mode(cfg.edge_gather_mode, w, kc.global_rows(n),
+                                k, have_sort_key=True) == "sort"
+    ctx = kc.current_kernel_mesh()
+    halo_w = sort_w and ctx is not None and ctx.route == "halo"
     sk_w = edge_sort_key(state.neighbors, state.reverse_slot, k_major=True) \
-        if resolve_words_mode(cfg.edge_gather_mode, w, n, k,
-                              have_sort_key=True) == "sort" else None
+        if sort_w and not halo_w else None
 
     def gw(table):
         """The tick's words gather, in the formulation
         ``edge_gather_mode`` resolves to."""
+        if halo_w:
+            from ..parallel.halo import route_words_halo
+            return route_words_halo(table, state.neighbors,
+                                    state.reverse_slot)
         return gather_words_rows(table, nbr, cfg.edge_gather_mode, m=m,
                                  sort_key=sk_w)
 
@@ -574,7 +606,7 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     have_bits = state.have.T.contiguous()                               # [W,N]
     dlv_bits = pack_words(state.deliver_tick < NEVER)                   # [W,N]
     dlv_start = dlv_bits
-    n_have_start = popcount_sum(have_bits, axis=(0, 1))
+    n_have_start = popcount(have_bits).to(torch.int64).sum()
 
     if cfg.scoring_enabled:
         accept_ok = scores >= cfg.graylist_threshold      # [N,K] AcceptFrom
@@ -639,7 +671,11 @@ def forward_tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     newly_dlv = dlv_bits & ~dlv_start
     new_dlv_mask = unpack_words(newly_dlv, m)
     deliver_tick = torch.where(new_dlv_mask, tick, state.deliver_tick)
-    delivered = popcount_sum(have_bits, axis=(0, 1)) - n_have_start
+    # the seen-set totals are counts over every peer, taken whole before
+    # the float32 difference
+    totals = kc.psum(torch.stack([popcount(have_bits).to(torch.int64).sum(),
+                                  n_have_start]))
+    delivered = totals[0].float() - totals[1].float()
     if tr.nv_acc is not None:
         # provenance: the winning sender slot of each first delivery this
         # tick, pulls included (trace export reads it)

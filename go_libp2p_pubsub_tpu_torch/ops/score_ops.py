@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
 
@@ -75,19 +76,21 @@ def compute_scores(state: SimState, cfg: SimConfig, tp: TopicParams,
     nbr = state.neighbors.clamp(min=0).long()
     # P5: app-specific (score.go:326-327)
     if cfg.app_specific_weight != 0.0:
-        score = score + cfg.app_specific_weight * state.app_score[nbr]
+        score = score + cfg.app_specific_weight \
+            * kc.owner_rows(state.app_score, nbr)
     # P6: IP colocation surplus^2 (score.go:329-331, 344-385)
     if cfg.ip_colocation_factor_weight != 0.0:
         # a scatter into the static bound (torch.bincount reads the
         # input's maximum on the host); groups outside [0, n_ip_groups)
         # are dropped, not clamped
-        g = state.ip_group.long()
+        # (a count over every peer: inside a peer group over the
+        # replicated [N] groups)
+        g = kc.replicate(state.ip_group).long()
         inside = (g >= 0) & (g < cfg.n_ip_groups)
         counts = torch.zeros(cfg.n_ip_groups, dtype=torch.int64,
                              device=g.device).index_add_(
             0, torch.where(inside, g, 0), inside.long())
-        surplus = (counts[state.ip_group.long()]
-                   - cfg.ip_colocation_factor_threshold).float()
+        surplus = (counts[g] - cfg.ip_colocation_factor_threshold).float()
         p6 = torch.where(surplus > 0, surplus * surplus, zero)
         score = score + cfg.ip_colocation_factor_weight * p6[nbr]
     # P7: behaviour penalty excess^2 (score.go:334-339)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 
 NEG_INF = float(np.float32(-1e30))
 
@@ -143,7 +144,8 @@ def select_random(mask: torch.Tensor, count, key: torch.Tensor, *,
     ``"iter"`` runs exactly ``max_count`` passes and truncates a larger
     count (set :data:`CHECK_COUNT_BOUND` to make that raise)."""
     if noise is None:
-        noise = rng.uniform(key, tuple(mask.shape))
+        # a peer group draws its own rows of the [N, ...] draw
+        noise = rng.uniform(key, tuple(mask.shape), row0=kc.row0())
     keys = torch.where(mask, noise, torch.full_like(noise, NEG_INF))
     return _select_by_keys(keys, mask, count, max_count=max_count, mode=mode)
 

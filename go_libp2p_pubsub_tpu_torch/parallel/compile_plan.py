@@ -63,7 +63,14 @@ the cache and marks every result it handed out stale (a retry after a
 watchdog deadline, whose abandoned attempt may still load or replay
 it, then captures afresh).
 
-Not here: the sharded plans (ROADMAP Queue 1 item 7). ``run``,
+The sharded plans (:func:`sharded_step_plan`, :func:`sharded_chunk_plan`,
+compile_plan.py:143-260, and :func:`bucketed_chunk_plan`, :262-314) run a
+rank's rows of the step inside
+:func:`~.kernel_context.kernel_mesh` over a :class:`~.sharding.PeerMesh`.
+They run EAGERLY: the step's cross-rank reads are gloo or NCCL
+collectives, which this build does not record into a CUDA graph, so a
+sharded chunk launches its ticks one by one under the group. Capturing
+the segments between collectives is later speed work. ``run``,
 ``run_keys``, ``run_window`` and ``sim.fleet.fleet_run_keys`` stay eager;
 they are the yardstick the replays are held to.
 """
@@ -436,3 +443,122 @@ def clear_caches() -> None:
     _ENGINE_PLANS.clear()
     _FLEET_PLANS.clear()
     _FLEET_SEEN.clear()
+
+
+# ---------------------------------------------------------------------------
+# the sharded plane (compile_plan.py:143-260): eager ticks on a rank's rows
+
+
+def _sharded_prelude(mesh, cfg: SimConfig) -> None:
+    if cfg.sharded_route not in ("replicated", "halo"):
+        raise ValueError(f"unknown sharded_route {cfg.sharded_route!r}; "
+                         "expected 'replicated' or 'halo'")
+    if cfg.degree_buckets is not None:
+        raise ValueError(
+            "sharded dense plan: cfg.degree_buckets is set — heavy-tailed "
+            "configs take the row-sharded bucketed plane (parallel/"
+            "sharding.make_sharded_bucketed_run / compile_plan."
+            "bucketed_chunk_plan), not the dense-padded step")
+    from .sharding import state_shardings
+    state_shardings(mesh, cfg)
+    check_slice(cfg)
+
+
+def _group_ctx(mesh, cfg: SimConfig, recorder: list | None = None):
+    from .kernel_context import kernel_mesh
+    return kernel_mesh(cfg.n_peers, mesh.group, route=cfg.sharded_route,
+                       capacity_factor=cfg.halo_capacity_factor,
+                       bucket_capacity=cfg.halo_bucket_capacity,
+                       recorder=recorder)
+
+
+def sharded_step_plan(mesh, cfg: SimConfig, tp: TopicParams):
+    """The step on this rank's rows of ``mesh``: ``fn(state, key)`` with
+    ``state`` this rank's shard (parallel/sharding.shard_state). Every rank
+    of the group calls it with the same key. ``fn.recorder``, when set to
+    a list, collects each collective's ``(op, dtype, elements)``."""
+    from ..sim.engine import _step
+
+    _sharded_prelude(mesh, cfg)
+
+    def sharded_step(state: SimState, key: torch.Tensor) -> SimState:
+        with _group_ctx(mesh, cfg, sharded_step.recorder):
+            return _step(state, cfg, tp, key.to(state.tick.device))[0]
+
+    sharded_step.recorder = None
+    return sharded_step
+
+
+def sharded_chunk_plan(mesh, cfg: SimConfig, tp: TopicParams,
+                       telemetry: bool = False):
+    """C ticks of the sharded step over ``[C, 2]`` tick keys, the same key
+    discipline as ``engine.run_keys`` (a chunked run lands on the
+    single-process trajectory): ``fn(state, keys, tp_arg=None)``.
+    ``telemetry=True`` returns ``(state, HealthRecord)``, each tick's
+    record taken from the whole state gathered on every rank, so every
+    rank holds the replicated ``[C]`` records and rank 0 can journal them.
+    An eager chunk consumes nothing of its input (the reference's
+    ``donate`` has no counterpart)."""
+    from ..sim.engine import _step
+    from ..sim.telemetry import health_record, stack_records
+    from .sharding import gather_full
+
+    _sharded_prelude(mesh, cfg)
+
+    def sharded_run_keys(state: SimState, keys: torch.Tensor,
+                         tp_arg: TopicParams | None = None):
+        tpa = tp if tp_arg is None else tp_arg
+        keys = keys.to(state.tick.device)
+        records = []
+        for i in range(keys.shape[0]):
+            with _group_ctx(mesh, cfg, sharded_run_keys.recorder):
+                state = _step(state, cfg, tpa, keys[i])[0]
+            if telemetry:
+                records.append(health_record(
+                    gather_full(state, cfg, mesh.group), cfg, tpa))
+        return (state, stack_records(records)) if telemetry else state
+
+    sharded_run_keys.recorder = None
+    return sharded_run_keys
+
+
+def bucketed_chunk_plan(mesh, cfg: SimConfig, tp: TopicParams,
+                        telemetry: bool = False):
+    """C ticks of the degree-bucketed step on this rank's windows of every
+    bucket (parallel/sharding.shard_bucketed_state), eagerly under the
+    group's bucket-major layout, with the flat reverse-edge exchange on
+    ``halo.route_bucketed_flat`` under ``sharded_route="halo"``:
+    ``fn(bs, keys, tp_arg=None)``, the key discipline of
+    :func:`sharded_chunk_plan` (a chunked sharded bucketed run lands on the
+    single-process one, and under ``bucketed_rng="dense"`` on the dense
+    engine's). Telemetry is refused (health_record reads the dense [N, K]
+    planes), as the reference refuses it."""
+    from ..sim.bucketed import _bucketed_tick, check_bucketable
+    from .kernel_context import kernel_mesh
+    from .sharding import bucketed_state_shardings
+
+    check_bucketable(cfg)
+    if telemetry:
+        raise ValueError(
+            "bucketed_chunk_plan: telemetry is not bucketed — "
+            "sim/telemetry.health_record reads the dense [N, K] planes")
+    if cfg.sharded_route not in ("replicated", "halo"):
+        raise ValueError(f"unknown sharded_route {cfg.sharded_route!r}; "
+                         "expected 'replicated' or 'halo'")
+    bucketed_state_shardings(mesh, cfg)
+
+    def bucketed_run_keys(bs, keys: torch.Tensor,
+                          tp_arg: TopicParams | None = None):
+        tpa = tp if tp_arg is None else tp_arg
+        keys = keys.to(bs.g.tick.device)
+        with kernel_mesh(cfg.n_peers, mesh.group, route=cfg.sharded_route,
+                         capacity_factor=cfg.halo_capacity_factor,
+                         bucket_capacity=cfg.halo_bucket_capacity,
+                         recorder=bucketed_run_keys.recorder,
+                         buckets=cfg.degree_buckets):
+            for i in range(keys.shape[0]):
+                bs = _bucketed_tick(bs, cfg, tpa, keys[i])
+        return bs
+
+    bucketed_run_keys.recorder = None
+    return bucketed_run_keys

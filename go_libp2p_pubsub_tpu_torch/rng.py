@@ -55,10 +55,14 @@ def threefry2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def _counts(shape, device):
-    """jax's ``iota_2x32_shape``: the C-order flat index as (hi, lo)."""
+def _counts(shape, device, row0: int = 0):
+    """jax's ``iota_2x32_shape``: the C-order flat index as (hi, lo).
+    ``row0`` places ``shape`` as the rows ``[row0, row0 + shape[0])`` of a
+    larger array: each element keeps its counter in the whole array."""
     size = int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
-    idx = torch.arange(size, dtype=torch.int64, device=device).reshape(shape)
+    base = row0 * int(np.prod(shape[1:], dtype=np.int64)) if row0 else 0
+    idx = (torch.arange(size, dtype=torch.int64, device=device)
+           + base).reshape(shape)
     return idx >> 32, idx & _M32
 
 
@@ -83,16 +87,22 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit ``jax.random.bits`` of ``shape`` as int64 values in [0, 2**32)."""
+def random_bits(key: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
+    """32-bit ``jax.random.bits`` of ``shape`` as int64 values in [0, 2**32).
+
+    Under the partitionable stream an element's counter is its flat index,
+    so ``row0`` draws only rows ``[row0, row0 + shape[0])`` of the draw of
+    shape ``(N,) + shape[1:]``: equal to that draw's rows, at the cost of
+    the slice (a rank of a peer group draws its own rows; the same holds
+    for :func:`uniform`, :func:`randint` and :func:`gumbel`)."""
     shape = tuple(shape)
-    hi, lo = _counts(shape, key.device)
+    hi, lo = _counts(shape, key.device, row0)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return b1 ^ b2
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, row0: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` (float32): 23 random mantissa bits with a unit
     exponent, minus one, scaled and shifted in float32, floored at minval.
 
@@ -100,7 +110,7 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     (``span`` is the float32 difference, as jax takes it), so each scalar
     op casts them back to the same float32 and computes in float32: the
     same bits as float32 tensor operands, with no host-to-device copy."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, row0)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = float(np.float32(minval))
@@ -108,13 +118,14 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     return torch.clamp(floats * span + lo, min=lo)
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            row0: int = 0) -> torch.Tensor:
     """``jax.random.randint`` for int32 output and static int bounds within
     the int32 range: two 32-bit draws folded modulo the span, with jax's
     uint32 wrap-around in the multiplier."""
     k = split(key, 2)
-    hi_bits = random_bits(k[0], shape)
-    lo_bits = random_bits(k[1], shape)
+    hi_bits = random_bits(k[0], shape, row0)
+    lo_bits = random_bits(k[1], shape, row0)
     span = (maxval - minval) & _M32 if maxval > minval else 1
     mult = (2 ** 16) % span
     mult = ((mult * mult) & _M32) % span
@@ -123,9 +134,9 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     return (off + minval).to(torch.int32)
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
     """``jax.random.gumbel`` (float32, mode "low"): -log(-log(u)) with u
     uniform in [tiny, 1). ``log`` may differ from XLA's by an ulp."""
     tiny = float(np.finfo(np.float32).tiny)
-    u = uniform(key, shape, minval=tiny, maxval=1.0)
+    u = uniform(key, shape, minval=tiny, maxval=1.0, row0=row0)
     return -torch.log(-torch.log(u))

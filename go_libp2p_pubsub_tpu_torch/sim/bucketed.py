@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as pg
 from ..device import check_on, resolve_device
 from ..ops.bits import I32
 from .config import SimConfig, TopicParams
@@ -193,19 +194,56 @@ def check_bucketable(cfg: SimConfig) -> None:
             "2*n_topics > 32 is refused")
 
 
-def _refuse_sharded() -> None:
-    """The reference's sharded branches (its kernel-mesh check and the
-    halo route of the flat exchange, bucketed.py:1393-1403 and :455-460)
-    run under a device mesh; the port's counterpart is a torch.distributed
-    group of more than one process, which item 7 brings."""
+def _check_sharded(cfg: SimConfig) -> None:
+    """The kernel-mesh check (bucketed.py:1391-1403): inside a
+    torch.distributed group of more than one process the step runs only
+    on its rank's rows, under the peer group's bucket-major layout
+    (parallel/sharding.make_sharded_bucketed_run enters it); there every
+    bucket's rows must tile the group."""
+    ctx = pg.current_kernel_mesh()
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"bucketed_step inside a {dist.get_world_size()}-process "
-            "torch.distributed group: the row-sharded buckets and the halo "
-            "route of the reverse-edge exchange are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7); run one process per simulation")
+    if ctx is None:
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise ValueError(
+                f"bucketed_step inside a {dist.get_world_size()}-process "
+                "torch.distributed group but outside its peer group: drive "
+                "the sharded step through parallel/sharding."
+                "make_sharded_bucketed_run")
+        return
+    for b, (n_rows, kb) in enumerate(cfg.degree_buckets):
+        if int(n_rows) % ctx.world:
+            raise ValueError(
+                f"bucketed_step under the sharded kernel mesh: bucket {b} "
+                f"({int(n_rows)} rows x k_ceil {int(kb)}) does not tile the "
+                f"{ctx.world}-device mesh — realign the partition with "
+                "topology.align_degree_buckets and drive the step through "
+                "parallel/sharding.make_sharded_bucketed_run")
+    if ctx.ids is None:
+        raise ValueError("bucketed_step under a peer group without the "
+                         "bucket-major layout (kernel_mesh(..., buckets=))")
+
+
+def _local_buckets(cfg: SimConfig) -> list:
+    """(first row in ``g``, rows, k_ceil) of each bucket's rows this process
+    holds: :func:`_buckets` in one process; under a peer group's
+    bucket-major layout the rank's window of each bucket, whose rows
+    follow each other in ``g`` bucket after bucket."""
+    ctx = pg.current_kernel_mesh()
+    if ctx is None:
+        return _buckets(cfg)
+    out, sl = [], 0
+    for _s, c, kb in _buckets(cfg):
+        out.append((sl, c // ctx.world, kb))
+        sl += c // ctx.world
+    return out
+
+
+def _global_starts(cfg: SimConfig) -> list:
+    """The global id of each local bucket window's first row."""
+    ctx = pg.current_kernel_mesh()
+    return [s + (0 if ctx is None else ctx.rank * (c // ctx.world))
+            for s, c, _ in _buckets(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +482,7 @@ def _view(bs: BucketedState, b: int, cfg: SimConfig) -> SimState:
     """Bucket ``b`` as a SimState (bucketed.py:414-424): its edge planes at
     [Nb, ·, Kb], the ROW_FIELDS sliced to its rows, everything else
     global."""
-    s, c, _ = _buckets(cfg)[b]
+    s, c, _ = _local_buckets(cfg)[b]
     out = {f: getattr(bs.e[b], f) for f in EDGE_FIELDS}
     for f in ROW_FIELDS:
         out[f] = getattr(bs.g, f)[s:s + c]
@@ -483,8 +521,16 @@ def _merge(bs: BucketedState, views: list) -> BucketedState:
 def _exchange_flat(bs: BucketedState, payloads: list) -> list:
     """``payloads[b]`` is [Nb, Kb]; returns each edge's reverse edge's
     payload, per bucket (bucketed.py:443-462): one ΣD-element concatenation
-    and per-bucket [Nb, Kb] gathers (int32 indices, no widening)."""
-    flat = torch.cat([p.reshape(-1) for p in payloads])
+    and per-bucket [Nb, Kb] gathers (int32 indices, no widening). Inside a
+    peer group each bucket's rows are gathered whole first (the replicated
+    route), or the exchange rides ``halo.route_bucketed_flat`` (the halo
+    route: each rank pushes its slots to the owners of their reverse
+    slots, capacity-padded all-to-alls of ~ΣD/P² a rank pair)."""
+    ctx = pg.current_kernel_mesh()
+    if ctx is not None and ctx.route == "halo":
+        from ..parallel.halo import route_bucketed_flat
+        return route_bucketed_flat(payloads, list(bs.rev))
+    flat = torch.cat([pg.gather_rows(p).reshape(-1) for p in payloads])
     return [torch.index_select(flat, 0, r.reshape(-1)).reshape(r.shape)
             for r in bs.rev]
 
@@ -534,6 +580,7 @@ def _gw_b(table: torch.Tensor, idx_kn: torch.Tensor) -> torch.Tensor:
         table.shape[0], kb, nb)
 
 
+
 # ---------------------------------------------------------------------------
 # the draws
 
@@ -554,7 +601,21 @@ def _mk_noise(cfg: SimConfig):
     def shape(rows, k, kind):
         return (rows, t, k) if kind == "ntk" else (rows, k)
 
-    if cfg.bucketed_rng == "dense":
+    if pg.current_kernel_mesh() is not None:
+        # a rank draws only its windows' rows of each draw
+        loc, gs = _local_buckets(cfg), _global_starts(cfg)
+        if cfg.bucketed_rng == "dense":
+            def noise(key, kind):
+                return [rng.uniform(key, shape(c, kmax, kind),
+                                    row0=g0)[..., :kb]
+                        for (_, c, kb), g0 in zip(loc, gs)]
+        else:
+            def noise(key, kind):
+                return [rng.uniform(rng.fold_in(key, b), shape(c, kb, kind),
+                                    row0=g0 - s)
+                        for b, ((_, c, kb), g0, (s, _, _)) in
+                        enumerate(zip(loc, gs, bks))]
+    elif cfg.bucketed_rng == "dense":
         def noise(key, kind):
             full = rng.uniform(key, shape(n, kmax, kind))
             return [full[s:s + c, ..., :kb] for s, c, kb in bks]
@@ -584,7 +645,7 @@ def _heartbeat_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
                                  compute_scores, decayed)
     from ..ops.selection import masked_median, select_random, select_top
 
-    bks = _buckets(cfg)
+    bks = _local_buckets(cfg)
     B = len(bks)
     t = cfg.n_topics
     tick = bs.g.tick
@@ -807,7 +868,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     hop is a no-op), and hop 0's duplicate offers ride only a non-empty
     starting frontier, a device-side mask, as in the dense port."""
     from ..ops.bits import (exclusive_prefix_or, n_words, pack_bool,
-                            pack_words, popcount_sum, reduce_or,
+                            pack_words, popcount, popcount_sum, reduce_or,
                             unpack_words)
     from ..ops.gater import accept_data
     from ..ops.propagate import (_COUNT_DTYPES, _bits_to_slot,
@@ -817,7 +878,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     g = bs.g
     n, t, m = cfg.n_peers, cfg.n_topics, cfg.msg_window
     w = n_words(m)
-    bks = _buckets(cfg)
+    bks = _local_buckets(cfg)
     B = len(bks)
     dev = g.tick.device
     tick = g.tick
@@ -847,7 +908,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     have_bits = g.have.T.contiguous()                                # [W,N]
     dlv_bits = pack_words(g.deliver_tick < NEVER)
     dlv_start = dlv_bits
-    n_have_start = popcount_sum(have_bits, axis=(0, 1))
+    n_have_start = popcount(have_bits).to(torch.int64).sum()
 
     gate_noise = noise(k_gate, "nk") if cfg.gater_enabled else None
     data_ok_l = []
@@ -884,11 +945,14 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     if censor_bits is not None:
         answer_bits = answer_bits & ~censor_bits
     got_any_l, got_valid_any_l, nv, ni, ig = [], [], [], [], []
+    # the sender tables of the gathers are read whole: inside a peer group
+    # each is this rank's columns, replicated once
+    answer_w = pg.replicate(answer_bits, dim=1)
     for b, (s, c, kb) in enumerate(bks):
         sl = sls[b]
         asked_k = _slot_bitplanes(views[b].iwant_pending, kb) \
             & alive_bits[:, None, None]
-        answers_k = _gw_b(answer_bits, idx_kn[b])                # [W,Kb,Nb]
+        answers_k = _gw_b(answer_w, idx_kn[b])                   # [W,Kb,Nb]
         hb_c = have_bits[:, sl]
         got_k = asked_k & answers_k & ~hb_c[:, None, :] \
             & _ones(data_ok_l[b].T)[None]
@@ -928,9 +992,11 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
             dup_window = dup_window & ~censor_bits
         # the reference's loop runs no hop on an empty starting frontier,
         # so the duplicate offers ride only a non-empty one
-        started = torch.where((frontier != 0).any(), -1, 0).to(I32)
+        started = torch.where(pg.pany((frontier != 0).any()), -1, 0) \
+            .to(I32)
+        dup_w = pg.replicate(dup_window, dim=1)
         dup_offer_l = [
-            _gw_b(dup_window, idx_kn[b]) & mesh_eb_l[b]
+            _gw_b(dup_w, idx_kn[b]) & mesh_eb_l[b]
             & _ones((dup_edges_l[b] & data_ok_l[b]).T)[None] & started
             for b in range(B)]
     age_dlv = tick - g.deliver_tick
@@ -944,6 +1010,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     for i in range(cfg.prop_substeps):
         src = frontier if censor_bits is None else frontier & ~censor_bits
         new_any_l, new_valid_l = [], []
+        src = pg.replicate(src, dim=1)
         for b in range(B):
             sl = sls[b]
             offered = _gw_b(src, idx_kn[b]) & allowed_l[b]
@@ -1012,7 +1079,10 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     newly_dlv = dlv_bits & ~dlv_start
     deliver_tick = torch.where(unpack_words(newly_dlv, m), tick,
                                g.deliver_tick)
-    delivered = popcount_sum(have_bits, axis=(0, 1)) - n_have_start
+    # counts over every peer, taken whole before the float32 difference
+    totals = pg.psum(torch.stack([popcount(have_bits).to(torch.int64).sum(),
+                                  n_have_start]))
+    delivered = totals[0].float() - totals[1].float()
 
     # -- step 3: IHAVE/IWANT for next tick (the updated deliveries) --
     age = tick - deliver_tick
@@ -1020,6 +1090,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         & alive_bits[:, None]
     window_bits = torch.where(mal[None, :], alive_bits[:, None], window_bits)
     pend_l = []
+    window_w = pg.replicate(window_bits, dim=1)
     for b, (s, c, kb) in enumerate(bks):
         ep = bs.e[b]
         if cfg.scoring_enabled:
@@ -1029,7 +1100,7 @@ def _forward_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         valid_slots = ((ep.neighbors >= 0)
                        & (ep.reverse_slot >= 0))[:, None, :]
         inc_g = inc_gossip_l[b] & valid_slots & gossip_ok[:, None, :]
-        offer = _gw_b(window_bits, idx_kn[b]) \
+        offer = _gw_b(window_w, idx_kn[b]) \
             & _edge_topic_bits(inc_g, topic_bits, w)
         # max_iwant_per_tick >= msg_window (check_bucketable): the budget
         # cannot bind, the lowest offering slot per message is asked
@@ -1061,7 +1132,7 @@ def _churn_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     bring_edges_up run on the views."""
     from ..ops.churn import bring_edges_up, take_edges_down
 
-    bks = _buckets(cfg)
+    bks = _local_buckets(cfg)
     B = len(bks)
     tick = bs.g.tick
     kd, ku = rng.split(key, 2)
@@ -1089,11 +1160,13 @@ def _churn_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         bs, [[d_down_l[b], d_up_l[b], views[b].direct] for b in range(B)])
     sts = []
     redial = (tick % cfg.direct_connect_ticks) == 0
+    gs = _global_starts(cfg)
     for b, (s, c, kb) in enumerate(bks):
         v = views[b]
         nbr = v.neighbors
         gd, gu, gdir = ex[b]
-        mine_wins = (s + torch.arange(c, device=nbr.device))[:, None] < nbr
+        mine_wins = (gs[b] + torch.arange(c, device=nbr.device))[:, None] \
+            < nbr
         d_down = torch.where(mine_wins, d_down_l[b], gd)
         d_up = torch.where(mine_wins, d_up_l[b], gu)
         direct_low = torch.where(mine_wins, v.direct, gdir)
@@ -1140,11 +1213,13 @@ def _apply_faults_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
                              FAULT_SLOWLINK, FAULT_STORM)
 
     plan = cfg.fault_plan
-    bks = _buckets(cfg)
+    bks = _local_buckets(cfg)
     B = len(bks)
     n = cfg.n_peers
     tick = bs.g.tick
-    mal = bs.g.malicious
+    # the cut sets read every peer's flag; rows at their global ids
+    mal = pg.replicate(bs.g.malicious) if plan.eclipses else bs.g.malicious
+    gs = _global_starts(cfg)
     if plan.slowlinks:
         kd, kdup, kc, kslow = rng.split(key, 4)
     else:
@@ -1160,7 +1235,7 @@ def _apply_faults_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
             wd, heal, inj_b = edge_cut_mask(
                 plan, tick, v.neighbors, v.reverse_slot,
                 disconnect_tick=v.disconnect_tick, malicious=mal,
-                row_start=s, n_global=n)
+                row_start=gs[b], n_global=n)
             v = take_edges_down(v, cfg, tp, v.connected & wd)
             v = bring_edges_up(v, cfg, heal & ~v.connected & ~wd)
             want_down_l.append(wd)
@@ -1171,7 +1246,7 @@ def _apply_faults_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         for b, (s, c, kb) in enumerate(bks):
             wd, _, inj_b = edge_cut_mask(
                 plan, tick, bs.e[b].neighbors, bs.e[b].reverse_slot,
-                malicious=mal, row_start=s, n_global=n)
+                malicious=mal, row_start=gs[b], n_global=n)
             want_down_l.append(wd)
             inj = inj | inj_b
 
@@ -1197,7 +1272,8 @@ def _apply_faults_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
             drops = noise(kss[ci], "nk") if cl.drop > 0.0 else None
             for b, (s, c, kb) in enumerate(bks):
                 nbr_b = bs.e[b].neighbors
-                h = slow_edge_hash(nbr_b, salt, row_start=s, n_global=n)
+                h = slow_edge_hash(nbr_b, salt, row_start=gs[b],
+                                   n_global=n)
                 member = (h < _thr32(cl.fraction)) & (nbr_b >= 0)
                 phase = (h % cl.period).to(I32)
                 open_now = ((tick + phase) % cl.period) == 0
@@ -1224,7 +1300,7 @@ def _apply_faults_b(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         want_down=tuple(want_down_l),
         link_ok=None if link_ok_l is None else tuple(link_ok_l),
         dup_edges=None if dup_edges_l is None else tuple(dup_edges_l),
-        corrupt=corrupt, injected=inj)
+        corrupt=corrupt, injected=pg.por(inj))
 
 
 # ---------------------------------------------------------------------------
@@ -1270,7 +1346,7 @@ def _record_flags_b(bs: BucketedState, cfg: SimConfig,
     if injected is not None:
         flags = flags | injected
     return bs._replace(g=bs.g._replace(
-        fault_flags=bs.g.fault_flags | flags))
+        fault_flags=bs.g.fault_flags | pg.por(flags)))
 
 
 # ---------------------------------------------------------------------------
@@ -1285,7 +1361,7 @@ def _bucketed_tick(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     from .faults import censor_word_mask
     from .invariants import FAULT_CORRUPT
 
-    _refuse_sharded()
+    _check_sharded(cfg)
     check_bucketable(cfg)
     check_precision(cfg)
     noise = _mk_noise(cfg)
@@ -1299,7 +1375,7 @@ def _bucketed_tick(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
     k_pub, k_hb, k_fwd, k_churn, k_ign, _ = rng.split(key, 6)
     peers, topics = choose_publishers(bs.g, cfg, k_pub)
     if fault is not None and fault.corrupt is not None:
-        corrupt = fault.corrupt & ~bs.g.malicious[peers.long()]
+        corrupt = fault.corrupt & ~pg.owner_rows(bs.g.malicious, peers)
         fault = fault._replace(corrupt=corrupt, injected=fault.injected | (
             corrupt.any().to(torch.int32) * FAULT_CORRUPT))
     bs = bs._replace(g=publish(
@@ -1320,6 +1396,11 @@ def _bucketed_tick(bs: BucketedState, cfg: SimConfig, tp: TopicParams,
         bs = _churn_b(bs, cfg, tp, k_churn, scores_all, noise,
                       forbid_up_l=fault.want_down if fault is not None
                       else None)
+    notes = pg.drain_halo_overflow()
+    if notes:
+        # halo-route overflows of this tick's flat exchanges
+        bs = bs._replace(g=bs.g._replace(
+            halo_overflow=bs.g.halo_overflow + sum(notes)))
     if cfg.invariant_mode != "off":
         bs = _record_flags_b(bs, cfg, injected=fault.injected
                              if fault is not None else None)

@@ -31,9 +31,9 @@ The parser and queue are host code, copied from the reference.
 :func:`apply_frame` runs the frame through the port's ``trace.replay``
 (its op codes dispatched on the host, its updates on the state's device,
 the input state never written) and the attack lanes through
-:func:`_attack_pass`. The multihost wrapper :class:`BroadcastCommands`
-(rank 0 broadcasts each frame) is refused by name: ROADMAP.md, Queue 1
-item 7.
+:func:`_attack_pass`; inside a peer group each rank applies the frame to
+its own rows. The multi-process wrapper :class:`BroadcastCommands` has
+rank 0 drain the stream and broadcast each frame to every rank.
 
 Directive grammar (one JSON object per line)::
 
@@ -416,7 +416,12 @@ def _attack_pass(state, cfg, tp, op: np.ndarray, a: np.ndarray):
     from ..ops.churn import take_edges_down
     from .invariants import FAULT_CENSOR, FAULT_ECLIPSE
 
-    n = state.neighbors.shape[0]
+    from ..parallel import kernel_context as kc
+
+    # the lane masks cover every peer; inside a peer group this rank keeps
+    # its rows of them and reads its neighbours' flags from the group
+    nl = state.neighbors.shape[0]
+    n, r0 = kc.global_rows(nl), kc.row0()
     dev = state.neighbors.device
     lanes = np.clip(a.astype(np.int64), 0, n - 1)
 
@@ -429,14 +434,15 @@ def _attack_pass(state, cfg, tp, op: np.ndarray, a: np.ndarray):
 
     tgt, any_ecl = mask(OP_ECLIPSE)
     coh, any_cen = mask(OP_CENSOR)
-    malicious = state.malicious | coh
+    malicious = kc.replicate(state.malicious) | coh
     honest = ~malicious
     known = (state.neighbors >= 0) & (state.reverse_slot >= 0)
     nbr = state.neighbors.clamp(0, n - 1).long()
-    cross = ((tgt[:, None] ^ tgt[nbr])
-             & honest[:, None] & honest[nbr] & known)
+    mine = slice(r0, r0 + nl)
+    cross = ((tgt[mine, None] ^ tgt[nbr])
+             & honest[mine, None] & honest[nbr] & known)
     go_down = cross & state.connected & any_ecl
-    state = state._replace(malicious=malicious)
+    state = state._replace(malicious=malicious[mine])
     state = take_edges_down(state, cfg, tp, go_down)
     bits = (FAULT_ECLIPSE if any_ecl else 0) | (FAULT_CENSOR if any_cen else 0)
     return state._replace(fault_flags=state.fault_flags | bits)
@@ -458,8 +464,8 @@ class CommandQueue:
     backpressure). ``frame_for`` drains a contiguous stream prefix at
     each chunk boundary into a fixed-``slots`` :class:`Frame`.
 
-    ``chaos`` (parallel/resilience.ChaosPlan's ingest drills, ROADMAP.md
-    Queue 1 item 7) is refused by name."""
+    ``chaos`` (parallel/resilience.ChaosPlan) drills the degradation
+    paths: its ingest drills pause or kill the reader at a boundary."""
 
     def __init__(self, source: str, *, n_peers: int, n_topics: int,
                  msg_window: int, slots: int = 64, maxlen: int = 4096,
@@ -469,11 +475,6 @@ class CommandQueue:
                  topic_index: dict | None = None,
                  heartbeat_interval: float = 1.0, chaos=None,
                  poll_s: float = 0.02):
-        if chaos is not None:
-            raise NotImplementedError(
-                "CommandQueue(chaos=...) (parallel/resilience.py's ChaosPlan "
-                "ingest drills) is not ported yet (ROADMAP.md, Queue 1 item "
-                "7)")
         if slots < 1:
             raise ValueError(f"CommandQueue: slots={slots} must be >= 1")
         self.source = source
@@ -490,6 +491,9 @@ class CommandQueue:
         self.topic_index = topic_index
         self.heartbeat_interval = float(heartbeat_interval)
         self._poll_s = float(poll_s)
+        self._chaos = chaos
+        self._pause_until = 0.0     # chaos ingest_stall
+        self._killed = False        # chaos ingest_kill
 
         self._cond = threading.Condition()
         self._q: collections.deque = collections.deque()
@@ -547,6 +551,14 @@ class CommandQueue:
         return (f"python scripts/directive_producer.py --stream <input> "
                 f"--out {self.source} --from-offset {offset}")
 
+    # ---- chaos hooks (parallel/resilience.ChaosPlan) ----------------------
+
+    def pause_reader(self, seconds: float) -> None:
+        self._pause_until = time.monotonic() + float(seconds)
+
+    def kill_reader(self) -> None:
+        self._killed = True
+
     # ---- reader thread ----------------------------------------------------
 
     def _read_loop(self) -> None:
@@ -554,6 +566,11 @@ class CommandQueue:
         pos = self._clean_offset
         try:
             while not self._stop.is_set():
+                if self._killed:
+                    return
+                if time.monotonic() < self._pause_until:
+                    time.sleep(self._poll_s)
+                    continue
                 if fh is None:
                     try:
                         fh = open(self.source, "rb")
@@ -645,6 +662,11 @@ class CommandQueue:
         cached = self._frames.get(int(chunk_start))
         if cached is not None:
             return cached
+        if self._chaos is not None:
+            try:
+                self._chaos.fire_ingest(int(chunk_start), self)
+            except Exception:
+                pass        # chaos drills must never fail the run
         chunk_end = int(chunk_start) + int(chunk_ticks)
         frame = self._drain(int(chunk_start), chunk_end)
         self._frames[int(chunk_start)] = frame
@@ -773,15 +795,83 @@ class CommandQueue:
 
 
 class BroadcastCommands:
-    """The multihost wrapper (rank 0 owns the real :class:`CommandQueue`
-    and broadcasts each drained frame to every rank). Refused by name: it
-    needs the multi-process plane, ROADMAP.md, Queue 1 item 7."""
+    """The multi-process wrapper (commands.py:831-896): rank 0 owns the real
+    :class:`CommandQueue`; every rank calls ``frame_for`` at the same
+    boundary, and rank 0's frame goes to every rank as two fixed-shape
+    broadcasts (the ``[4, slots]`` int32 lanes and an int64 meta vector),
+    so every rank applies the same directives to its own rows. A frame is
+    cached after its broadcast: a repeated fetch (a retry) never runs the
+    collective on one rank alone. Every rank must construct it with the
+    same ``slots``; ``inner`` is None on ranks other than 0. ``group`` is
+    the process group (the default one when None)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BroadcastCommands (rank-0 frame broadcast across processes, "
-            "parallel/multihost.py) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 7); a single-process run takes a CommandQueue")
+    def __init__(self, inner: CommandQueue | None, *, slots: int,
+                 group=None):
+        self.inner = inner
+        self.slots = int(slots)
+        self.group = group
+        self._frames: collections.OrderedDict = collections.OrderedDict()
+        self.applied_total = 0
+        self.shed_total = 0
+        self.refused_total = 0
+        self.consumed_offset = 0
+
+    def start(self, offset: int = 0) -> "BroadcastCommands":
+        if self.inner is not None:
+            self.inner.start(offset)
+        return self
+
+    def close(self) -> None:
+        if self.inner is not None:
+            self.inner.close()
+
+    def frame_for(self, chunk_start: int, chunk_ticks: int) -> Frame:
+        import torch
+        import torch.distributed as dist
+
+        cached = self._frames.get(int(chunk_start))
+        if cached is not None:
+            return cached
+        if self.inner is not None:
+            f = self.inner.frame_for(chunk_start, chunk_ticks)
+            payload = np.stack([f.op, f.a, f.b, f.c]).astype(np.int32)
+            meta = np.array([f.count, f.shed, f.shed_total,
+                             f.refused_total, f.applied_total, f.offset,
+                             f.lag, f.depth, int(f.coasting)], np.int64)
+            notes = f.notes
+        else:
+            payload = np.zeros((4, self.slots), np.int32)
+            meta = np.zeros(9, np.int64)
+            notes = ()
+        # the group's broadcast runs on host tensors (gloo) or on the
+        # current card (nccl)
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend(self.group) == "nccl" else "cpu"
+        pt = torch.from_numpy(payload).to(dev)
+        mt = torch.from_numpy(meta).to(dev)
+        dist.broadcast(pt, 0, group=self.group)
+        dist.broadcast(mt, 0, group=self.group)
+        payload = pt.cpu().numpy()
+        meta = [int(v) for v in mt.cpu().tolist()]
+        frame = Frame(op=payload[0], a=payload[1], b=payload[2],
+                      c=payload[3], count=meta[0], shed=meta[1],
+                      shed_total=meta[2], refused_total=meta[3],
+                      applied_total=meta[4], offset=meta[5], lag=meta[6],
+                      depth=meta[7], coasting=bool(meta[8]), notes=notes)
+        self.applied_total = frame.applied_total
+        self.shed_total = frame.shed_total
+        self.refused_total = frame.refused_total
+        self.consumed_offset = frame.offset
+        self._frames[int(chunk_start)] = frame
+        while len(self._frames) > 8:
+            self._frames.popitem(last=False)
+        return frame
+
+    @property
+    def stalled(self) -> bool:
+        return self.inner.stalled if self.inner is not None else False
+
+    apply = staticmethod(apply_frame)
 
 
 def write_stream(path: str, directives: list, *, end: bool = True) -> int:

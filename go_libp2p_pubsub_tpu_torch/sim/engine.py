@@ -51,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from .. import rng
+from ..parallel import kernel_context as kc
 from ..device import check_on
 from ..ops.bits import pack_words, popcount
 from ..ops.churn import churn_edges, churn_subscriptions
@@ -98,7 +99,7 @@ def choose_publishers(state: SimState, cfg: SimConfig, key: torch.Tensor
     kp, kt = rng.split(key, 2)
     p = cfg.publishers_per_tick
     peers = rng.randint(kp, (p,), 0, cfg.n_peers)
-    sub = state.subscribed[peers.long()]                  # [P, T]
+    sub = kc.owner_rows(state.subscribed, peers)          # [P, T]
     g = rng.gumbel(kt, tuple(sub.shape))
     topics = torch.argmax(torch.where(sub, g, torch.full_like(g, -float("inf"))),
                           dim=-1).to(torch.int32)
@@ -119,7 +120,8 @@ def _iwant_answer_extras(state: SimState, cfg: SimConfig,
     kernel gathers the table itself); otherwise None."""
     n, t, k = state.mesh.shape
     if resolve_hop_mode(cfg) == "pallas" or resolve_edge_packed_mode(
-            cfg.edge_gather_mode, n, k, 2 * t) not in ("sort", "mxu"):
+            cfg.edge_gather_mode, kc.global_rows(n), k, 2 * t) \
+            not in ("sort", "mxu"):
         return None
     zero = torch.zeros((), dtype=torch.int32, device=state.tick.device)
     answer_bits = torch.where(state.malicious[None, :], zero,
@@ -155,7 +157,7 @@ def _tick(state: SimState, cfg: SimConfig, tp: TopicParams,
     if fault is not None and fault.corrupt is not None:
         # effective corruption: a draw on a malicious publisher corrupts
         # nothing (its message is invalid already)
-        corrupt = fault.corrupt & ~state.malicious[peers.long()]
+        corrupt = fault.corrupt & ~kc.owner_rows(state.malicious, peers)
         fault = fault._replace(corrupt=corrupt, injected=fault.injected | (
             corrupt.any().to(torch.int32) * FAULT_CORRUPT))
     state = publish(state, cfg, peers, topics, k_ign,
@@ -194,12 +196,20 @@ def _tick(state: SimState, cfg: SimConfig, tp: TopicParams,
                             scores_all=hb.scores_all,
                             forbid_up=fault.want_down if fault is not None
                             else None)
+    notes = kc.drain_halo_overflow()
+    if notes:
+        # halo-route bucket overflows this tick (parallel/halo.py capacity
+        # rule, engine.py:177-183): a poisoned run identifies itself
+        state = state._replace(halo_overflow=state.halo_overflow
+                               + sum(notes))
     flags = None
     if cfg.invariant_mode != "off":
         # the sentinel closes the tick: injected-fault bits and invariant
-        # violations OR into the sticky flag word
-        flags = tick_flags(state, cfg, injected=fault.injected
-                           if fault is not None else None)
+        # violations OR into the sticky flag word (inside a peer group
+        # every rank's bits)
+        flags = kc.por(tick_flags(
+            state, cfg, injected=fault.injected if fault is not None
+            else None, n_global=kc.global_rows(state.mesh.shape[0])))
         state = state._replace(fault_flags=state.fault_flags | flags)
     return state._replace(tick=state.tick + 1), flags
 

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.bits import I32, pack_bool
+from ..parallel import kernel_context as pg
 from .invariants import (FAULT_CENSOR, FAULT_ECLIPSE, FAULT_LINK_DROP,
                          FAULT_LINK_DUP, FAULT_OUTAGE, FAULT_PARTITION,
                          FAULT_SLOWLINK, FAULT_STORM, FAULT_WAVE)
@@ -652,6 +653,11 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
 
     plan = cfg.fault_plan
     n, k = state.neighbors.shape
+    # inside a peer group: this rank's rows of the global cut sets, and the
+    # injected bits of every rank's draws
+    r0, ng = pg.row0(), pg.global_rows(n)
+    mal_all = pg.replicate(state.malicious) if plan.eclipses \
+        else state.malicious
     if plan.slowlinks:
         # the fourth split exists only under a slow-link plan
         kd, kdup, kc, kslow = rng.split(key, 4)
@@ -665,7 +671,7 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
         want_down, heal_mask, inj = edge_cut_mask(
             plan, state.tick, state.neighbors, state.reverse_slot,
             disconnect_tick=state.disconnect_tick,
-            malicious=state.malicious)
+            malicious=mal_all, row_start=r0, n_global=ng)
         state = take_edges_down(state, cfg, tp, state.connected & want_down)
         # heal redials exactly the ending windows' own cuts
         come_up = heal_mask & ~state.connected & ~want_down
@@ -673,7 +679,7 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
     else:
         want_down, _, inj = edge_cut_mask(
             plan, state.tick, state.neighbors, state.reverse_slot,
-            malicious=state.malicious)
+            malicious=mal_all, row_start=r0, n_global=ng)
 
     # storms and censorships act elsewhere; their active windows are
     # recorded here
@@ -686,7 +692,7 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
     valid = state.connected
     link_ok = dup_edges = corrupt = None
     if plan.link_drop_prob > 0.0:
-        link_ok = rng.uniform(kd, (n, k)) >= plan.link_drop_prob
+        link_ok = rng.uniform(kd, (n, k), row0=r0) >= plan.link_drop_prob
         inj = inj | _bit((~link_ok & valid).any(), FAULT_LINK_DROP)
     if plan.slowlinks:
         # a member edge's data plane opens every period-th tick and drops
@@ -697,19 +703,22 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
         known = state.neighbors >= 0
         for ci, cl in enumerate(plan.slowlinks):
             h = slow_edge_hash(state.neighbors,
-                               _family_salt(plan.seed, "slowlink", ci))
+                               _family_salt(plan.seed, "slowlink", ci),
+                               row_start=r0, n_global=ng)
             member = (h < _thr32(cl.fraction)) & known
             phase = (h % cl.period).to(I32)
             open_now = ((state.tick + phase) % cl.period) == 0
             ok = open_now
             if cl.drop > 0.0:
-                ok = ok & (rng.uniform(kss[ci], (n, k)) >= cl.drop)
+                ok = ok & (rng.uniform(kss[ci], (n, k), row0=r0)
+                           >= cl.drop)
             lk = lk & (~member | ok)
             stalled = stalled | (member & ~open_now & valid).any()
         link_ok = lk if link_ok is None else (link_ok & lk)
         inj = inj | _bit(stalled, FAULT_SLOWLINK)
     if plan.link_dup_prob > 0.0:
-        dup_edges = (rng.uniform(kdup, (n, k)) < plan.link_dup_prob) & valid
+        dup_edges = (rng.uniform(kdup, (n, k), row0=r0)
+                     < plan.link_dup_prob) & valid
         inj = inj | _bit(dup_edges.any(), FAULT_LINK_DUP)
     if plan.corrupt_prob > 0.0:
         # FAULT_CORRUPT is set by engine.step from the effective corruption
@@ -717,7 +726,7 @@ def apply_faults(state, cfg, tp, key: torch.Tensor):
             < plan.corrupt_prob
     return state, FaultTick(want_down=want_down, link_ok=link_ok,
                             dup_edges=dup_edges, corrupt=corrupt,
-                            injected=inj)
+                            injected=pg.por(inj))
 
 
 # ---------------------------------------------------------------------------
@@ -751,13 +760,14 @@ def censor_word_mask(state, cfg) -> torch.Tensor | None:
         return None
     n = state.neighbors.shape[0]
     dev = state.neighbors.device
+    mine = pg.row_ids(n, dev)
     zero = torch.zeros((), dtype=I32, device=dev)
     mask = None
     for i, w in enumerate(plan.censorships):
         active = (state.tick >= w.start) & (state.tick < w.end)
         vic = pack_bool(((state.msg_publisher == w.victim)
                          & (state.msg_topic >= 0))[None, :])[0]     # [W]
-        cens = censor_peers(n, i, plan, dev)                        # [N]
+        cens = censor_peers(pg.global_rows(n), i, plan, dev)[mine]  # [N]
         mw = torch.where(active & cens[None, :], vic[:, None], zero)
         mask = mw if mask is None else (mask | mw)
     return mask
@@ -770,6 +780,8 @@ def attacker_mask(state, cfg) -> torch.Tensor:
     plan = getattr(cfg, "fault_plan", None)
     if plan is not None:
         n = att.shape[0]
+        mine = pg.row_ids(n, att.device)
         for i in range(len(plan.censorships)):
-            att = att | censor_peers(n, i, plan, att.device)
+            att = att | censor_peers(pg.global_rows(n), i, plan,
+                                     att.device)[mine]
     return att

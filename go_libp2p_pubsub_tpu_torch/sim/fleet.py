@@ -31,9 +31,12 @@ eagerly.
   B=8), resume that checks every member's tick against the schedule,
   and fleet crash dumps with per-member flags.
 
-One device only: :func:`shard_fleet` is the identity placement, and a
-placement over more than one device is refused (ROADMAP.md, Queue 1
-item 7).
+:func:`shard_fleet` places a stacked fleet over a list of devices
+(fleet.py:150-191): members are independent, so the fleet splits into
+contiguous member blocks, one per device, each stacked on its device
+(a PyTorch tensor lives on one device, so the placement is a list of
+parts where the reference's is one sharded array); on one device it is
+the identity.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from .supervisor import (_CONFIRM_GRACE_S, ChunkDeadline, SupervisorConfig,
                          SupervisorCrash, SupervisorReport, _ckpt_path,
                          _degrade, _Fence, _prune_checkpoints, _to_host,
                          _with_deadline, _write_crash_json, _Writer,
-                         list_checkpoints, refuse_unported)
+                         list_checkpoints)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,26 +135,43 @@ def stack_states(items: list):
 
 def fleet_devices(b: int, devices: list | None = None) -> int:
     """How many devices a B-member fleet splits across: the largest count
-    of ``devices`` that divides B (one device when none is given: the
-    port places a fleet on one device)."""
-    d = len(devices) if devices is not None else 1
+    of ``devices`` (default: the visible CUDA devices, at least one) that
+    divides B."""
+    d = len(devices) if devices is not None \
+        else max(1, torch.cuda.device_count())
     return max(k for k in range(1, d + 1) if b % k == 0)
 
 
 def shard_fleet(states: SimState, tps: TopicParams, keys=None,
                 devices: list | None = None):
-    """Place a stacked fleet: the identity on one device. Returns
-    ``(states, tps)`` or ``(states, tps, keys)``. A placement over more
-    than one device is refused (ROADMAP.md, Queue 1 item 7)."""
+    """Place a stacked fleet over ``devices``: the members split into
+    :func:`fleet_devices` contiguous blocks, block i stacked on
+    ``devices[i]``. Returns ``(states, tps)`` or ``(states, tps, keys)``
+    (``keys``: one ``[C, B, 2]`` window, fleet axis second, or a list of
+    them): on one device the inputs themselves, else each a list of the
+    per-device parts in device order."""
     b = int(states.tick.shape[0])
     d = fleet_devices(b, devices)
-    if d > 1:
-        raise NotImplementedError(
-            f"placing a fleet of {b} members over {d} devices is not "
-            "ported yet (ROADMAP.md, Queue 1 item 7)")
+    if d == 1:
+        return (states, tps) if keys is None else (states, tps, keys)
+    per = b // d
+    devs = [torch.device(x) for x in devices[:d]]
+
+    def part(tree, i, axis=0):
+        sl = slice(i * per, (i + 1) * per)
+        return type(tree)(*(x.narrow(axis, sl.start, per).to(devs[i])
+                            for x in tree))
+
+    out_s = [part(states, i) for i in range(d)]
+    out_t = [part(tps, i) for i in range(d)]
     if keys is None:
-        return states, tps
-    return states, tps, keys
+        return out_s, out_t
+
+    def kpart(k, i):
+        return k.narrow(1, i * per, per).to(devs[i])
+    if isinstance(keys, (list, tuple)):
+        return out_s, out_t, [[kpart(k, i) for k in keys] for i in range(d)]
+    return out_s, out_t, [kpart(keys, i) for i in range(d)]
 
 
 def member_state(batched, i: int):
@@ -576,7 +596,15 @@ def _drive_group(gi, idxs, members, sup, report, dumps, hook,
 def _drive(members, sup, dumps, hook, collect_health=False, device=None):
     if not members:
         return [], SupervisorReport()
-    refuse_unported(sup)
+    hooks = [name for name in ("run_fn", "state_to_host", "state_from_host",
+                               "liveness", "chaos")
+             if getattr(sup, name) is not None]
+    if hooks:
+        raise NotImplementedError(
+            f"{', '.join(hooks)}: the fleet plane runs no multi-process "
+            "hook (the reference's fleet plane never reads them, so a "
+            "fleet would ignore them silently); drive a sharded member "
+            "through supervised_run")
     if sup.commands is not None:
         raise NotImplementedError(
             "commands: the fleet plane has no command plane (the "

@@ -579,7 +579,13 @@ def powerlaw_1m(n_peers: int = POWERLAW_NS["powerlaw_1m"], **kw):
 
 def powerlaw_10m(n_peers: int = POWERLAW_NS["powerlaw_10m"], **kw):
     """The 10M heavy-tailed network, its partition shard-aligned. On one
-    process it builds whole; the row-sharded launch is item 7's."""
+    process it builds whole. Its row-sharded launch builds only each
+    rank's bucket windows (``python -m go_libp2p_pubsub_tpu_torch.
+    run_multihost --engine bucketed --topology sharded --scenario
+    powerlaw_10m``: :func:`powerlaw_mh_spec` and
+    ``parallel/multihost.init_bucketed_local``), priced per bucket shard
+    by ``state.state_nbytes(cfg, n_ranks)``; it needs more than one
+    card."""
     kw.setdefault("shard_align", POWERLAW_MH_ALIGN)
     return powerlaw_bucketed(n_peers, **kw)
 

@@ -540,8 +540,11 @@ def check_hbm_budget(cfg: SimConfig, n_dev: int | dict = 1,
 
 
 def _nbr_view(subscribed, neighbors):
-    n = subscribed.shape[0]
-    view = subscribed[neighbors.clamp(0, n - 1).long()].permute(0, 2, 1)
+    from ..parallel import kernel_context as kc
+    # inside a peer group the neighbours' rows come from the group
+    n = kc.global_rows(subscribed.shape[0])
+    view = kc.owner_rows(subscribed, neighbors.clamp(0, n - 1)) \
+        .permute(0, 2, 1)
     return view & (neighbors >= 0)[:, None, :]
 
 
@@ -564,7 +567,7 @@ def init_state(cfg: SimConfig, topo: Topology,
     one, as the reference's init)."""
     check_precision(cfg)
     dev = resolve_device(device)
-    n, k, t, m = cfg.n_peers, cfg.k_slots, cfg.n_topics, cfg.msg_window
+    n, t = cfg.n_peers, cfg.n_topics
     if subscribed is None:
         subscribed = np.ones((n, t), dtype=bool)
     if ip_group is None:
@@ -574,6 +577,20 @@ def init_state(cfg: SimConfig, topo: Topology,
     if malicious is None:
         malicious = np.zeros(n, bool)
 
+    return _init_rows(cfg, topo.neighbors, topo.outbound, topo.reverse_slot,
+                      subscribed, ip_group, app_score, malicious, None, dev)
+
+
+def _init_rows(cfg: SimConfig, neighbors, outbound, reverse_slot, subscribed,
+               ip_group, app_score, malicious, nbr_subscribed,
+               dev) -> SimState:
+    """The initial state of the rows the host arrays hold (all N, or one
+    rank's block: parallel/multihost.init_state_local, which passes the
+    receiver view ``nbr_subscribed`` built from the whole subscription
+    table; None computes it from these rows)."""
+    n, m = neighbors.shape[0], cfg.msg_window
+    k, t = cfg.k_slots, cfg.n_topics
+
     def host(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
@@ -581,16 +598,17 @@ def init_state(cfg: SimConfig, topo: Topology,
         return torch.full(shape, fill, dtype=dtype, device=dev)
 
     i32, f32, b = torch.int32, torch.float32, torch.bool
-    neighbors = host(topo.neighbors, np.int32)
+    neighbors = host(neighbors, np.int32)
     sub = host(subscribed, bool)
     return encode_state(SimState(
         tick=full((), 0, i32),
         neighbors=neighbors,
         connected=neighbors >= 0,
-        outbound=host(topo.outbound, bool),
-        reverse_slot=host(topo.reverse_slot, np.int32),
+        outbound=host(outbound, bool),
+        reverse_slot=host(reverse_slot, np.int32),
         subscribed=sub,
-        nbr_subscribed=_nbr_view(sub, neighbors),
+        nbr_subscribed=_nbr_view(sub, neighbors) if nbr_subscribed is None
+        else host(nbr_subscribed, bool),
         disconnect_tick=full((n, k), NEVER, i32),
         direct=full((n, k), False, b),
         ip_group=host(ip_group, np.int32),

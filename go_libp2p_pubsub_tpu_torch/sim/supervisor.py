@@ -85,9 +85,20 @@ Env knobs (``SupervisorConfig.from_env``): ``GRAFT_CHUNK_TICKS``,
 ``GRAFT_HEALTH_STREAM``, ``GRAFT_ASYNC_CHUNKS``, ``GRAFT_WRITER_QUEUE``,
 ``GRAFT_MH_RUNG``, ``GRAFT_VERDICT_POLICY``.
 
-Refused by name, never ignored: ``run_fn``, ``state_to_host``,
-``state_from_host``, ``liveness`` and ``chaos`` (ROADMAP.md, Queue 1 item
-7). The fleet plane (sim/fleet.py) builds on the same primitives.
+The multi-process hooks (supervisor.py:206-287; parallel/multihost.py,
+parallel/resilience.py): ``run_fn`` runs each chunk (the sharded chunk of
+parallel/compile_plan.py), ``state_to_host`` gathers the whole state (a
+collective, on the main thread at run start and at every checkpoint
+boundary, so every rank reaches it) for rank 0's checkpoints and crash
+dumps, ``state_from_host`` slices a restored whole state back to this
+rank's rows (at the current process count: an elastic resume is logged
+``resume_elastic``), ``liveness`` beats progress and is polled before
+every dispatch (a dead peer fails this rank at a chunk boundary), and
+``chaos`` fires its ``verdict_kill`` drill between a verdict and its
+note. A failed chunk in a group of more than one process is never retried
+on one rank alone: it crashes the rank, and the group relaunches from the
+last checkpoint (``python -m go_libp2p_pubsub_tpu_torch.mh_supervisor``).
+The fleet plane (sim/fleet.py) builds on the same primitives.
 """
 
 from __future__ import annotations
@@ -121,10 +132,6 @@ _CKPT_RE = re.compile(r"^ckpt_t(\d+)(?:\.npz)?$")
 # card is still running AND the host fell behind, and failing the chunk
 # for HOST lateness would retry work the card already did
 _CONFIRM_GRACE_S = 0.2
-
-
-def _later(item: str) -> str:
-    return f"is not ported yet (ROADMAP.md, Queue 1 {item})"
 
 
 class SupervisorCrash(RuntimeError):
@@ -185,7 +192,9 @@ class SupervisorConfig:
     async_chunks: bool = True
     # bounded writer-queue depth: a full queue blocks the main loop
     writer_queue: int = 4
-    # multi-process hooks (parallel/multihost.py): ROADMAP item 7
+    # multi-process hooks (parallel/multihost.py): the chunk runner
+    # ``run_fn(state, cfg, tp, keys) -> state | (state, HealthRecord)``,
+    # the collective whole-state gather and its inverse on resume
     run_fn: Callable | None = None
     state_to_host: Callable | None = None
     state_from_host: Callable | None = None
@@ -198,7 +207,7 @@ class SupervisorConfig:
     # successful chunk's rows stream to this fsync'd NDJSON journal
     health_path: str | None = None
     health_meta: dict | None = None   # extra keys of the journal header
-    # parallel/resilience.py RankLiveness: ROADMAP item 7
+    # parallel/resilience.RankLiveness (or any object with beat/check)
     liveness: object | None = None
     # the live command plane: a sim/commands.py CommandQueue drained and
     # applied at every chunk boundary
@@ -209,7 +218,7 @@ class SupervisorConfig:
     # a failing contract's response: "journal", "snapshot" or "abort"
     # (GRAFT_VERDICT_POLICY)
     verdict_policy: str = "journal"
-    # parallel/resilience.ChaosPlan: ROADMAP item 7
+    # parallel/resilience.ChaosPlan (or any object with fire_verdict)
     chaos: object | None = None
     # rungs of the degrade ladder applied before the first chunk
     # (GRAFT_MH_RUNG); checkpoints keep stamping the base config
@@ -239,23 +248,6 @@ class SupervisorConfig:
             kw["verdict_policy"] = os.environ["GRAFT_VERDICT_POLICY"]
         kw.update(overrides)
         return SupervisorConfig(**kw)
-
-
-def refuse_unported(sup: SupervisorConfig) -> None:
-    """Raise NotImplementedError for a hook whose plane is not ported,
-    naming its ROADMAP item: a hook is never silently ignored."""
-    refused = []
-    for name in ("run_fn", "state_to_host", "state_from_host"):
-        if getattr(sup, name) is not None:
-            refused.append((f"{name} (parallel/multihost.py)", "item 7"))
-    if sup.liveness is not None:
-        refused.append(("liveness (parallel/resilience.py)", "item 7"))
-    if sup.chaos is not None:
-        refused.append(("chaos (parallel/resilience.py's ChaosPlan)",
-                        "item 7"))
-    if refused:
-        raise NotImplementedError("; ".join(
-            f"{what} {_later(item)}" for what, item in refused))
 
 
 @dataclasses.dataclass
@@ -337,10 +329,21 @@ def _try_resume(sup: SupervisorConfig, cfg: SimConfig, like: SimState,
         if not (start_tick < tick <= start_tick + n_ticks):
             continue
         try:
-            st = checkpoint.restore(path, like, cfg=cfg)
+            st = checkpoint.restore(
+                path, like if sup.state_from_host is None
+                else _whole_like(like, cfg), cfg=cfg)
         except ValueError as e:     # CheckpointCorrupt or mismatch
             report.log("resume_skip", path=path, error=str(e)[:200])
             continue
+        if sup.state_from_host is not None:
+            # the checkpoint restores whole; every rank slices its rows at
+            # the CURRENT process count (elastic across process counts)
+            saved_p = checkpoint.sidecar_meta(path).get("processes")
+            now_p = checkpoint._process_count()
+            if saved_p is not None and int(saved_p) != now_p:
+                report.log("resume_elastic", saved_processes=int(saved_p),
+                           processes=now_p)
+            st = sup.state_from_host(st)
         done = int(_fetch_scalar(st.tick)) - start_tick
         if done != tick - start_tick:   # name/state tick disagreement
             report.log("resume_skip", path=path,
@@ -351,6 +354,30 @@ def _try_resume(sup: SupervisorConfig, cfg: SimConfig, like: SimState,
         report.log("resume", path=path, tick=tick)
         return st, done
     return like, 0
+
+
+def _whole_like(like, cfg: SimConfig):
+    """A host-side template of the whole state a rank's ``like`` (a
+    SimState or a BucketedState) is a part of (shapes and dtypes only, for
+    ``checkpoint.restore``)."""
+    from .state import state_spec
+    spec = state_spec(cfg)
+
+    def rows(x, n):
+        return torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype)
+    if isinstance(like, SimState):
+        return SimState(**{
+            f: rows(getattr(like, f), cfg.n_peers) if spec[f][2]
+            else torch.empty(tuple(getattr(like, f).shape),
+                             dtype=getattr(like, f).dtype)
+            for f in SimState._fields})
+    from .bucketed import EdgePlanes
+    sizes = [int(c) for c, _ in cfg.degree_buckets]
+    return like._replace(
+        g=_whole_like(like.g, cfg),
+        e=tuple(EdgePlanes(*(rows(x, c) for x in ep))
+                for ep, c in zip(like.e, sizes)),
+        rev=tuple(rows(r, c) for r, c in zip(like.rev, sizes)))
 
 
 # the explicit conservative fallback per mode family: every mode name,
@@ -637,7 +664,8 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
     telemetry = sup.health_path is not None and not traced
     dev = state.tick.device
     exe = None
-    if exec_cfg.invariant_mode != "raise" and not traced:
+    if exec_cfg.invariant_mode != "raise" and not traced \
+            and sup.run_fn is None:
         if keys_chunk is None:
             exe = _with_deadline(
                 lambda: compile_plan.engine_window(
@@ -671,6 +699,14 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
                                   device=dev)
             events.extend(evs)
             return out, None, _Fence(out.tick, None)
+        if sup.run_fn is not None:
+            # the caller's chunk runner (the sharded chunk); a telemetry
+            # runner returns (state, HealthRecord). The EXACT tuple check:
+            # SimState is a tuple subclass
+            out = sup.run_fn(state, exec_cfg, tp, keys_chunk)
+            if type(out) is tuple:
+                out, rec = out
+            return out, None, _Fence(out.tick, rec)
         if exe is not None:
             out = exe(state, tp, master_key if keys_chunk is None
                       else keys_chunk)
@@ -739,7 +775,11 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
 
     check_on(state.tick.device, device)
     sup = sup or SupervisorConfig.from_env()
-    refuse_unported(sup)
+    if traced and sup.run_fn is not None:
+        # the traced lane steps the whole state on the host; a custom
+        # runner's chunk (a rank's rows) would be stepped as a whole
+        raise ValueError("supervised_run: traced=True steps the state "
+                         "itself and cannot honour a run_fn")
     report = SupervisorReport()
     start_tick = int(_fetch_scalar(state.tick))
     fold = cfg.key_schedule == "fold_in"
@@ -825,6 +865,25 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
     # retry/dump anchor: the newest confirmed boundary state, owned (never
     # a view of a graph's buffers), and the progress offset it holds
     anchor_state, anchor_done = state, done
+    # multi-process: the newest whole copy and the progress offset it was
+    # gathered at, refreshed at every checkpoint-cadence boundary on the
+    # main thread (state_to_host is a collective: never in the error
+    # path, where one rank alone would enter it); the crash path dumps it
+    last_host_state, last_host_done = None, done
+    if sup.state_to_host is not None:
+        last_host_state = sup.state_to_host(state)
+    multiproc = sup.run_fn is not None and checkpoint._process_count() > 1
+
+    def beat(tick: int, chunk: int) -> None:
+        # liveness progress stamp: a shared-filesystem hiccup never fails
+        # the run (the beater thread keeps the wall stamp fresh)
+        if sup.liveness is not None:
+            try:
+                sup.liveness.beat(tick=tick, chunk=chunk)
+            except Exception:
+                pass
+
+    beat(start_tick + done, 0)
 
     def chunk_keys(lo: int, hi: int):
         if all_keys is not None:
@@ -845,7 +904,8 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
             info["directives"] = int(frame.count)
             info["ingest_frame"] = frame
         keys_chunk = None
-        if not (fold and not traced and cfg.invariant_mode != "raise"):
+        if not (fold and not traced and cfg.invariant_mode != "raise") \
+                or sup.run_fn is not None:
             keys_chunk = chunk_keys(c_done, c_done + ticks)
         p = _dispatch_chunk(src, exec_cfg, tp, keys_chunk, key, sup,
                             traced, hook, info, donate=donate,
@@ -866,12 +926,23 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         nonlocal exec_cfg, chunk_ticks, failures
         _hard_flush(sup.sinks)
         failures += 1
-        if _is_invariant_trip(e) or failures > sup.max_retries:
+        if _is_invariant_trip(e) or multiproc \
+                or failures > sup.max_retries:
             # invariant trips are never retried: the trajectory itself is
-            # poisoned and would trip again on the same keys
+            # poisoned and would trip again on the same keys. In a group
+            # a retry on one rank would pair its collectives with its
+            # peers' wrong ones: the rank crashes and the group relaunches
             writer.drain(raise_errors=False)    # pending checkpoints land
             dump = None
-            if sup.write_files:
+            if sup.write_files and sup.state_to_host is not None:
+                if last_host_state is not None:
+                    # the gathered copy may be chunks old: re-anchor the
+                    # dumped window to its tick
+                    w0, w1 = last_host_done, fail_done + this_chunk
+                    dump = _write_crash_dump(sup, cfg, last_host_state,
+                                             chunk_keys(w0, w1), start_tick,
+                                             w0, w1 - w0, n_ticks, e, report)
+            elif sup.write_files:
                 if last_good is None or not compile_plan.live(last_stamp):
                     # the failing chunk's direct input was overwritten by
                     # a donated replay: dump the anchor and re-anchor the
@@ -914,6 +985,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         accounting. Main thread only."""
         nonlocal done, carry, carry_stamp, carry_done, next_ckpt, failures
         nonlocal anchor_state, anchor_done, window_end_hit
+        nonlocal last_host_state, last_host_done
         done_wall = time.time()
         fr = p.info.pop("ingest_frame", None)
         failures = 0
@@ -922,6 +994,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         report.chunks_run += 1
         report.ticks_run += p.ticks
         report.log("chunk_ok", **p.info)
+        beat(start_tick + done, report.chunks_run)
         if events_out is not None:
             events_out.extend(p.events)
         if health_out is not None:
@@ -976,6 +1049,12 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
                 # the true run end only (a bounded window resumes later):
                 # pending contracts settle
                 new_events = new_events + monitors.finalize()
+            if new_events and sup.chaos is not None:
+                # verdict_kill@TICK drill: die between the breach and its
+                # journaled verdict (parallel/resilience.ChaosPlan)
+                fire = getattr(sup.chaos, "fire_verdict", None)
+                if fire is not None:
+                    fire(start_tick + done)
             for ev in new_events:
                 report.log("contract_verdict", contract=ev["contract"],
                            kind=ev["kind"], status=ev["status"],
@@ -1015,8 +1094,14 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         # written if a dir is set)"
         if done >= next_ckpt or done >= n_ticks or window_end or force_ckpt:
             pause_t0 = time.perf_counter()
+            if sup.state_to_host is not None:
+                # collective on EVERY rank at the checkpoint cadence, even
+                # with no checkpoint_dir: the crash dump's freshness
+                last_host_state = sup.state_to_host(p.out)
+                last_host_done = done
             if sup.checkpoint_dir and sup.write_files:
-                to_save = _to_host(p.out, p.fence.event)
+                to_save = _to_host(p.out, p.fence.event) \
+                    if sup.state_to_host is None else last_host_state
                 path = _ckpt_path(sup.checkpoint_dir, start_tick + done)
                 report.checkpoints.append(path)
                 report.log("checkpoint", tick=start_tick + done, path=path)
@@ -1077,6 +1162,20 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         while done < n_ticks and not window_end_hit:
             # ---- refill: nothing in flight → dispatch the next chunk
             if pend is None:
+                if sup.liveness is not None:
+                    # dead-peer poll at the pre-dispatch safe point, the
+                    # last place this rank can stop without abandoning a
+                    # peer inside a collective; the multi-process branch
+                    # of handle_failure dumps and raises SupervisorCrash
+                    try:
+                        sup.liveness.check()
+                    except Exception as e:
+                        info = {"chunk_start": start_tick + done,
+                                "chunk_ticks": 0, "attempt": failures,
+                                "liveness": True}
+                        handle_failure(e, info, done, 0, carry, carry_stamp,
+                                       done)
+                        continue
                 if not compile_plan.live(carry_stamp):
                     # a donated replay overwrote the carry before its
                     # chunk failed: fall back to the anchor

@@ -288,19 +288,43 @@ def _rd(i: int, n: int) -> int:
     return min(max(_norm(i, n), 0), n - 1)
 
 
+# the fields set_at/get_at index by a peer first
+_PEER_ROWS = frozenset({"subscribed", "have", "deliver_tick"})
+
+
 class _Injector:
     """The state's fields while a stream is applied: each written field is
     copied on its first write, then updated in place through views indexed
     by the op's Python ints and the device-side slot ``k``."""
 
     def __init__(self, state: SimState, cfg: SimConfig, tp: TopicParams):
+        from ..parallel import kernel_context as kc
+
         self.f = state._asdict()
         self.own: set = set()
         self.cfg, self.tp = cfg, tp
         n, t, k = state.mesh.shape
+        # inside a peer group the state holds rows [r0, r0 + n) of a
+        # network of ng peers: an op on another rank's peer writes nothing
+        # here, and reads of the group's rows come replicated
         self.n, self.t, self.kk = n, t, k
+        self.r0, self.ng = kc.row0(), kc.global_rows(n)
+        self.app_all = kc.replicate(state.app_score) \
+            if cfg.app_specific_weight != 0.0 else state.app_score
         self.m = state.msg_topic.shape[0]
         self.k1 = None      # [1] int64 slot of the current op's lookup
+
+    def row(self, a: int) -> int | None:
+        """The local row of peer ``a`` (negative ids wrap over the whole
+        network), None when another rank owns it or it is out of range."""
+        i = _norm(a, self.ng) - self.r0
+        return i if 0 <= i < self.n else None
+
+    def rd(self, a: int) -> int:
+        """The local row a read of peer ``a`` takes: the clamped global
+        row, clamped again into this rank's rows (a read for a peer this
+        rank does not own feeds only writes that are dropped)."""
+        return min(max(_rd(a, self.ng) - self.r0, 0), self.n - 1)
 
     def state(self) -> SimState:
         return SimState(**self.f)
@@ -321,34 +345,34 @@ class _Injector:
     def lookup(self, a: int, b: int) -> torch.Tensor:
         """Slot of peer b in observer a's neighbor table: sets ``k1`` (the
         first hit, 0 if none) and returns ``found`` (0-d bool)."""
-        row = self.f["neighbors"][_rd(a, self.n)]
+        row = self.f["neighbors"][self.rd(a)]
         hit = row == b
         self.k1 = hit.to(torch.int32).argmax().reshape(1)
         found = hit.any()
         return found if b >= 0 else found & False
 
     def _ok_ac(self, a: int, c: int) -> bool:
-        return 0 <= _norm(a, self.n) < self.n and 0 <= _norm(c, self.t) < self.t
+        return self.row(a) is not None and 0 <= _norm(c, self.t) < self.t
 
     def get_ack(self, name: str, a: int, c: int) -> torch.Tensor:
         """x[a, c, k] as a [1] tensor."""
-        return self.f[name][_rd(a, self.n), _rd(c, self.t)].index_select(
+        return self.f[name][self.rd(a), _rd(c, self.t)].index_select(
             0, self.k1)
 
     def set_ack(self, name: str, a: int, c: int, v: torch.Tensor) -> None:
         if self._ok_ac(a, c):
-            self.w(name)[_norm(a, self.n), _norm(c, self.t)].index_copy_(
+            self.w(name)[self.row(a), _norm(c, self.t)].index_copy_(
                 0, self.k1, v.to(self.f[name].dtype))
 
     def get_ak(self, name: str, a: int) -> torch.Tensor:
         """x[a, k] ([1]) of an [N, K] field, x[a, :, k] ([T, 1]) of an
         [N, T, K] one."""
-        x = self.f[name][_rd(a, self.n)]
+        x = self.f[name][self.rd(a)]
         return x.index_select(x.dim() - 1, self.k1)
 
     def set_ak(self, name: str, a: int, v: torch.Tensor) -> None:
-        if 0 <= _norm(a, self.n) < self.n:
-            x = self.w(name)[_norm(a, self.n)]
+        if self.row(a) is not None:
+            x = self.w(name)[self.row(a)]
             x.index_copy_(x.dim() - 1, self.k1, v.to(x.dtype))
 
     # ---- whole-element writes without a slot ----------------------------
@@ -358,7 +382,13 @@ class _Injector:
         index is out of range."""
         x = self.f[name]
         norm = []
-        for i, n in zip(idx, x.shape):
+        if name in _PEER_ROWS:
+            r = self.row(idx[0])
+            if r is None:
+                return
+            norm.append(r)
+            idx = idx[1:]
+        for i, n in zip(idx, x.shape[len(norm):]):
             i = _norm(i, n)
             if not 0 <= i < n:
                 return
@@ -373,6 +403,8 @@ class _Injector:
     def get_at(self, name: str, idx: tuple) -> torch.Tensor:
         x = self.f[name]
         rd = [_rd(i, n) for i, n in zip(idx, x.shape)]
+        if name in _PEER_ROWS:
+            rd[0] = self.rd(idx[0])
         return x[tuple(rd[:-1])].narrow(0, rd[-1], 1)
 
     def have_set_bit(self, peer: int, slot: int) -> None:
@@ -420,7 +452,7 @@ class _Injector:
         if cfg.app_specific_weight != 0.0:
             nbr = col("neighbors", a).clamp(0, cfg.n_peers - 1)
             score = score + cfg.app_specific_weight * \
-                f["app_score"].index_select(0, nbr.long())
+                self.app_all.index_select(0, nbr.long())
         if cfg.behaviour_penalty_weight != 0.0:
             excess = col("behaviour_penalty", a) - \
                 cfg.behaviour_penalty_threshold

@@ -330,6 +330,43 @@ def test_bucketed_run_equals_the_reference(ref_trajectories, case):
     assert float(whole.g.delivered_total) > 0
 
 
+# tests/test_torch_faults.py's every-family plan (censor victim 9), with PX
+EVERY_FAMILY = ("drop=0.1,dup=0.2,corrupt=0.3,partition=2@1:4,"
+                "outage=0.2@2:5,eclipse=0.1@3:6,censor=0.4x9@1:7,"
+                "storm=4x0.9x0@2:5,slowlink=0.3@3:0.1,wave=0.25@4:2:8,"
+                "seed=3")
+
+
+@pytest.mark.parametrize("rng_mode, prec", [("bucket", "compact"),
+                                            ("dense", "f32")])
+def test_every_family_plan_under_both_rng_modes(rng_mode, prec):
+    """The every-family fault plan with PX reconnects, 8 ticks on the
+    128-peer power-law graph: every field of ``g``, of each bucket and of
+    ``rev`` equal to the reference's jitted ``bucketed_step`` after every
+    tick, under ``"bucket"`` draws with compact storage and under
+    ``"dense"`` draws in f32."""
+    over = dict(fault_plan=FaultPlan.parse(EVERY_FAMILY), px_enabled=True,
+                accept_px_threshold=-5.0, bucketed_rng=rng_mode,
+                state_precision=prec)
+    topo, mal = _graph()
+    jcfg = JConfig(**{**_cfg_kw(), **over})
+    cfg = SimConfig(**dataclasses.asdict(jcfg))
+    jtp = jscenarios.default_topic_params(2)
+    tp = scenarios.default_topic_params(2, device="cpu")
+    jbs = jbk.init_bucketed_state(jcfg, topo, malicious=mal)
+    bs = bucketed.init_bucketed_state(cfg, _port_topo(topo), device="cpu",
+                                      malicious=mal)
+    step = jax.jit(jbk.bucketed_step, static_argnames=("cfg",))
+    jkeys, keys = _tick_keys("host")
+    for i in range(TICKS):
+        jbs = step(jbs, cfg=jcfg, tp=jtp, key=jkeys[i])
+        bs = bucketed.bucketed_step(bs, cfg, tp, keys[i], device="cpu")
+        _assert_same(_jarrays(jbs), bucketed.bucketed_state_to_numpy(bs),
+                     f"after tick {i}")
+    flags = int(bs.fault_flags)
+    assert flags & 0x3ff and flags & VIOLATION_MASK == 0, hex(flags)
+
+
 def test_dense_rng_equals_the_dense_run():
     """Under ``bucketed_rng="dense"`` the densified bucketed state after 8
     ticks equals the port's dense ``run`` on the same graph and config
@@ -546,12 +583,24 @@ def test_raise_mode_as_the_reference():
 
 
 def test_sharded_branches_are_refused(monkeypatch):
-    """Inside a torch.distributed group of more than one process (the
-    counterpart of the reference's kernel mesh) the step refuses, naming
-    Queue 1 item 7."""
+    """Inside a torch.distributed group of more than one process the step
+    runs only under the peer group's bucket-major layout (parallel/
+    sharding.make_sharded_bucketed_run): outside it, and with a bucket
+    that does not tile the group, it refuses by name (the reference's
+    kernel-mesh check, bucketed.py:1391-1403)."""
+    from go_libp2p_pubsub_tpu_torch.parallel import kernel_context as kc
     cfg, tp, bs = _port_case("fold_in", "bucket", "f32")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 7\)"):
+    with pytest.raises(ValueError, match="make_sharded_bucketed_run"):
         bucketed.bucketed_step(bs, cfg, tp, rng.PRNGKey(0, device="cpu"),
                                device="cpu")
+    odd = kc.KernelMesh(None, 0, 3, N, 0, N // 3)
+    tok = kc._current.set(odd)
+    try:
+        with pytest.raises(ValueError, match="does not tile"):
+            bucketed.bucketed_step(bs, cfg, tp,
+                                   rng.PRNGKey(0, device="cpu"),
+                                   device="cpu")
+    finally:
+        kc._current.reset(tok)

@@ -268,11 +268,56 @@ def test_queue_coasts_through_silence_and_resumes(tmp_path):
         q.close()
 
 
-def test_broadcast_and_chaos_are_refused_by_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        commands.BroadcastCommands(None, slots=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _mkq(commands, tmp_path / "s.ndjson", chaos=object())
+def _drain_frames(mod, q, starts):
+    frames = []
+    try:
+        q.start(0)
+        for t0 in starts:
+            frames.append(_frame_key(q.frame_for(t0, 2)))
+    finally:
+        q.close()
+    return frames
+
+
+@pytest.mark.parametrize("spec", ["ingest_kill@2", "ingest_stall@2:0.2"])
+def test_chaos_drills_match_the_reference(tmp_path, spec):
+    """CommandQueue(chaos=ChaosPlan(...)): the reader killed or paused at
+    a boundary, frame for frame as the reference's queue under the same
+    plan (each package with its own marker directory)."""
+    from go_libp2p_pubsub_tpu.parallel import resilience as jres
+    from go_libp2p_pubsub_tpu_torch.parallel import resilience
+    src = tmp_path / "s.ndjson"
+    commands.write_stream(str(src), STREAM)
+    got = {}
+    for name, mod, res in (("ref", jcmds, jres),
+                           ("port", commands, resilience)):
+        d = tmp_path / name
+        d.mkdir()
+        plan = res.ChaosPlan(res.ChaosPlan.parse(spec), 0, str(d))
+        got[name] = _drain_frames(mod, _mkq(mod, src, chaos=plan),
+                                  [0, 2, 4, 6])
+        assert os.listdir(d), name      # the drill's marker landed
+    assert got["port"] == got["ref"]
+
+
+def test_broadcast_frames_match_the_reference(tmp_path):
+    """BroadcastCommands in a one-process group (gloo, a file rendezvous):
+    rank 0's frames after the broadcast, and a cached refetch, as the
+    reference's wrapper hands them out."""
+    import torch.distributed as dist
+    src = tmp_path / "s.ndjson"
+    commands.write_stream(str(src), STREAM)
+    want = _drain_frames(jcmds, jcmds.BroadcastCommands(
+        _mkq(jcmds, src), slots=4), [0, 2, 4])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        bc = commands.BroadcastCommands(_mkq(commands, src), slots=4)
+        got = _drain_frames(commands, bc, [0, 2, 4])
+        assert _frame_key(bc.frame_for(2, 2)) == got[1]     # the cache
+    finally:
+        dist.destroy_process_group()
+    assert got == want
 
 
 # --- apply_frame -------------------------------------------------------------

@@ -324,17 +324,26 @@ def test_placement_is_one_device(base):
     assert got[0] is states and got[1] is tps
     assert shard_fleet(states, tps, keys="k")[2] == "k"
     assert shard_fleet(stack_states([st] * 3), stack_states([tp] * 3),
-                       devices=["a", "b"])[0] is not None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        shard_fleet(states, tps, devices=["a", "b"])
+                       devices=["cpu", "cpu"])[0] is not None
+    # over two devices: contiguous member blocks, one per device, as the
+    # reference's fleet axis splits (fleet.py:150-191)
+    keys = torch.arange(3 * 4 * 2).reshape(3, 4, 2)
+    parts, tparts, kparts = shard_fleet(states, tps, keys,
+                                        devices=["cpu", "cpu"])
+    assert len(parts) == len(tparts) == len(kparts) == 2
+    for i in range(2):
+        for a, w in zip(parts[i], states):
+            assert torch.equal(a, w[2 * i:2 * i + 2])
+        assert torch.equal(kparts[i], keys[:, 2 * i:2 * i + 2])
 
 
 @pytest.mark.parametrize("hook, item", [
     # the reference's fleet plane never reads commands: refused, naming
     # the directives a fleet would drop
     ({"commands": object()}, "drop every directive"),
-    ({"run_fn": lambda *a: None}, "item 7"),
-    ({"liveness": object()}, "item 7"),
+    # nor the multi-process hooks: refused, naming them
+    ({"run_fn": lambda *a: None}, "runs no multi-process hook"),
+    ({"liveness": object()}, "runs no multi-process hook"),
 ])
 def test_unported_hooks_are_refused_by_item(base, hook, item):
     with pytest.raises(NotImplementedError, match=item):

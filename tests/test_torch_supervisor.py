@@ -17,7 +17,9 @@ module fixture). Then, as tests/test_supervisor.py holds the reference:
   ``initial_degrade``;
 - crash dumps: retries exhausted, an invariant trip never retried, the
   port's replay of a clean and of a tripped dump, sinks hard-flushed;
-- every hook of an unported plane refused, naming its ROADMAP item;
+- each multi-process hook (``run_fn``, ``state_to_host``,
+  ``state_from_host``, ``liveness``, ``chaos``) in one process, equal to
+  the reference's run with the same hook;
 - the health journal's rows equal the reference's (``score_mean`` to rtol
   1e-5, the one column not exact, sim/telemetry.py; every other column
   exact);
@@ -474,17 +476,90 @@ def test_sinks_hard_flushed_on_failure(plain, tmp_path):
     assert sink.flushed == 1
 
 
-@pytest.mark.parametrize("hook, item", [
-    ({"run_fn": lambda *a: None}, "item 7"),
-    ({"state_to_host": lambda s: s}, "item 7"),
-    ({"state_from_host": lambda s: s}, "item 7"),
-    ({"liveness": object()}, "item 7"),
-    ({"chaos": object()}, "item 7"),
-])
-def test_unported_hooks_are_refused_by_item(plain, hook, item):
-    _, port, _ = plain
-    with pytest.raises(NotImplementedError, match=item):
-        _run(port, sup=_sup(**hook))
+class _Recorder:
+    """A chaos object that records the ticks its verdict drill would fire
+    at, instead of killing the process."""
+
+    def __init__(self):
+        self.ticks = []
+
+    def fire_verdict(self, tick):
+        self.ticks.append(int(tick))
+
+
+def _mp_hook(pkg, hook, plain, d):
+    """One single-process supervised run of ``pkg`` with the multi-process
+    hook ``hook``: (final state as arrays, the hook's record)."""
+    from go_libp2p_pubsub_tpu.parallel import resilience as jres
+    from go_libp2p_pubsub_tpu.sim import adversary as jadversary
+    from go_libp2p_pubsub_tpu.sim import engine as jengine
+    from go_libp2p_pubsub_tpu_torch.parallel import resilience
+    from go_libp2p_pubsub_tpu_torch.sim import SimState, adversary, supervisor
+    ref = pkg == "reference"
+    adv = jadversary if ref else adversary
+    (jcfg, jtp, jst, jkey), (cfg, tp, st, key), _ = plain
+    sv = jsupervisor if ref else supervisor
+    res = jres if ref else resilience
+    args = (jst, jcfg, jtp, jkey) if ref else (st, cfg, tp, key)
+    extra = {} if ref else {"device": "cpu"}
+    kw = dict(chunk_ticks=5, backoff_base_s=0.0, sleep=lambda s: None)
+    record = None
+    if hook == "run_fn":
+        calls = []
+
+        def run_fn(s, c, t, keys):
+            calls.append(int(keys.shape[0]))
+            return jengine.run_keys(s, c, t, keys) if ref else \
+                engine.run_keys(s, c, t, keys, device="cpu")
+        kw["run_fn"], record = run_fn, calls
+    elif hook == "state_to_host":
+        kw["checkpoint_dir"] = str(d / "ck")
+        kw["state_to_host"] = (lambda s: jax.tree.map(np.asarray, s)) if ref \
+            else (lambda s: SimState(*(x.cpu() for x in s)))
+    elif hook == "state_from_host":
+        kw["checkpoint_dir"] = str(d / "ck")
+        sv.supervised_run(*args, N_TICKS, sv.SupervisorConfig(
+            max_chunks=1, **kw), **extra)
+        kw["state_from_host"] = lambda s: s
+    elif hook == "liveness":
+        kw["liveness"] = res.RankLiveness(str(d), 0, 1)
+    elif hook == "chaos":
+        kw["chaos"] = record = _Recorder()
+        kw["health_path"] = str(d / "h.ndjson")
+        kw["contracts"] = adv.contracts_from_json(CONTRACTS)
+    out, rep = sv.supervised_run(*args, N_TICKS, sv.SupervisorConfig(**kw),
+                                 **extra)
+    if hook == "state_to_host":
+        record = [os.path.basename(p) for p in rep.checkpoints]
+    elif hook == "state_from_host":
+        record = (rep.resumed_tick, rep.chunks_run)
+    elif hook == "chaos":
+        record = record.ticks
+    elif hook == "liveness":
+        with open(res.heartbeat_path(str(d), 0)) as f:
+            hb = json.load(f)
+        record = (hb["tick"], hb["chunk"])
+    return (_arrays(out) if ref else state_to_numpy(out)), record
+
+
+@pytest.mark.parametrize("hook", ["run_fn", "state_to_host",
+                                  "state_from_host", "liveness", "chaos"])
+def test_multiprocess_hooks_match_the_reference(plain, hook, tmp_path):
+    """Each multi-process hook in one process, against the reference's
+    supervised run with the same hook: the final state equals the
+    uninterrupted run, and the hook's trace (the runner's chunk sizes,
+    the checkpoints the gathered copies wrote, the resume point, the
+    heartbeat's last stamp, the verdict drill's ticks) is the
+    reference's."""
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    want, rec_ref = _mp_hook("reference", hook, plain, tmp_path / "ref")
+    got, rec = _mp_hook("port", hook, plain, tmp_path / "port")
+    for f, a in want.items():
+        np.testing.assert_array_equal(got[f], a, err_msg=f"{f} ({hook})")
+    assert rec == rec_ref
+    if hook == "chaos":
+        assert rec, "no verdict transition reached the drill"
 
 
 # --- the lifted hooks against the reference -----------------------------------
