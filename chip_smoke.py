@@ -23,7 +23,9 @@ Phases, each printing its own lines and its seconds:
    measured), and that sector traffic over the measured time. Equality is
    exact (bit for bit). Times are device times by CUDA events: 20 calls
    queued back to back behind a spin kernel (so the host's enqueue time is
-   hidden), median of 5 such rounds; ``library_ms`` times the one PyTorch
+   hidden), median of 5 such rounds (a call whose first run takes over
+   2 ms, as the plain versions at the full shapes do: one call a round,
+   median of 3 rounds); ``library_ms`` times the one PyTorch
    indexing call that computes a gather, on int64 indices, the same way
    (the faster of two such calls where there are two);
 3. main path: ``build_headline(102400)`` and 8 ticks of ``run``, with the
@@ -111,7 +113,9 @@ Phases, each printing its own lines and its seconds:
    memory (``check_hbm_budget``), not allocated;
 4. the card's 8-tick trajectory at 1024 peers against the port's CPU run
    (plain versions): integer, bool and packed fields equal, float32 fields
-   within rtol 1e-6, checked after every tick; then the same network
+   within rtol 1e-6, checked after every tick (the CPU runs of 4, 4b, 4c,
+   4d and 4e in a child process started with the underlay builds, sent
+   back as per-tick fingerprints); then the same network
    under compact storage, each tick decoded, stepped and encoded on both
    devices: int8, int16 and packed planes exact, each bf16 plane exact
    where the float32 inputs to its encode agree bitwise and within one
@@ -236,7 +240,28 @@ Phases, each printing its own lines and its seconds:
    the final state equals the uninterrupted run. 9d heavytail_eclipse
    (131,072) on the row-sharded bucketed step for 10 ticks, equal leaf
    for leaf to the single-process card run, the eclipse bit set;
-10. the ``kernels`` JSON line, then the device JSON line last.
+10. the host tools around the engine. 10a, right after 6c while the
+    underlays build (3c and 9c follow it there, before phase 3): ``sweep_scores.run_sweep`` over eclipse_small and
+    sybil_small x baseline, p1_off, p6_harsh and gater_on (512 peers, 2
+    seeds, 40 ticks or the attack's own; fleet windows of 8) on the card, killed when the
+    second scenario's fleet completes and run again on its journal (the
+    first scenario's rows from the journal, no fleet; the second's members
+    equal the killed run's), kernels 1-4 launched, aggregate member-ticks/s;
+    after 9d its rows and every member's final state against a CPU run of
+    the port (a child process started with the underlay builds). 10b, after
+    7d: 7d's events through a ``PBTracer`` and a ``JSONTracer`` file, the
+    native tensorizer's feed of the file equal array for array to the
+    Python tensorizer's (of the file and of the events in memory), the
+    file's feed replayed on the card equal to 7d's replay, native and Python
+    tensorize MB/s. 10c: 8 ticks of the headline's telemetry lane through
+    ``HealthJournal`` with the native encoder, rows equal to the Python
+    encoder's, us a row of both. 10d: ``calibrate_dispatch.calibrate`` at
+    (102400, 32, 64) and (10240, 32, 64) on the phase-3 and outage
+    underlays, 5 repeats, every kernel label raising its kernel's launch
+    count, the table loaded through GRAFT_DISPATCH_TABLE and read back by
+    ``dispatch.explain``, each op's winner beside the shipped table's
+    choice;
+11. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -268,6 +293,7 @@ SECTOR = 32                      # bytes of an L2 sector
 N_FULL, K, M = 102400, 32, 64
 N_CHURN = 51200                  # churn_50k at its 128-friendly size
 REPS = 20
+SLOW_CALL_MS = 2.0               # time_ms: a longer call is timed singly
 
 # TPU kernel each port replaces (function definition, file:line)
 REPLACES = {
@@ -351,6 +377,11 @@ PATH_KERNELS = {
                        {"gather_words", "take_words"}),
     "supervised eclipse": ({"edge_table", "hop", "iwant_resolve", "emit"},
                            {"gather_words", "take_words"}),
+    # phase 10a: the score sweep's fleets (sybil_small and eclipse_small at
+    # 512 peers: PX reconnects through the payload permute; gater_on's
+    # validation queue cap runs the non-fused words gathers)
+    "score sweep": ({"edge_table", "hop", "iwant_resolve", "emit",
+                     "gather_words", "permutation_gather"}, {"take_words"}),
     # phase 8: the degree-bucketed engine runs no hand kernel; the dense
     # engine on the heavy-tailed graph runs kernels 1-4 (and churn's
     # payload permute)
@@ -379,6 +410,17 @@ SCALE_TICKS = 40                 # phase 7b: ticks of each bench family
 N_TRACE, TRACE_TICKS = 1024, 4   # phase 7d: the traced single_topic_1k
 N_BUCKETED, BUCKETED_TICKS = 1024, 8   # phase 8a
 N_POWERLAW_1M, N_POWERLAW_100K = 1 << 20, 1 << 17   # phases 8b, 8c
+# phase 10a: the score sweep's grid (sweep_scores.py's defaults: 512 peers,
+# 40 ticks or the attack's own n_ticks, 2 seeds)
+SWEEP_SCENARIOS = ("eclipse_small", "sybil_small")
+SWEEP_VARIANTS = ("baseline", "p1_off", "p6_harsh", "gater_on")
+# fleet windows of 8 ticks: one short graph a fleet group to capture
+SWEEP_CHUNK_TICKS = 8
+# phase 10d: the calibrator's shapes (n, k, m) on the phase-3 and outage
+# underlays, and its repeats
+CALIBRATE_SHAPES = ((N_FULL, K, M), (N_OUTAGE, K, M))
+CALIBRATE_REPEATS = 5
+ENCODE_ROWS = 8192               # phase 10c: rows a timed encode formats
 # the formulation cases of phase 4e, each at 1024 peers
 FORMULATION_CASES = ("frontier, sort", "headline, scalar", "headline, rows",
                      "headline, sort, flood publish", "churn_50k, sort",
@@ -441,6 +483,12 @@ def dataplane_case(what, n, dev, topo):
 
 BASELINE_CASES = ("beacon_10k, subscription churn", "sybil_small")
 
+# phase 4's trajectories, (case, gather): their CPU halves run in a child
+# process started with the underlay builds
+TRAJECTORY_CASES = (("headline", None), ("churn", "pallas"), ("churn", "mxu"),
+                    *((c, None) for c in DATAPLANE_CASES
+                      + BASELINE_CASES + FORMULATION_CASES))
+
 
 def baseline_case(what, n, dev, topo):
     """(cfg, tp, state) of a BASELINE card case at ``n`` peers on ``dev``:
@@ -478,6 +526,46 @@ def formulation_case(what, n, dev, topo):
             "selection sort": dict(selection_mode="sort")}[what]
     cfg, tp, st = build_headline(n, device=dev, topo=topo)
     return dataclasses.replace(cfg, **over), tp, st
+
+
+def trajectory_case(what, gather, dev, n=1024):
+    """``(label, (cfg, tp, state))`` of phase 4's case ``(what, gather)`` at
+    ``n`` peers on ``dev``, on :func:`trajectory_topology`'s underlay."""
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch.sim import build_headline, scenarios
+    topo = trajectory_topology(what, n)
+    if what == "headline":
+        return f"{n} peers", build_headline(n, device=dev, topo=topo)
+    if what == "churn":
+        cfg, tp, st = scenarios.churn_50k(n_peers=n, device=dev, topo=topo)
+        return (f"churn_50k({n}) cap 4, hop_mode=xla, edge_gather_mode="
+                f"{gather}", (dataclasses.replace(
+                    cfg, hop_mode="xla", edge_gather_mode=gather,
+                    validation_queue_cap=4), tp, st))
+    build = (baseline_case if what in BASELINE_CASES else formulation_case
+             if what in FORMULATION_CASES else dataplane_case)
+    return f"{what}, {n} peers", build(what, n, dev, topo)
+
+
+def _phase4_cpu(conn):
+    """Child process: phase 4's CPU trajectories (8 ticks of every
+    TRAJECTORY_CASES case, each tick's fingerprint)."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    from go_libp2p_pubsub_tpu_torch import rng
+    from go_libp2p_pubsub_tpu_torch.sim import step, state_to_numpy
+    out = {}
+    for what, gather in TRAJECTORY_CASES:
+        _, (cfg, tp, st) = trajectory_case(what, gather, "cpu")
+        keys = rng.split(rng.PRNGKey(0, device="cpu"), 8)
+        ticks = []
+        for tick in range(8):
+            st = step(st, cfg, tp, keys[tick], device="cpu")
+            ticks.append(_fingerprint(state_to_numpy(st)))
+        out[(what, gather)] = ticks
+    conn.send(out)
+    conn.close()
 
 
 def formulations(cfg):
@@ -603,6 +691,43 @@ def _phase8_cpu(conn):
     conn.close()
 
 
+class _Killed(Exception):
+    """Phase 10a's kill of a sweep in flight."""
+
+
+def _sweep(dev, digests, lines, journal=None, kill_at=None):
+    """Phase 10a's grid through ``sweep_scores.run_sweep`` on ``dev``: its
+    rows; each emitted line parsed into ``lines``, each member's final
+    state fingerprinted into ``digests``. ``kill_at`` names a scenario
+    whose completed fleet raises :class:`_Killed` before its rows reach
+    the journal."""
+    from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+    from go_libp2p_pubsub_tpu_torch.sim.supervisor import SupervisorConfig
+    from go_libp2p_pubsub_tpu_torch.sweep_scores import run_sweep
+
+    def on_fleet(scen, members, results):
+        for m, r in zip(members, results):
+            digests[m.name] = _fingerprint(state_to_numpy(r.state))
+        if scen == kill_at:
+            raise _Killed(scen)
+    return run_sweep(SWEEP_SCENARIOS, SWEEP_VARIANTS, journal=journal,
+                     emit=lambda x: lines.append(json.loads(x)),
+                     sup=SupervisorConfig(chunk_ticks=SWEEP_CHUNK_TICKS),
+                     device=dev, on_fleet=on_fleet)
+
+
+def _phase10_cpu(conn):
+    """Child process: phase 10a's sweep on the CPU (rows and every
+    member's fingerprint)."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    digests = {}
+    rows = _sweep("cpu", digests, [])
+    conn.send((rows, digests))
+    conn.close()
+
+
 def _build_powerlaw(conn, n):
     """Child process: the power-law scenarios' underlay at ``n`` peers
     (``scenarios.powerlaw_spec``'s own build: d 8-64, alpha 2, K = 64)."""
@@ -642,23 +767,30 @@ def _run_trace(cfg, tp, st, dev):
         rng.PRNGKey(5, device=dev), TRACE_TICKS))
 
 
-def _replay_trace(cfg, tp, topo, events, dev, guard=None):
-    """The events, after a JOIN of every peer at t=0.1, tensorized and
-    replayed into a fresh state (nobody subscribed) on ``dev``; ``guard``
-    wraps the replay (sync debug mode on the card). (state, op count,
-    seconds)."""
+def _trace_preamble():
+    """What the replays put before the traced events: a JOIN of every peer
+    at t=0.1, and the peer index."""
+    pre = [{"type": "JOIN", "peerID": f"p{i}", "timestamp": 0.1,
+            "join": {"topic": "t0"}} for i in range(N_TRACE)]
+    return pre, {f"p{i}": i for i in range(N_TRACE)}
+
+
+def _replay_trace(cfg, tp, topo, events, dev, guard=None, feed=None):
+    """The events, after :func:`_trace_preamble`, tensorized (or ``feed``)
+    and replayed into a fresh state (nobody subscribed) on ``dev``;
+    ``guard`` wraps the replay (sync debug mode on the card). (state, op
+    count, seconds)."""
     import contextlib
     import importlib
 
     import numpy as np
     from go_libp2p_pubsub_tpu_torch.sim import init_state
     rp = importlib.import_module("go_libp2p_pubsub_tpu_torch.trace.replay")
-    pre = [{"type": "JOIN", "peerID": f"p{i}", "timestamp": 0.1,
-            "join": {"topic": "t0"}} for i in range(N_TRACE)]
-    feed = rp.tensorize_trace(pre + events,
-                              {f"p{i}": i for i in range(N_TRACE)},
-                              {"t0": 0}, msg_window=cfg.msg_window,
-                              t_end=float(TRACE_TICKS))
+    if feed is None:
+        pre, index = _trace_preamble()
+        feed = rp.tensorize_trace(pre + events, index, {"t0": 0},
+                                  msg_window=cfg.msg_window,
+                                  t_end=float(TRACE_TICKS))
     st = init_state(cfg, topo, subscribed=np.zeros((N_TRACE, 1), bool),
                     device=dev)
     t0 = time.perf_counter()
@@ -730,7 +862,9 @@ class Smoke:
         enough that the host enqueues them all before the first one runs,
         so the wrappers' host time is hidden (a call lasting a few
         microseconds on the card costs tens on the host). Median over
-        ``rounds``."""
+        ``rounds``. A call whose first run takes over SLOW_CALL_MS (the
+        plain versions at the full paths' shapes) is timed one call a
+        round, median of 3 rounds."""
         torch = self.torch
         if not hasattr(self, "spin_rate"):
             self.spin_rate = self.spin_cycles_per_ms()
@@ -738,6 +872,9 @@ class Smoke:
         fn()
         self.sync()
         host_ms = (time.perf_counter() - t0) * 1e3
+        if host_ms > SLOW_CALL_MS:
+            # a call this long needs no batching to be timed
+            reps, rounds = 1, 3
         spin = int(self.spin_rate * (2 * reps * host_ms + 1))
         times = []
         for _ in range(rounds):
@@ -1654,76 +1791,43 @@ class Smoke:
                 p[j, r])
 
     # ---- phase 4 / 4b: the card's trajectory against the CPU's -----------
-    def phase_trajectory(self, what="headline", gather=None):
-        import dataclasses
-        import numpy as np
-        torch = self.torch
+    def phase_trajectory(self, cpu, what="headline", gather=None):
+        """Phase 4's case ``(what, gather)``: 8 ticks on the card, every
+        field after every tick against the CPU run's fingerprints
+        (``cpu``, from :func:`_phase4_cpu`; float32 rtol 1e-6, the rest
+        exact)."""
         from go_libp2p_pubsub_tpu_torch import rng
-        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
-                                                    step, state_to_numpy)
+        from go_libp2p_pubsub_tpu_torch.sim import step, state_to_numpy
         from go_libp2p_pubsub_tpu_torch.sim.invariants import VIOLATION_MASK
-        n = 1024
-        topo = trajectory_topology(what, n)
-        devs = (self.dev, torch.device("cpu"))
-        if what == "headline":
-            runs = [build_headline(n, device=d, topo=topo) for d in devs]
-            label = f"{n} peers"
-        elif what == "churn":
-            runs = []
-            for d in devs:
-                cfg, tp, st = scenarios.churn_50k(n_peers=n, device=d,
-                                                  topo=topo)
-                runs.append((dataclasses.replace(
-                    cfg, hop_mode="xla", edge_gather_mode=gather,
-                    validation_queue_cap=4), tp, st))
-            label = (f"churn_50k({n}) cap 4, hop_mode=xla, "
-                     f"edge_gather_mode={gather}")
-        elif what in BASELINE_CASES:
-            runs = [baseline_case(what, n, d, topo) for d in devs]
-            label = f"{what}, {n} peers"
-        elif what in FORMULATION_CASES:
-            runs = [formulation_case(what, n, d, topo) for d in devs]
-            label = f"{what}, {n} peers"
-        else:
-            runs = [dataplane_case(what, n, d, topo) for d in devs]
-            label = f"{what}, {n} peers"
-        keys = [rng.split(rng.PRNGKey(0, device=d), 8) for d in devs]
-        states = [r[2] for r in runs]
+        label, (cfg, tp, st0) = trajectory_case(what, gather, self.dev)
+        want = cpu[(what, gather)]
+        keys = rng.split(rng.PRNGKey(0, device=self.dev), 8)
+        st = st0
         for tick in range(8):
-            states = [step(s, r[0], r[1], kk[tick], device=d)
-                      for s, r, kk, d in zip(states, runs, keys, devs)]
-            a, b = (state_to_numpy(s) for s in states)
-            for f in a:
-                x, y = a[f], b[f]
-                if x.dtype == np.float32:
-                    same = np.allclose(x, y, rtol=1e-6, atol=0.0)
-                else:
-                    same = np.array_equal(x, y)
-                if not same:
-                    raise AssertionError(
-                        f"trajectory [{label}]: field {f} differs between "
-                        f"{devs[0]} and cpu after tick {tick}")
+            st = step(st, cfg, tp, keys[tick], device=self.dev)
+            _same_fingerprint(f"trajectory [{label}] after tick {tick}",
+                              _fingerprint(state_to_numpy(st)), want[tick])
         extra = ""
         if what == "churn":
             extra = (f"; gater_throttle sum "
-                     f"{float(states[0].gater_throttle.double().sum()):.4f}")
+                     f"{float(st.gater_throttle.double().sum()):.4f}")
         if what.startswith("beacon"):
-            sub0, sub1 = runs[0][2].subscribed, states[0].subscribed
+            sub0, sub1 = st0.subscribed, st.subscribed
             moved = (int((sub0 & ~sub1).sum()), int((~sub0 & sub1).sum()))
             if not all(moved):
                 raise AssertionError(f"trajectory [{label}]: subscriptions "
                                      f"left, joined {moved}")
             extra = f"; subscriptions left {moved[0]}, joined {moved[1]}"
-        flags = int(states[0].fault_flags) & 0xFFFFFFFF
+        flags = int(st.fault_flags) & 0xFFFFFFFF
         if flags & VIOLATION_MASK or (what == "every fault family"
                                       and flags != 0x3FF):
             raise AssertionError(f"trajectory [{label}]: fault_flags "
                                  f"0x{flags:08x}")
-        print(f"trajectory [{label}]: 8 ticks on {devs[0]} equal to the CPU "
+        print(f"trajectory [{label}]: 8 ticks on {self.dev} equal to the CPU "
               f"run (integer/bool/packed exact, float32 rtol 1e-6); "
-              f"delivered_total {float(states[0].delivered_total):.0f}; "
+              f"delivered_total {float(st.delivered_total):.0f}; "
               f"fault_flags 0x{flags:08x}{extra}; formulations "
-              f"{formulations(runs[0][0])}", flush=True)
+              f"{formulations(cfg)}", flush=True)
 
     # ---- phase 4: the compact trajectory on the card against the CPU -----
     def phase_compact_trajectory(self):
@@ -3270,6 +3374,7 @@ class Smoke:
                                          self.dev, guard=no_sync)
         _same_fingerprint("phase 7d [replay]",
                           _fingerprint(state_to_numpy(rep)), want_rep)
+        self.trace = (cfg, tp, topo, events, rep)      # phase 10b's input
         kinds = {}
         for e in events:
             kinds[e["type"]] = kinds.get(e["type"], 0) + 1
@@ -3769,6 +3874,327 @@ class Smoke:
               f"checkpoint, 16 ticks equal the uninterrupted card run in "
               f"every field ({secs:.1f} s)", flush=True)
 
+    # ---- phase 10: the host tools (trace files, encoder, sweep, dispatch) --
+    def phase_sweep(self):
+        """10a on the card: ``sweep_scores.run_sweep`` over
+        SWEEP_SCENARIOS x SWEEP_VARIANTS (512 peers, 2 seeds, 40 ticks or
+        the attack's own), killed when its second scenario's fleet
+        completes, before those rows reach the journal; then run again on
+        the journal: the first scenario's rows come from it (no fleet),
+        equal to the rows the killed run emitted, and the second
+        scenario's members equal the killed run's. Kernels 1-4 launched;
+        aggregate member-ticks/s by the host clock. The rows and every
+        member's fingerprint wait for the CPU run (:meth:`check_sweep`)."""
+        import tempfile
+
+        import numpy as np
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import scenarios
+        first, second = SWEEP_SCENARIOS
+        d = tempfile.mkdtemp(prefix="smoke10a")
+        journal = os.path.join(d, "sweep.jsonl")
+        digests, lines = {}, []
+        compile_plan.clear_caches()
+        self.sync()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            _sweep(self.dev, digests, lines, journal=journal, kill_at=second)
+        except _Killed:
+            pass
+        else:
+            raise AssertionError("phase 10a: the kill did not fire")
+        self.sync()
+        killed_s = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 10a [score sweep] launches: {json.dumps(launches)}",
+              flush=True)
+        self.check_launches("score sweep", launches, scenarios.sybil_small(
+            n_peers=512, device=self.dev)[0])
+        with open(journal) as f:
+            recorded = [json.loads(x) for x in f]
+        if [(r["scenario"], r["variant"]) for r in recorded] != \
+                [(first, v) for v in SWEEP_VARIANTS]:
+            raise AssertionError(f"phase 10a: the killed sweep journaled "
+                                 f"{[r['scenario'] for r in recorded]}")
+        killed_done = [x for x in lines if x.get("info") == "fleet done"]
+        killed_rows = [x for x in lines if "info" not in x]
+        killed_ticks = sum(x["member_ticks"] for x in killed_done)
+        rerun_digests, lines = {}, []
+        t0 = time.perf_counter()
+        rows = _sweep(self.dev, rerun_digests, lines, journal=journal)
+        self.sync()
+        rerun_s = time.perf_counter() - t0
+        skips = [(x["scenario"], x["variant"]) for x in lines
+                 if x.get("info") == "journal skip"]
+        done = [x for x in lines if x.get("info") == "fleet done"]
+        if skips != [(first, v) for v in SWEEP_VARIANTS] \
+                or [x["scenario"] for x in done] != [second]:
+            raise AssertionError(f"phase 10a: the rerun skipped {skips} and "
+                                 f"ran {[x['scenario'] for x in done]}")
+        if rows[:len(SWEEP_VARIANTS)] != killed_rows:
+            raise AssertionError("phase 10a: the journaled rows differ from "
+                                 "the killed run's")
+        for name, fp in rerun_digests.items():
+            same = all(np.array_equal(fp[f], digests[name][f])
+                       if isinstance(fp[f], np.ndarray)
+                       else fp[f] == digests[name][f] for f in fp)
+            if not same:
+                raise AssertionError(f"phase 10a: member {name} of the rerun "
+                                     "differs from the killed run's")
+        rerun_ticks = sum(x["member_ticks"] for x in done)
+        fleets = [(x["scenario"], x["members"], x["groups"],
+                   x["member_ticks"], x["seconds"])
+                  for x in killed_done + done]
+        self.sweep = (rows, digests)
+        fleet_s = sum(x["seconds"] for x in killed_done)
+        rerun_fleet_s = sum(x["seconds"] for x in done)
+        print(f"phase 10a [score sweep]: {len(SWEEP_SCENARIOS)} scenarios x "
+              f"{len(SWEEP_VARIANTS)} variants x 2 seeds at 512 peers; the "
+              f"killed run's fleets: {killed_ticks} member-ticks in "
+              f"{fleet_s:.3f} s = {killed_ticks / fleet_s:.1f} member-ticks/s"
+              f" aggregate (host clock around supervised_fleet_run, graph "
+              f"captures included; the whole killed run {killed_s:.3f} s "
+              f"with scenario builds and fingerprints); the rerun took "
+              f"{len(skips)} rows from the journal and its one fleet ran "
+              f"{rerun_ticks} member-ticks in {rerun_fleet_s:.3f} s = "
+              f"{rerun_ticks / rerun_fleet_s:.1f} member-ticks/s on the "
+              f"killed run's graphs (rerun {rerun_s:.3f} s in all), its "
+              f"members equal the killed run's; fleets (scenario, members, "
+              f"groups, member-ticks, s) {fleets}", flush=True)
+        for r in rows:
+            print(f"phase 10a row: {json.dumps(r)}", flush=True)
+        compile_plan.clear_caches()
+        torch.cuda.empty_cache()
+
+    def check_sweep(self, cpu):
+        """10a against the CPU: every row equal to the CPU run's, and every
+        member's final state (float32 planes to rtol 1e-6, the rest by
+        digest)."""
+        rows, digests = self.sweep
+        want_rows, want_digests = cpu
+        if rows != want_rows:
+            raise AssertionError(f"phase 10a: rows {rows} against the CPU's "
+                                 f"{want_rows}")
+        if sorted(digests) != sorted(want_digests):
+            raise AssertionError("phase 10a: the members differ from the "
+                                 "CPU run's")
+        for name, want in want_digests.items():
+            _same_fingerprint(f"phase 10a [{name}]", digests[name], want)
+        print(f"phase 10a [against the CPU]: {len(rows)} rows and "
+              f"{len(digests)} members' final states equal the CPU run of "
+              f"the port", flush=True)
+
+    def phase_trace_files(self):
+        """10b: phase 7d's events after the JOIN preamble through a
+        ``PBTracer`` file and a ``JSONTracer`` file; the PBTracer file's
+        feed from the native tensorizer (``trace.native.tensorize_file``
+        and ``replay.tensorize_trace_file``) equal array for array to the
+        Python tensorizer of the same file and of the events in memory, the
+        JSON file equal to the events; the file's feed replayed on the card
+        equal in every field to 7d's replay of the events. Native and
+        Python tensorize MB/s (host clock, the best of 3 each)."""
+        import tempfile
+
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch.pb.codec import read_trace_file
+        from go_libp2p_pubsub_tpu_torch.trace import (JSONTracer, PBTracer,
+                                                      native,
+                                                      tensorize_trace,
+                                                      tensorize_trace_file)
+        cfg, tp, topo, events, want = self.trace
+        pre, index = _trace_preamble()
+        kw = dict(msg_window=cfg.msg_window, t_end=float(TRACE_TICKS))
+        if not native.available():
+            raise AssertionError("phase 10b: the native codec did not build")
+
+        def best(fn):
+            out, secs = None, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = fn()
+                secs.append(time.perf_counter() - t0)
+            return out, min(secs)
+        with tempfile.TemporaryDirectory() as d:
+            pb_path = os.path.join(d, "trace.pb")
+            js_path = os.path.join(d, "trace.json")
+            t0 = time.perf_counter()
+            pb, js = PBTracer(pb_path), JSONTracer(js_path)
+            for e in pre + events:
+                pb.trace(e)
+                js.trace(e)
+            pb.close()
+            js.close()
+            write_s = time.perf_counter() - t0
+            size = os.path.getsize(pb_path)
+            feed, native_s = best(lambda: native.tensorize_file(
+                pb_path, index, {"t0": 0}, **kw))
+            feed_py, python_s = best(lambda: tensorize_trace(
+                read_trace_file(pb_path), index, {"t0": 0}, **kw))
+            entry = tensorize_trace_file(pb_path, index, {"t0": 0}, **kw)
+            with open(js_path) as f:
+                js_events = [json.loads(x) for x in f]
+        if js_events != json.loads(json.dumps(pre + events)):
+            raise AssertionError("phase 10b: the JSONTracer file differs "
+                                 "from the events")
+        mem = tensorize_trace(pre + events, index, {"t0": 0}, **kw)
+        for label, other in (("python, file", feed_py), ("in memory", mem),
+                             ("tensorize_trace_file", entry)):
+            bad = [f for f in ("op", "a", "b", "c")
+                   if not np.array_equal(getattr(feed, f),
+                                         getattr(other, f))]
+            if bad or feed.mid_slot != other.mid_slot:
+                raise AssertionError(f"phase 10b: the native feed differs "
+                                     f"from the {label} one in "
+                                     f"{bad or 'mid_slot'}")
+        rep, n_ops, secs = _replay_trace(cfg, tp, topo, None, self.dev,
+                                         feed=entry)
+        bad = self.differ(want, rep)
+        if bad:
+            raise AssertionError(f"phase 10b: the file's replay differs from "
+                                 f"7d's in {bad}")
+        mb = size / 1e6
+        print(f"phase 10b [trace files]: {len(pre) + len(events)} events "
+              f"written to a PBTracer file ({size} bytes) and a JSONTracer "
+              f"file in {write_s:.3f} s; tensorize of the file: native "
+              f"{native_s * 1e3:.3f} ms = {mb / native_s:.1f} MB/s, Python "
+              f"(read_trace_file + tensorize_trace) {python_s * 1e3:.3f} ms "
+              f"= {mb / python_s:.2f} MB/s ({python_s / native_s:.1f}x; host "
+              f"clock, best of 3); {len(feed.op)} ops equal array for array "
+              f"to the Python and in-memory feeds; the JSON file equals the "
+              f"events; the file's replay ({n_ops} ops, {secs:.3f} s on the "
+              f"card) equals 7d's replay in every field", flush=True)
+
+    def phase_native_encoder(self, topo):
+        """10c: 8 ticks of the headline on the telemetry lane streamed
+        through ``HealthJournal``: the chunk's encoder ``"native"``, its
+        rows read back equal to the Python encoder's rows of the same
+        records; then us per row of both encoders on the chunk's matrix
+        tiled to ENCODE_ROWS rows (host clock, the best of 3 each)."""
+        import tempfile
+
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.sim import (build_headline, run_keys,
+                                                    telemetry)
+        cfg, tp, st = build_headline(self.n, device=self.dev, topo=topo)
+        keys = rng.split(rng.PRNGKey(0, device=self.dev), 8)
+        _, rec = run_keys(st, cfg, tp, keys, telemetry=True, device=self.dev)
+        self.sync()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "health.jsonl")
+            with telemetry.HealthJournal(path) as j:
+                j.header(cfg, scenario="headline")
+                n_rows = j.append_records(rec, lo=0, hi=8)
+                encoder = j.encoder
+            got = telemetry.read_journal(path)
+        mat, cols = telemetry.records_to_rows(rec)
+        want = [json.loads(x) for x in
+                telemetry.encode_rows_py(mat, cols).splitlines()]
+        if encoder != "native" or [c["encoder"] for c in got["chunks"]] \
+                != ["native"] or got["rows"] != want:
+            raise AssertionError(f"phase 10c: encoder {encoder}, rows equal "
+                                 f"{got['rows'] == want}")
+        big = np.tile(mat, (ENCODE_ROWS // mat.shape[0], 1))
+
+        def best(prefer_native):
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                payload, how = telemetry.encode_rows(big, cols, prefer_native)
+                secs.append(time.perf_counter() - t0)
+            return payload, how, min(secs)
+        fast, how, native_s = best(True)
+        slow, _, python_s = best(False)
+        if how != "native" or [json.loads(x) for x in fast.splitlines()] != \
+                [json.loads(x) for x in slow.splitlines()]:
+            raise AssertionError("phase 10c: the tiled rows do not parse "
+                                 "equal")
+        print(f"phase 10c [native encoder]: headline {cfg.n_peers} peers, "
+              f"{n_rows} rows of {len(cols)} columns through HealthJournal, "
+              f"encoder 'native', read back equal to the Python encoder's "
+              f"rows; {big.shape[0]} rows: native "
+              f"{native_s / big.shape[0] * 1e6:.3f} us a row, Python "
+              f"{python_s / big.shape[0] * 1e6:.3f} us a row "
+              f"({python_s / native_s:.1f}x; host clock, best of 3)",
+              flush=True)
+
+    def phase_calibrate(self, topologies):
+        """10d: ``calibrate_dispatch.calibrate`` at CALIBRATE_SHAPES on the
+        underlays already built, CALIBRATE_REPEATS repeats, every kernel
+        formulation raising its kernel's launch count (the calibrator
+        fails otherwise) and no formulation failing; the table written to
+        a temporary path and loaded through GRAFT_DISPATCH_TABLE, where
+        ``dispatch.explain`` returns the measured ms; each op's winner at
+        each shape printed beside the shipped table's choice."""
+        import tempfile
+        from go_libp2p_pubsub_tpu_torch import calibrate_dispatch
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib, dispatch
+        shipped = {}
+        with tempfile.TemporaryDirectory() as d:
+            out = os.path.join(d, "dispatch_table.json")
+            lines = []
+            cudalib.reset_launches()
+            t0 = time.perf_counter()
+            table = calibrate_dispatch.calibrate(
+                CALIBRATE_SHAPES, out, repeats=CALIBRATE_REPEATS,
+                device=self.dev, topologies=topologies, emit=lines.append)
+            secs = time.perf_counter() - t0
+            launches = dict(cudalib.LAUNCHES)
+            recs = [json.loads(x) for x in lines]
+            recs = [r for r in recs if "op" in r]
+            failed = [(r["op"], r["form"], r["error"]) for r in recs
+                      if "error" in r]
+            if failed:
+                raise AssertionError(f"phase 10d: formulations failed on "
+                                     f"the card: {failed}")
+            entry = table["platforms"][self.dev.type]
+            buckets = {}
+            for r in recs:
+                buckets.setdefault((r["op"], json.dumps(
+                    r["shape"], sort_keys=True)), {})[r["form"]] = r["ms"]
+            for (op, shape), ms in buckets.items():
+                shipped[(op, shape)] = dispatch.choose(op, **json.loads(
+                    shape))[0]
+            old = os.environ.get("GRAFT_DISPATCH_TABLE")
+            os.environ["GRAFT_DISPATCH_TABLE"] = out
+            dispatch.clear_table_cache()
+            try:
+                for (op, shape), ms in buckets.items():
+                    costs = dispatch.explain(op, backend=self.dev.type,
+                                             **json.loads(shape))
+                    quarantined = set(entry["quarantined"].get(op, ()))
+                    if set(costs) != set(ms) - quarantined or any(
+                            costs[f] != ms[f] for f in costs):
+                        raise AssertionError(
+                            f"phase 10d: explain({op}, {shape}) gives "
+                            f"{costs}, measured {ms}, quarantined "
+                            f"{sorted(quarantined)}")
+            finally:
+                if old is None:
+                    os.environ.pop("GRAFT_DISPATCH_TABLE")
+                else:
+                    os.environ["GRAFT_DISPATCH_TABLE"] = old
+                dispatch.clear_table_cache()
+        print(f"phase 10d [dispatch calibration]: {len(recs)} measurements "
+              f"at {[list(s) for s in CALIBRATE_SHAPES]}, "
+              f"{CALIBRATE_REPEATS} repeats each (device ms by CUDA events "
+              f"behind a spin kernel, the median), in {secs:.1f} s; "
+              f"fingerprint {json.dumps(entry['fingerprint'])}; launches "
+              f"{json.dumps(launches)}; explain under "
+              f"GRAFT_DISPATCH_TABLE returns the measured ms; quarantined "
+              f"(>= 3x the best at every shape) "
+              f"{json.dumps(entry['quarantined'], sort_keys=True)}",
+              flush=True)
+        for (op, shape), ms in sorted(buckets.items()):
+            win = min(ms, key=ms.get)
+            print(f"phase 10d winner {op} {shape}: {win} {ms[win]} ms; the "
+                  f"shipped table's choice {shipped[(op, shape)]} "
+                  f"{ms.get(shipped[(op, shape)])} ms; all "
+                  f"{json.dumps(ms)}", flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -3838,6 +4264,17 @@ def main() -> int:
     cpu8_proc = ctx.Process(target=_phase8_cpu, args=(child,), daemon=True)
     cpu8_proc.start()
     child.close()
+    # phase 4's CPU trajectories, beside the builds
+    cpu4_parent, child = ctx.Pipe(duplex=False)
+    cpu4_proc = ctx.Process(target=_phase4_cpu, args=(child,), daemon=True)
+    cpu4_proc.start()
+    child.close()
+    cpu4 = {}
+    # phase 10a's CPU sweep, beside the builds
+    cpu10_parent, child = ctx.Pipe(duplex=False)
+    cpu10_proc = ctx.Process(target=_phase10_cpu, args=(child,), daemon=True)
+    cpu10_proc.start()
+    child.close()
     # phase 7's CPU runs of the port, beside the builds
     cpu7_parent, child = ctx.Pipe(duplex=False)
     cpu7_proc = ctx.Process(target=_phase7_cpu, args=(child,), daemon=True)
@@ -3854,6 +4291,17 @@ def main() -> int:
     def phase8_cpu():
         out = cpu8_parent.recv()
         cpu8_proc.join()
+        return out
+
+    def phase4_cpu():
+        if not cpu4:
+            cpu4.update(cpu4_parent.recv())
+            cpu4_proc.join()
+        return cpu4
+
+    def phase10_cpu():
+        out = cpu10_parent.recv()
+        cpu10_proc.join()
         return out
 
     powerlaw_topos = {}
@@ -3907,11 +4355,14 @@ def main() -> int:
         # the 1024-peer fleet phases run while the underlays build
         timed("6b (fleet_256x1k)", smoke.phase_fleet)
         timed("6c (supervised fleet)", smoke.phase_supervised_fleet)
+        timed("10a (score sweep, killed and resumed)", smoke.phase_sweep)
+        # phases that need no big underlay, while the underlays build
+        timed("3c (wide window)", smoke.phase_wide)
+        timed("9c (multi-process resilience)", smoke.phase_mh_resilience)
         timed("3 (main path)", lambda: smoke.phase_main(
             topology_of(smoke.n)))
         timed("3b (churn path)", lambda: smoke.phase_churn(
             topology_of(N_CHURN)))
-        timed("3c (wide window)", smoke.phase_wide)
         timed("3d (data plane)", lambda: smoke.phase_dataplane(
             topology_of(smoke.n), topology_of(N_CHURN),
             topology_of(N_OUTAGE)))
@@ -3933,6 +4384,7 @@ def main() -> int:
         timed("7c (supervised eclipse with commands)",
               lambda: smoke.phase_supervised_eclipse(topology_of(N_CHURN)))
         timed("7d (trace loop)", lambda: smoke.phase_trace(phase7_cpu()))
+        timed("10b (trace files)", smoke.phase_trace_files)
         timed("8a (bucketed trajectories)",
               lambda: smoke.phase_bucketed_trajectory(phase8_cpu()))
         timed("8b (powerlaw_1m)", lambda: smoke.phase_powerlaw_1m(
@@ -3941,33 +4393,39 @@ def main() -> int:
             powerlaw_of(N_POWERLAW_100K)))
         timed("9a/9b (two ranks on one card)", lambda: smoke.phase_multirank(
             topology_of(smoke.n), topology_of(N_CHURN)))
-        timed("9c (multi-process resilience)", smoke.phase_mh_resilience)
         timed("9d (row-sharded heavytail_eclipse)",
               lambda: smoke.phase_bucketed_ranks(
                   powerlaw_of(N_POWERLAW_100K)))
-        timed("4 (trajectory)", smoke.phase_trajectory)
+        timed("10a (score sweep against the CPU)",
+              lambda: smoke.check_sweep(phase10_cpu()))
+        timed("10c (native encoder)", lambda: smoke.phase_native_encoder(
+            topology_of(smoke.n)))
+        timed("10d (dispatch calibration)", lambda: smoke.phase_calibrate({
+            (smoke.n, K): topology_of(smoke.n),
+            (N_OUTAGE, K): topology_of(N_OUTAGE)}))
+        timed("4 (trajectory)", smoke.phase_trajectory, phase4_cpu())
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):
             timed(f"4b (churn trajectory, {gather})", smoke.phase_trajectory,
-                  "churn", gather)
+                  phase4_cpu(), "churn", gather)
         for case in DATAPLANE_CASES:
             timed(f"4c (data-plane trajectory, {case})",
-                  smoke.phase_trajectory, case)
+                  smoke.phase_trajectory, phase4_cpu(), case)
         for case in BASELINE_CASES:
             timed(f"4d (BASELINE trajectory, {case})",
-                  smoke.phase_trajectory, case)
+                  smoke.phase_trajectory, phase4_cpu(), case)
         timed("4d (fold_in schedule, run_window chunks)", smoke.phase_fold_in)
         timed("4d (run_checked)", smoke.phase_checked)
         for case in FORMULATION_CASES:
             timed(f"4e (formulation trajectory, {case})",
-                  smoke.phase_trajectory, case)
+                  smoke.phase_trajectory, phase4_cpu(), case)
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     finally:
         for proc in [p for _, p in topo_jobs.values()] + [
-                p for _, p in powerlaw_jobs.values()] + [cpu7_proc,
-                                                         cpu8_proc]:
+                p for _, p in powerlaw_jobs.values()] + [
+                    cpu4_proc, cpu7_proc, cpu8_proc, cpu10_proc]:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()

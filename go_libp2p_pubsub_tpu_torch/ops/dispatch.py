@@ -105,11 +105,16 @@ def load_table(path: str | None = None) -> dict:
     return table
 
 
-def platform_fingerprint() -> dict:
-    """What a calibrated table is stamped with: the device the port runs on
-    (the first CUDA device, else the CPU) and the torch version."""
+def platform_fingerprint(device=None) -> dict:
+    """What a calibrated table is stamped with: the device measured
+    (``device``, else the first CUDA device, else the CPU), its name and
+    the torch version."""
     import torch
-    if torch.cuda.is_available():
+    if device is not None:
+        dev = torch.device(device)
+        platform = dev.type
+        kind = torch.cuda.get_device_name(dev) if platform == "cuda" else ""
+    elif torch.cuda.is_available():
         platform, kind = "cuda", torch.cuda.get_device_name(0)
     else:
         platform, kind = "cpu", ""

@@ -150,6 +150,7 @@ class EngineExecutable:
     def _capture(self, state: SimState, tp: TopicParams,
                  keys: torch.Tensor) -> None:
         dev = self.device
+        _reap()
         self._state = SimState(*(x.clone() for x in state))
         self._tp = TopicParams(*(x.to(dev).clone() for x in tp))
         self._keys = keys.to(dev).clone()
@@ -420,16 +421,34 @@ def live(stamp) -> bool:
     return stamp is None or stamp[0].calls == stamp[1]
 
 
-def retire(exe) -> None:
+# executables retired while a thread the watchdog abandoned still holds
+# them. Freeing an executable frees its CUDA graph, and a graph freed while
+# another capture runs invalidates that capture; were the abandoned thread
+# to drop the last reference when it ends, that could fall inside the
+# retry's capture. Each waits here until its holder has ended, and is
+# dropped by :func:`_reap`, which runs where no capture does.
+_RETIRED: list = []
+
+
+def retire(exe, holder=None) -> None:
     """Drop ``exe`` from the caches and mark every result it handed out
     stale, so the next request of its shape builds a new executable with
     buffers of its own (a fleet executable's member graph is its own, and
-    goes with it)."""
+    goes with it). ``holder``: a thread that may still hold ``exe``; the
+    executable is kept until that thread has ended (:data:`_RETIRED`)."""
     exe.calls += 1
     for cache in (_ENGINE_PLANS, _FLEET_PLANS):
         for key in [k for k, v in cache.items() if v is exe]:
             del cache[key]
             _FLEET_SEEN.discard(key)
+    if holder is not None:
+        _RETIRED.append((exe, holder))
+
+
+def _reap() -> None:
+    """Drop the retired executables whose holder thread has ended (before
+    a capture and in :func:`clear_caches`, where no capture runs)."""
+    _RETIRED[:] = [(exe, t) for exe, t in _RETIRED if t.is_alive()]
 
 
 def cache_sizes() -> dict:
@@ -443,6 +462,7 @@ def clear_caches() -> None:
     _ENGINE_PLANS.clear()
     _FLEET_PLANS.clear()
     _FLEET_SEEN.clear()
+    _reap()
 
 
 # ---------------------------------------------------------------------------

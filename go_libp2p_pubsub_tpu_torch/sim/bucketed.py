@@ -33,9 +33,12 @@ graph; ``"bucket"`` folds the bucket index into the key and draws at
 bucket width (ΣD-cost draws, another trajectory).
 
 The state's edge planes may be stored compact (:func:`encode_bucketed`:
-the dense codecs per plane, packed at K_b width). The sharded half (the
-row-sharded buckets and the halo exchange) is not ported (ROADMAP.md,
-Queue 1 item 7).
+the dense codecs per plane, packed at K_b width). The sharded half lives
+in parallel/: ``sharding.shard_bucketed_state`` (a rank's rows of every
+bucket), ``halo.route_bucketed_flat`` (the flat exchange across ranks),
+``compile_plan.bucketed_chunk_plan`` and ``multihost.init_bucketed_local``;
+this module's passes run on a rank's rows under a peer group
+(parallel/kernel_context.py).
 """
 
 from __future__ import annotations

@@ -237,7 +237,7 @@ def _dispatch_window(w, exec_cfg, sup, hook, telemetry: bool = False):
     except BaseException as e:
         cancelled.set()
         if isinstance(e, ChunkDeadline):
-            compile_plan.retire(exe)
+            compile_plan.retire(exe, holder=getattr(e, "thread", None))
         raise
     return {"w": w, "out": out, "health": health, "merged": merged,
             "fence": fence, "cfg": exec_cfg, "telemetry": telemetry,

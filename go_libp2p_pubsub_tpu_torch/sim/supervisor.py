@@ -488,9 +488,11 @@ def _with_deadline(fn, deadline_s, what: str, info: dict, device=None):
     t.start()
     t.join(deadline_s)
     if t.is_alive():
-        raise ChunkDeadline(
+        err = ChunkDeadline(
             f"{what} at tick {start} ({ticks} ticks) overran the "
             f"{deadline_s}s deadline")
+        err.thread = t              # the abandoned call, still running
+        raise err
     ok, val = box[0]
     if not ok:
         raise val
@@ -724,7 +726,7 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
     except BaseException as e:
         cancelled.set()
         if exe is not None and isinstance(e, ChunkDeadline):
-            compile_plan.retire(exe)
+            compile_plan.retire(exe, holder=getattr(e, "thread", None))
         raise
     out, out_stamp, fence = res
     return _Pending(out=out, fence=fence, events=events, health=health,

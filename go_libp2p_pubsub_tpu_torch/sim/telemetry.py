@@ -21,10 +21,11 @@ apart at 1024 terms; the tests hold it to rtol 1e-5).
 
 On the host, :func:`records_to_rows` lays a chunk's records out as one
 float64 row matrix (one transfer), :func:`encode_rows` writes NDJSON (the
-port carries no native codec: the encoder is always ``"python"``) and
-:class:`HealthJournal` appends fsync'd run / chunk / note markers and
-health rows; :func:`read_journal` reads it back, tolerating a torn tail
-and deduplicating re-streamed ticks.
+native codec of trace/native.py formats a chunk in one C call; the Python
+encoder where its library cannot be built) and :class:`HealthJournal`
+appends fsync'd run / chunk / note markers and health rows;
+:func:`read_journal` reads it back, tolerating a torn tail and
+deduplicating re-streamed ticks.
 """
 
 from __future__ import annotations
@@ -259,9 +260,19 @@ def encode_rows_py(matrix: np.ndarray, columns: list) -> bytes:
     return ("\n".join(lines) + "\n").encode() if lines else b""
 
 
-def encode_rows(matrix: np.ndarray, columns: list) -> tuple[bytes, str]:
-    """A chunk's rows as ``(payload, encoder_name)``. The port carries no
-    native codec, so the encoder is always the Python one."""
+def encode_rows(matrix: np.ndarray, columns: list,
+                prefer_native: bool = True) -> tuple[bytes, str]:
+    """A chunk's rows as ``(payload, encoder_name)`` (telemetry.py:329-345):
+    ``"native"``, the whole matrix formatted in one call of the native
+    codec (trace/native.py), when ``prefer_native`` and its library
+    builds, else ``"python"``. The two parse to the same values (the float
+    text differs, %.17g against repr, and round-trips to the same
+    doubles)."""
+    if prefer_native:
+        from ..trace.native import encode_health_json
+        payload = encode_health_json(matrix, columns)
+        if payload is not None:
+            return payload, "native"
     return encode_rows_py(matrix, columns), "python"
 
 
@@ -279,10 +290,13 @@ class HealthJournal:
     kill leaves at most one torn tail line, which :func:`read_journal`
     skips; a resumed run keeps appending and readers deduplicate rows by
     ``(member, tick)``. ``sync_every_write=False`` batches the fsync into
-    :meth:`sync`."""
+    :meth:`sync`. ``prefer_native`` picks :func:`encode_rows`' encoder;
+    each ``chunk`` note names the one that ran (:attr:`encoder`)."""
 
-    def __init__(self, path: str, sync_every_write: bool = True):
+    def __init__(self, path: str, prefer_native: bool = True,
+                 sync_every_write: bool = True):
         self.path = path
+        self.prefer_native = prefer_native
         self.sync_every_write = sync_every_write
         self.encoder = "python"
         self._dirty = False
@@ -332,7 +346,7 @@ class HealthJournal:
         """Stream one chunk: a ``chunk`` marker, then its health rows.
         Returns the row count."""
         mat, cols = records_to_rows(records, member_ids=member_ids)
-        payload, self.encoder = encode_rows(mat, cols)
+        payload, self.encoder = encode_rows(mat, cols, self.prefer_native)
         self.note("chunk", rows=int(mat.shape[0]), encoder=self.encoder,
                   **chunk_meta)
         self._write(payload)

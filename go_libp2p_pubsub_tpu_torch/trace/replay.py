@@ -6,6 +6,8 @@ runtime, a decoded PBTracer file, or ``sim/trace_export.py``'s export of a
 batched run) is *tensorized* on the host into a flat op stream
 (:class:`ReplayFeed`, host numpy, a copy of the reference's host half),
 then *injected* into a ``SimState`` in trace order by :func:`replay`.
+:func:`tensorize_trace_file` takes a PBTracer file straight to a feed,
+through the native tensorizer (trace/native.py) where it builds.
 
 The reference applies the stream with ``lax.scan`` + ``lax.switch``. The
 op stream is host data here, so :func:`replay` dispatches each op's branch
@@ -274,6 +276,17 @@ def tensorize_trace(events: list[dict], peer_index: dict, topic_index: dict,
     arr = np.asarray(ops, dtype=np.int32)
     return ReplayFeed(op=arr[:, 0], a=arr[:, 1], b=arr[:, 2], c=arr[:, 3],
                       mid_slot=mid_slot)
+
+
+def tensorize_trace_file(path: str, peer_index: dict, topic_index: dict,
+                         **kw) -> ReplayFeed:
+    """The :class:`ReplayFeed` of a PBTracer file (uvarint-delimited
+    TraceEvents): the native tensorizer (trace/native.py), or, where its
+    library cannot be built, the file decoded and tensorized by
+    :func:`tensorize_trace`. Both give the same arrays; ``kw`` are
+    :func:`tensorize_trace`'s."""
+    from .native import tensorize_file
+    return tensorize_file(path, peer_index, topic_index, **kw)
 
 
 # --- injection into the state ---

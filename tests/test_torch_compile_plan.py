@@ -439,3 +439,33 @@ def test_opportunistic_graft_gate_takes_both_sides(gated):
         b = step(b, rare, tp, keys[i], device="cpu")
         same = torch.equal(a.mesh, b.mesh)
         assert same == (i < 3), f"tick {i}"
+
+
+def test_retired_executable_outlives_the_thread_that_holds_it():
+    """A CUDA graph freed while another capture runs invalidates that
+    capture. An executable retired while a thread the watchdog abandoned
+    still holds it stays alive until that thread has ended and a reap runs
+    (before a capture, or in ``clear_caches``), so the thread's end never
+    frees it."""
+    import threading
+    import weakref
+
+    class Exe:
+        calls = 0
+
+    exe = Exe()
+    ref = weakref.ref(exe)
+    go = threading.Event()
+    holder = threading.Thread(target=lambda e=exe: go.wait(), daemon=True)
+    holder.start()
+    compile_plan.retire(exe, holder=holder)
+    assert exe.calls == 1
+    del exe
+    compile_plan.clear_caches()         # the holder still runs: kept
+    assert ref() is not None
+    go.set()
+    holder.join(10)
+    assert not holder.is_alive()
+    assert ref() is not None            # ended, not reaped yet
+    compile_plan.clear_caches()
+    assert ref() is None

@@ -218,13 +218,18 @@ def test_encoders_parse_equal(reference):
     mat, cols = jtel.records_to_rows(jrec)
     mat[1, 2] = np.nan                          # degraded float columns
     mat[2, cols.index(("score_mean", False))] = np.inf
-    payload, encoder = telemetry.encode_rows(mat, cols)
+    payload, encoder = telemetry.encode_rows(mat, cols, prefer_native=False)
     assert encoder == "python"
     assert payload == jtel.encode_rows_py(mat, cols)
+    # the port's native encoder (a g++ build of csrc/trace_codec.cpp)
+    mine_native, how = telemetry.encode_rows(mat, cols)
+    assert how == "native"
+    mine = [json.loads(ln) for ln in payload.splitlines()]
+    assert [json.loads(ln) for ln in mine_native.splitlines()] == mine
     native, how = jtel.encode_rows(mat, cols, prefer_native=True)
     if how != "native":
         pytest.skip("the reference's native trace codec did not build here")
-    mine = [json.loads(ln) for ln in payload.splitlines()]
+    assert mine_native == native
     theirs = [json.loads(ln) for ln in native.splitlines()]
     assert mine == theirs
 
