@@ -261,7 +261,28 @@ Phases, each printing its own lines and its seconds:
     count, the table loaded through GRAFT_DISPATCH_TABLE and read back by
     ``dispatch.explain``, each op's winner beside the shipped table's
     choice;
-11. the ``kernels`` JSON line, then the device JSON line last.
+11. the functional runtime (api/, net/, routers/) and its bridges to
+    the engine, after 10d. 11a: a 128-host scoring swarm of the port's
+    routers (dense_connect degree 8, 32 publishes, 12 virtual seconds)
+    traced through a ``PBTracer`` file, the file tensorized by the native
+    codec and replayed on the card into a fresh state over
+    ``from_hosts(hosts, 32)``: every node's mesh exact, the P2/P3/P3b/P4
+    counters within 1e-3 of the routers', and the card's state equal to
+    the CPU replay of the same feed (float32 rtol 1e-6, the rest exact);
+    events, file bytes, tensorize MB/s, replay ops/s and the swarm's
+    seconds printed. 11b: tests/test_statistical_parity.py's run (512
+    hosts, degree 12, K = 40, 24 publishes): the functional half in a
+    child process started with the underlay builds returns its underlay,
+    degrees, delivery and latencies and a CPU run of the batched half;
+    the batched half runs 30 ticks on the card on kernels 1-4 (K = 40:
+    the fused kernels' K > 32 branch), its launches counted, equal to the
+    CPU run after every tick, and the shared parity bands hold. 11c: one
+    plan (a partition into 2 on [2, 6), an outage on [8, 11)) installed
+    by ``HostFaultInjector`` on a 128-host swarm and run on the card over
+    its ``from_hosts`` underlay: inside each window and after the heal,
+    the connections the injector has cut, through ``peer_index``, are the
+    card's down slots; ``fault_flags`` is exactly the plan's bits;
+12. the ``kernels`` JSON line, then the device JSON line last.
 
 Every path prints the formulation each of its seams runs
 (``ops.dispatch.resolved_formulations``). The five underlays (102400,
@@ -389,6 +410,12 @@ PATH_KERNELS = {
     "heavytail_eclipse": (set(), set(REPLACES)),
     "heavytail dense": ({"edge_table", "hop", "iwant_resolve", "emit"},
                         {"gather_words", "take_words"}),
+    # phase 11: the batched halves of the cross-half run (K = 40, the
+    # fused kernels' K > 32 branch) and of the fault injector's plan
+    "cross-half": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                   {"gather_words", "take_words"}),
+    "injector": ({"edge_table", "hop", "iwant_resolve", "emit"},
+                 {"gather_words", "take_words"}),
 }
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
@@ -828,6 +855,221 @@ def _same_rows(label, got, want):
                                      f"{y} against {x}")
 
 
+# ---- phase 11: the functional runtime and its bridges to the engine -------
+# 11a: tests/test_trace_replay.py's network, widened; K holds the swarm's
+# largest degree (22 at this seed) so from_hosts truncates no edge
+N_LIVE, LIVE_DEGREE, K_LIVE, LIVE_PUBS = 128, 8, 32, 32
+LIVE_TOPIC, LIVE_T_END, LIVE_DUP_WINDOW, LIVE_WINDOW = "t", 12.0, 0.05, 64
+# 11b: tests/test_statistical_parity.py's shape
+N_PARITY, PARITY_DEGREE, K_PARITY = 512, 12, 40
+PARITY_CONVERGE_T, PARITY_PUBS, PARITY_DRAIN_T = 15.0, 24, 3.0
+PARITY_TICKS = 30
+# 11c: a partition into 2 on ticks [2, 6) and an outage on [8, 11), read
+# inside each window and after the heal
+N_INJECT, INJECT_DEGREE, K_INJECT = 128, 8, 32
+INJECT_PLAN = "partition=2@2:6,outage=0.2@8:11,seed=7"
+INJECT_TICKS, INJECT_CHECKS = 13, (3, 9, 12)
+
+
+def _live_tsp():
+    """tests/test_trace_replay.py's topic score parameters."""
+    from go_libp2p_pubsub_tpu_torch.core.params import TopicScoreParams
+    return TopicScoreParams(
+        topic_weight=1.0, time_in_mesh_weight=0.05, time_in_mesh_quantum=1.0,
+        time_in_mesh_cap=100.0, first_message_deliveries_weight=1.0,
+        first_message_deliveries_decay=0.9,
+        first_message_deliveries_cap=50.0,
+        mesh_message_deliveries_weight=-0.5,
+        mesh_message_deliveries_decay=0.8, mesh_message_deliveries_cap=30.0,
+        mesh_message_deliveries_threshold=3.0,
+        mesh_message_deliveries_window=LIVE_DUP_WINDOW,
+        mesh_message_deliveries_activation=4.0,
+        mesh_failure_penalty_weight=-1.0, mesh_failure_penalty_decay=0.7,
+        invalid_message_deliveries_weight=-5.0,
+        invalid_message_deliveries_decay=0.9)
+
+
+def _parity_tsp():
+    """tests/test_statistical_parity.py's topic score parameters."""
+    from go_libp2p_pubsub_tpu_torch.core.params import TopicScoreParams
+    return TopicScoreParams(
+        topic_weight=1.0, time_in_mesh_weight=0.05, time_in_mesh_quantum=1.0,
+        time_in_mesh_cap=100.0, first_message_deliveries_weight=1.0,
+        first_message_deliveries_decay=0.9,
+        first_message_deliveries_cap=50.0,
+        mesh_message_deliveries_weight=0.0,
+        mesh_message_deliveries_decay=0.9, mesh_message_deliveries_cap=30.0,
+        mesh_message_deliveries_threshold=3.0,
+        mesh_message_deliveries_window=0.05,
+        mesh_message_deliveries_activation=4.0,
+        mesh_failure_penalty_weight=0.0, mesh_failure_penalty_decay=0.9,
+        invalid_message_deliveries_weight=-5.0,
+        invalid_message_deliveries_decay=0.9)
+
+
+class _CountingTracer:
+    """An event tracer that counts the events it passes on."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.n = 0
+
+    def trace(self, evt):
+        self.n += 1
+        self.inner.trace(evt)
+
+
+def _live_swarm(tracer):
+    """11a's swarm on the port's runtime, every node tracing to
+    ``tracer``, run to LIVE_T_END: scoring, 32 publishes from 2.5 s on.
+    (nodes, hosts)."""
+    from go_libp2p_pubsub_tpu_torch.api import LAX_NO_SIGN, PubSub
+    from go_libp2p_pubsub_tpu_torch.core.params import (PeerScoreParams,
+                                                        PeerScoreThresholds)
+    from go_libp2p_pubsub_tpu_torch.net import Network
+    from go_libp2p_pubsub_tpu_torch.routers.gossipsub import GossipSubRouter
+    tsp = _live_tsp()
+    net = Network()
+    nodes = []
+    for _ in range(N_LIVE):
+        sp = PeerScoreParams(app_specific_score=lambda p: 0.0,
+                             decay_interval=1.0, decay_to_zero=0.01,
+                             topics={LIVE_TOPIC: tsp})
+        rt = GossipSubRouter(score_params=sp, thresholds=PeerScoreThresholds(
+            gossip_threshold=-10, publish_threshold=-50,
+            graylist_threshold=-100))
+        nodes.append(PubSub(net.add_host(), rt, sign_policy=LAX_NO_SIGN,
+                            event_tracer=tracer))
+    hosts = [x.host for x in nodes]
+    net.dense_connect(hosts, degree=LIVE_DEGREE)
+    net.scheduler.run_for(0.1)
+    for x in nodes:
+        x.join(LIVE_TOPIC).subscribe()
+    net.scheduler.run_until(2.5)
+    for i in range(LIVE_PUBS):
+        nodes[(i * 37) % N_LIVE].my_topics[LIVE_TOPIC].publish(b"msg %d" % i)
+        net.scheduler.run_for(0.25)
+    net.scheduler.run_until(LIVE_T_END)
+    return nodes, hosts
+
+
+def _parity_functional():
+    """11b's functional half on the port's runtime (the shape of
+    tests/test_statistical_parity.py's ``_run_functional``): (hosts, mesh
+    degrees, delivery fraction, latencies in virtual seconds)."""
+    import numpy as np
+    from go_libp2p_pubsub_tpu_torch.api import LAX_NO_SIGN, PubSub
+    from go_libp2p_pubsub_tpu_torch.core.params import (PeerScoreParams,
+                                                        PeerScoreThresholds)
+    from go_libp2p_pubsub_tpu_torch.net import Network
+    from go_libp2p_pubsub_tpu_torch.routers.gossipsub import GossipSubRouter
+    from go_libp2p_pubsub_tpu_torch.trace import MemoryTracer
+    tsp = _parity_tsp()
+    net = Network()
+    mem = MemoryTracer()
+    nodes = []
+    for _ in range(N_PARITY):
+        sp = PeerScoreParams(app_specific_score=lambda p: 0.0,
+                             decay_interval=1.0, decay_to_zero=0.01,
+                             topics={LIVE_TOPIC: tsp})
+        nodes.append(PubSub(net.add_host(), GossipSubRouter(
+            score_params=sp, thresholds=PeerScoreThresholds()),
+            sign_policy=LAX_NO_SIGN, event_tracer=mem))
+    hosts = [x.host for x in nodes]
+    net.dense_connect(hosts, degree=PARITY_DEGREE)
+    net.scheduler.run_for(0.1)
+    for x in nodes:
+        x.join(LIVE_TOPIC).subscribe()
+    net.scheduler.run_until(PARITY_CONVERGE_T)
+    gen = np.random.default_rng(1)
+    t_pub = PARITY_CONVERGE_T
+    for i in range(PARITY_PUBS):
+        nodes[int(gen.integers(N_PARITY))].my_topics[LIVE_TOPIC].publish(
+            b"m%d" % i)
+        t_pub += 0.5
+        net.scheduler.run_until(t_pub)
+    net.scheduler.run_until(t_pub + PARITY_DRAIN_T)
+    degrees = np.array([len(x.rt.mesh.get(LIVE_TOPIC, ())) for x in nodes])
+    pub_t, delivered, latencies = {}, {}, []
+    for e in mem.events:
+        if e["type"] == "PUBLISH_MESSAGE":
+            pub_t.setdefault(e["publishMessage"]["messageID"], e["timestamp"])
+        elif e["type"] == "DELIVER_MESSAGE":
+            mid = e["deliverMessage"]["messageID"]
+            delivered.setdefault(mid, set()).add(e["peerID"])
+            if e["deliverMessage"].get("receivedFrom") != e["peerID"] \
+                    and mid in pub_t:
+                latencies.append(e["timestamp"] - pub_t[mid])
+    frac = float(np.mean([len(delivered.get(m, ())) / N_PARITY
+                          for m in pub_t]))
+    return hosts, degrees, frac, np.array(latencies)
+
+
+def parity_case(topo, dev):
+    """11b's batched half on ``dev``: (cfg, tp, state) over the functional
+    swarm's own underlay, on the fused kernels."""
+    import numpy as np
+    from go_libp2p_pubsub_tpu_torch.sim import SimConfig, init_state
+    from go_libp2p_pubsub_tpu_torch.sim.config import TopicParams
+    cfg = SimConfig(n_peers=N_PARITY, k_slots=K_PARITY, n_topics=1,
+                    msg_window=64, publishers_per_tick=2, prop_substeps=8,
+                    scoring_enabled=True, hop_mode="pallas",
+                    edge_gather_mode="pallas")
+    tp = TopicParams.from_topic_params([_parity_tsp()], device=dev)
+    st = init_state(cfg, topo, subscribed=np.ones((N_PARITY, 1), bool),
+                    device=dev)
+    return cfg, tp, st
+
+
+def _phase11_cpu(conn):
+    """Child process: 11b's functional half (the port's runtime, 512
+    hosts), the underlay ``from_hosts`` reads off it, and the batched
+    half's CPU run on that underlay (a fingerprint after every tick).
+    Only plain data crosses back: a node's RNG seeds from its peer id's
+    str hash, which differs between processes."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    from go_libp2p_pubsub_tpu_torch import rng
+    from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy, step, topology
+    t0 = time.perf_counter()
+    hosts, degrees, frac, lat = _parity_functional()
+    topo, _ = topology.from_hosts(hosts, K_PARITY)
+    secs = time.perf_counter() - t0
+    cfg, tp, st = parity_case(topo, "cpu")
+    keys = rng.split(rng.PRNGKey(0, device="cpu"), PARITY_TICKS)
+    ticks = []
+    for i in range(PARITY_TICKS):
+        st = step(st, cfg, tp, keys[i], device="cpu")
+        ticks.append(_fingerprint(state_to_numpy(st)))
+    conn.send({"topo": tuple(topo), "degrees": degrees, "frac": frac,
+               "latencies": lat, "secs": secs, "ticks": ticks})
+    conn.close()
+
+
+def parity_bands(deg_f, deg_b, frac_f, lat_f):
+    """tests/test_statistical_parity.py's ``_assert_parity_bands``."""
+    import numpy as np
+    if not (deg_f.min() >= 5 and deg_f.max() <= 12):
+        raise AssertionError(f"phase 11b: functional degrees "
+                             f"[{deg_f.min()}, {deg_f.max()}]")
+    if abs(deg_f.mean() - deg_b.mean()) > 1.0:
+        raise AssertionError(f"phase 11b: mean degrees {deg_f.mean():.2f} "
+                             f"vs {deg_b.mean():.2f}")
+    grid = np.arange(0, 14)
+    cdf_f = np.searchsorted(np.sort(deg_f), grid, side="right") / N_PARITY
+    cdf_b = np.searchsorted(np.sort(deg_b), grid, side="right") / N_PARITY
+    ks = float(np.abs(cdf_f - cdf_b).max())
+    if ks > 0.15:
+        raise AssertionError(f"phase 11b: degree CDFs KS {ks:.3f}")
+    if frac_f < 0.995:
+        raise AssertionError(f"phase 11b: functional delivery {frac_f:.4f}")
+    if float(lat_f.mean()) > 0.25:
+        raise AssertionError(f"phase 11b: functional latency "
+                             f"{lat_f.mean():.3f}")
+    return ks
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -843,6 +1085,14 @@ class Smoke:
     # ---- helpers ---------------------------------------------------------
     def sync(self):
         self.torch.cuda.synchronize()
+
+    def smi_line(self):
+        """The card's name and power limit as nvidia-smi gives them."""
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return smi.splitlines()[0] if smi else "nvidia-smi: no output"
 
     def spin_cycles_per_ms(self):
         """The rate of the card's spin kernel (torch.cuda._sleep), by
@@ -4195,6 +4445,241 @@ class Smoke:
                   f"{ms.get(shipped[(op, shape)])} ms; all "
                   f"{json.dumps(ms)}", flush=True)
 
+    # ---- phase 11: the functional runtime and its bridges -----------------
+    def phase_live_trace(self):
+        """11a: the port's live routers (128 hosts, scoring) traced through
+        a ``PBTracer`` file, the file tensorized by the native codec and
+        replayed on the card into a fresh state over ``from_hosts``: every
+        node's mesh exact, the P2/P3/P3b/P4 counters within 1e-3 of the
+        routers', and the card's state equal to the CPU replay of the same
+        feed."""
+        import importlib
+        import tempfile
+
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, init_state,
+                                                    state_to_numpy, topology)
+        from go_libp2p_pubsub_tpu_torch.trace import PBTracer, native
+        rp = importlib.import_module("go_libp2p_pubsub_tpu_torch.trace.replay")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "live.pb")
+            pb = _CountingTracer(PBTracer(path))
+            t0 = time.perf_counter()
+            nodes, hosts = _live_swarm(pb)
+            pb.inner.close()
+            swarm_s = time.perf_counter() - t0
+            n_bytes = os.path.getsize(path)
+            topo, peer_index = topology.from_hosts(hosts, K_LIVE)
+            if int(topo.degree.max()) >= K_LIVE:
+                raise AssertionError("phase 11a: from_hosts truncated the "
+                                     "live swarm's edges")
+            kw = dict(msg_window=LIVE_WINDOW, decay_interval=1.0,
+                      dup_window=[LIVE_DUP_WINDOW], t_end=LIVE_T_END)
+            t0 = time.perf_counter()
+            feed = native.tensorize_file(path, peer_index, {LIVE_TOPIC: 0},
+                                         **kw)
+            tens_s = time.perf_counter() - t0
+        cfg = SimConfig(n_peers=N_LIVE, k_slots=K_LIVE, n_topics=1,
+                        msg_window=LIVE_WINDOW, scoring_enabled=True)
+        outs = {}
+        for dev in (self.dev, "cpu"):
+            tp = rp.replay_topic_params([_live_tsp()], device=dev)
+            st = init_state(cfg, topo, subscribed=np.zeros((N_LIVE, 1), bool),
+                            device=dev)
+            self.sync()
+            t0 = time.perf_counter()
+            out = rp.replay_feed(st, cfg, tp, feed)
+            if str(dev) != "cpu":
+                self.sync()
+            outs[str(dev)] = (out, time.perf_counter() - t0)
+        card, replay_s = outs[str(self.dev)]
+        _same_fingerprint("phase 11a [card replay against the CPU's]",
+                          _fingerprint(state_to_numpy(card)),
+                          _fingerprint(state_to_numpy(outs["cpu"][0])))
+        got = state_to_numpy(card)
+        mesh = got["mesh"]
+        for i, x in enumerate(nodes):
+            want = {peer_index[p] for p in x.rt.mesh.get(LIVE_TOPIC, set())}
+            have = {int(topo.neighbors[i, k]) for k in range(K_LIVE)
+                    if mesh[i, 0, k]}
+            if have != want:
+                raise AssertionError(f"phase 11a: node {i} replayed mesh "
+                                     f"{sorted(have)} against the router's "
+                                     f"{sorted(want)}")
+        slot_of = [{int(j): k for k, j in enumerate(topo.neighbors[i])
+                    if j >= 0} for i in range(N_LIVE)]
+        fields = ("first_message_deliveries", "mesh_message_deliveries",
+                  "mesh_failure_penalty", "invalid_message_deliveries")
+        worst = dict.fromkeys(fields, 0.0)
+        checked = 0
+        for i, x in enumerate(nodes):
+            for pid, pstats in x.rt.score.peer_stats.items():
+                ts = pstats.topics.get(LIVE_TOPIC)
+                if ts is None:
+                    continue
+                k = slot_of[i][peer_index[pid]]
+                for f in fields:
+                    err = abs(float(got[f][i, 0, k]) - getattr(ts, f))
+                    worst[f] = max(worst[f], err)
+                    if err > 1e-3:
+                        raise AssertionError(
+                            f"phase 11a: {f} at observer {i} slot {k}: "
+                            f"{got[f][i, 0, k]} against the router's "
+                            f"{getattr(ts, f)}")
+                checked += 1
+        if checked <= N_LIVE or len(feed.mid_slot) != LIVE_PUBS:
+            raise AssertionError(f"phase 11a: {checked} counters checked, "
+                                 f"{len(feed.mid_slot)} messages")
+        n_ops = len(feed.op)
+        print(f"phase 11a [live routers -> trace file -> replay]: "
+              f"{N_LIVE} hosts, dense_connect degree {LIVE_DEGREE}, "
+              f"{LIVE_PUBS} publishes, T_END {LIVE_T_END} s; swarm "
+              f"{swarm_s:.3f} s wall; {pb.n} events, PBTracer file "
+              f"{n_bytes} bytes; "
+              f"native tensorize {tens_s:.4f} s = "
+              f"{n_bytes / tens_s / 1e6:.1f} MB/s; {n_ops} ops replayed on "
+              f"the card in {replay_s:.3f} s = {n_ops / replay_s:.1f} ops/s "
+              f"(CPU {outs['cpu'][1]:.3f} s); mesh exact on every node, "
+              f"{checked} (observer, peer) counters, worst |diff| "
+              f"{json.dumps(worst)}; the card equals the CPU replay; "
+              f"{self.smi_line()}", flush=True)
+
+    def phase_cross_half(self, cpu):
+        """11b: the functional half (a child process, the port's runtime
+        at 512 hosts) against the batched half on the card over the same
+        underlay: the statistical-parity bands, kernels 1-4 launched, and
+        the card's state equal to the CPU run after every tick."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.sim import (delivery_fraction,
+                                                    mesh_degrees,
+                                                    delivery_latency_ticks,
+                                                    run, state_to_numpy, step)
+        from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+        topo = Topology(*cpu["topo"])
+        cfg, tp, st0 = parity_case(topo, self.dev)
+        key = rng.PRNGKey(0, device=self.dev)
+        self.sync()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        out = run(st0, cfg, tp, key, PARITY_TICKS, device=self.dev)
+        self.sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 11b launches: {json.dumps(launches)}", flush=True)
+        self.check_launches("cross-half", launches, cfg)
+        keys = rng.split(key, PARITY_TICKS)
+        st = st0
+        for i in range(PARITY_TICKS):
+            st = step(st, cfg, tp, keys[i], device=self.dev)
+            _same_fingerprint(f"phase 11b tick {i}",
+                              _fingerprint(state_to_numpy(st)),
+                              cpu["ticks"][i])
+        _same_fingerprint("phase 11b [run against the stepped ticks]",
+                          _fingerprint(state_to_numpy(out)),
+                          cpu["ticks"][-1])
+        deg_b = mesh_degrees(out).cpu().numpy()
+        if deg_b.ndim == 2:
+            deg_b = deg_b[:, 0]
+        deg_f = np.asarray(cpu["degrees"])
+        ks = parity_bands(deg_f, deg_b, cpu["frac"], cpu["latencies"])
+        frac_b = float(delivery_fraction(out, cfg))
+        lat_b = float(delivery_latency_ticks(out, cfg))
+        print(f"phase 11b [cross-half]: {N_PARITY} hosts, degree "
+              f"{PARITY_DEGREE}, K {K_PARITY}; functional half "
+              f"{cpu['secs']:.3f} s in its child process, delivery "
+              f"{cpu['frac']:.6f}, mean latency "
+              f"{float(np.mean(cpu['latencies'])):.4f} s, mean mesh degree "
+              f"{deg_f.mean():.4f}; batched half {PARITY_TICKS} ticks on "
+              f"the card in {secs:.3f} s = {PARITY_TICKS / secs:.2f} hb/s, "
+              f"delivery {frac_b:.6f}, latency {lat_b:.4f} ticks, mean "
+              f"mesh degree {deg_b.mean():.4f}; KS {ks:.4f}; the bands "
+              f"hold; equal to the CPU run after every tick; "
+              f"{self.smi_line()}", flush=True)
+
+    def phase_injector(self):
+        """11c: one fault plan (a partition into 2 on ticks [2, 6), an
+        outage on [8, 11)) installed by the port's ``HostFaultInjector``
+        on a 128-host swarm and run by the batched engine on the card over
+        that swarm's ``from_hosts`` underlay: at a tick inside each window
+        and one after the heal, the connections the injector has cut,
+        mapped through ``peer_index``, are the slots the card run has
+        down; ``fault_flags`` is exactly the plan's bits."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.api import LAX_NO_SIGN, PubSub
+        from go_libp2p_pubsub_tpu_torch.net import Network
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.routers.gossipsub import (
+            GossipSubRouter)
+        from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, init_state,
+                                                    scenarios, step,
+                                                    topology)
+        from go_libp2p_pubsub_tpu_torch.sim.faults import (FaultPlan,
+                                                           HostFaultInjector)
+        from go_libp2p_pubsub_tpu_torch.sim.invariants import (
+            FAULT_OUTAGE, FAULT_PARTITION)
+        net = Network()
+        nodes = [PubSub(net.add_host(), GossipSubRouter(),
+                        sign_policy=LAX_NO_SIGN) for _ in range(N_INJECT)]
+        hosts = [p.host for p in nodes]
+        net.dense_connect(hosts, degree=INJECT_DEGREE)
+        for p in nodes:
+            p.join(LIVE_TOPIC).subscribe()
+        topo, peer_index = topology.from_hosts(hosts, K_INJECT)
+        plan = FaultPlan.parse(INJECT_PLAN)
+        inj = HostFaultInjector(net, hosts, plan)
+        cfg = SimConfig(n_peers=N_INJECT, k_slots=K_INJECT, n_topics=1,
+                        msg_window=64, publishers_per_tick=2,
+                        fault_plan=plan, hop_mode="pallas",
+                        edge_gather_mode="pallas")
+        st = init_state(cfg, topo, subscribed=np.ones((N_INJECT, 1), bool),
+                        device=self.dev)
+        tp = scenarios.default_topic_params(1, device=self.dev)
+        keys = rng.split(rng.PRNGKey(0, device=self.dev), INJECT_TICKS)
+        nb = topo.neighbors
+        slot = [{int(j): k for k, j in enumerate(nb[i]) if j >= 0}
+                for i in range(N_INJECT)]
+        self.sync()
+        cudalib.reset_launches()
+        counts = []
+        for t in range(INJECT_TICKS):
+            st = step(st, cfg, tp, keys[t], device=self.dev)
+            net.scheduler.run_until(t + 0.5)
+            if t not in INJECT_CHECKS:
+                continue
+            cut = np.zeros((N_INJECT, K_INJECT), bool)
+            for a, b in inj._severed:
+                i, j = peer_index[a.peer_id], peer_index[b.peer_id]
+                cut[i, slot[i][j]] = cut[j, slot[j][i]] = True
+            absent = np.array([[nb[i, k] >= 0 and hosts[nb[i, k]].peer_id
+                                not in hosts[i].conns for k in range(K_INJECT)]
+                               for i in range(N_INJECT)])
+            down = ~st.connected.cpu().numpy() & (nb >= 0)
+            if not (cut == absent).all() or not (cut == down).all():
+                raise AssertionError(
+                    f"phase 11c tick {t}: the injector cut {int(cut.sum())} "
+                    f"slots ({int(absent.sum())} absent on the hosts), the "
+                    f"card has {int(down.sum())} down, "
+                    f"{int((cut != down).sum())} differ")
+            counts.append((t, int(cut.sum())))
+        self.sync()
+        launches = dict(cudalib.LAUNCHES)
+        flags = int(st.fault_flags) & 0xFFFFFFFF
+        if flags != FAULT_PARTITION | FAULT_OUTAGE:
+            raise AssertionError(f"phase 11c: fault_flags 0x{flags:08x}, "
+                                 f"the plan's bits are 0x"
+                                 f"{FAULT_PARTITION | FAULT_OUTAGE:08x}")
+        if not counts[0][1] or not counts[1][1] or counts[2][1]:
+            raise AssertionError(f"phase 11c: cut slots by tick {counts}")
+        print(f"phase 11c launches: {json.dumps(launches)}", flush=True)
+        self.check_launches("injector", launches, cfg)
+        print(f"phase 11c [fault injector on both halves]: {N_INJECT} hosts, "
+              f"plan {INJECT_PLAN!r}; (tick, cut slots) {counts}: the host "
+              f"cuts through peer_index equal the card's down slots; "
+              f"fault_flags 0x{flags:08x}; {self.smi_line()}", flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -4281,6 +4766,16 @@ def main() -> int:
     cpu7_proc.start()
     child.close()
     cpu7 = {}
+    # phase 11b's functional half and its CPU batched run, beside the builds
+    cpu11_parent, child = ctx.Pipe(duplex=False)
+    cpu11_proc = ctx.Process(target=_phase11_cpu, args=(child,), daemon=True)
+    cpu11_proc.start()
+    child.close()
+
+    def phase11_cpu():
+        out = cpu11_parent.recv()
+        cpu11_proc.join()
+        return out
 
     def phase7_cpu():
         if not cpu7:
@@ -4333,12 +4828,7 @@ def main() -> int:
 
     try:
         t_start = time.perf_counter()
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60).stdout.strip()
-        print(smi.splitlines()[0] if smi else "nvidia-smi: no output",
-              flush=True)
+        print(smoke.smi_line(), flush=True)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}", flush=True)
         from go_libp2p_pubsub_tpu_torch.ops import cudalib
@@ -4403,6 +4893,11 @@ def main() -> int:
         timed("10d (dispatch calibration)", lambda: smoke.phase_calibrate({
             (smoke.n, K): topology_of(smoke.n),
             (N_OUTAGE, K): topology_of(N_OUTAGE)}))
+        timed("11a (live routers, trace file, replay)",
+              smoke.phase_live_trace)
+        timed("11b (cross-half parity)",
+              lambda: smoke.phase_cross_half(phase11_cpu()))
+        timed("11c (fault injector on both halves)", smoke.phase_injector)
         timed("4 (trajectory)", smoke.phase_trajectory, phase4_cpu())
         timed("4 (compact trajectory)", smoke.phase_compact_trajectory)
         for gather in ("pallas", "mxu"):
@@ -4425,7 +4920,8 @@ def main() -> int:
     finally:
         for proc in [p for _, p in topo_jobs.values()] + [
                 p for _, p in powerlaw_jobs.values()] + [
-                    cpu4_proc, cpu7_proc, cpu8_proc, cpu10_proc]:
+                    cpu4_proc, cpu7_proc, cpu8_proc, cpu10_proc,
+                    cpu11_proc]:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()

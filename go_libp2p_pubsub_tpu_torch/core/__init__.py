@@ -1,1 +1,2 @@
-"""Copies of the JAX package's jax-free core modules (clock, parameters)."""
+"""Copies of the JAX package's jax-free core modules (clock, parameters,
+wire and router types)."""

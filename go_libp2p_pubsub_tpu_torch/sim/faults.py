@@ -35,8 +35,10 @@ the same choices on plain ints. Which faults fired lands in
 
 :func:`attack_schedule` and :func:`attack_end_tick` describe a plan's
 windows on the host (the health journal's run header stamps the first).
-The host runtime's ``HostFaultInjector`` drives the reference's
-discrete-event network, which is not ported.
+:class:`HostFaultInjector` installs the same plan on the functional
+runtime's discrete-event network (net/network.py): the connection-layer
+families cut and re-knit host connections, the link-layer ones ride
+``Network.link_fault``, and its peer choices are the ``*_host`` helpers'.
 """
 
 from __future__ import annotations
@@ -785,3 +787,201 @@ def attacker_mask(state, cfg) -> torch.Tensor:
             att = att | censor_peers(pg.global_rows(n), i, plan,
                                      att.device)[mine]
     return att
+
+
+# ---------------------------------------------------------------------------
+# host half: the same plan on the discrete-event runtime
+
+
+class HostFaultInjector:
+    """Install a :class:`FaultPlan` on a functional-runtime swarm.
+
+    Mirrors the batched semantics on net/network.py primitives: partitions
+    and outages DISCONNECT the affected host pairs at window start
+    (notifiee fan-out fires RemovePeer in every PubSub, pubsub.go:711-757)
+    and re-``connect`` them at window end; link drop/duplication ride the
+    ``Network.link_fault`` hook consulted by ``Host.send``. One tick of
+    the batched engine corresponds to one second of scheduler time (the
+    1 tick == 1 s == 1 heartbeat quantization, SURVEY.md §7 "Time").
+
+    ``corrupt_prob`` has no host-side hook here: on the runtime, corrupt
+    traffic is expressed through topic validators (go-libp2p-pubsub's own
+    mechanism, api/validation.py). The same applies
+    to ``censorships`` and ``storms``: on the host half a censor is a
+    router/validator behavior and a storm is the scenario's own publish
+    schedule, so the injector carries only the CONNECTION-layer families
+    (partitions, outages, eclipses, waves) and the LINK-layer ones
+    (drop/dup/slowlink).
+
+    ORDERING CONTRACT: ``hosts`` must be in engine row order — list
+    position i IS peer row i of the batched half (partition components
+    are ``i % components``, outage/wave peers hash the row id, and
+    eclipse targets are the low-id region on both sides). Build the swarm
+    the way topology.from_hosts expects and pass the same list; any other
+    order silently picks different cut/dark sets than the batched run of
+    the same plan. ``malicious`` (row-ordered bools) is required when the
+    plan has eclipse windows — the eclipse leaves sybil edges standing.
+    """
+
+    def __init__(self, network, hosts, plan: FaultPlan, malicious=None):
+        import random as _random
+
+        plan = as_plan(plan)
+        self.network = network
+        self.hosts = list(hosts)
+        self.plan = plan
+        self.malicious = list(malicious) if malicious is not None else None
+        if plan.eclipses and self.malicious is None:
+            raise ValueError("HostFaultInjector: a plan with eclipse "
+                             "windows needs the malicious list (engine "
+                             "row order)")
+        self.rng = _random.Random(plan.seed)
+        self.index = {h.peer_id: i for i, h in enumerate(self.hosts)}
+        self._partitions_live: list[PartitionWindow] = []
+        self._eclipse_targets: dict = {}     # widx -> [bool] target rows
+        self._dark: dict = {}                # (family, widx) -> set(peer ids)
+        self._severed: list = []             # [(host_a, host_b)]
+        network.link_fault = self._link_fault
+        sched = network.scheduler
+        now = sched.now()
+        for w in plan.partitions:
+            sched.call_at(max(now, float(w.start)),
+                          lambda w=w: self._partition_start(w))
+            sched.call_at(max(now, float(w.end)),
+                          lambda w=w: self._partition_end(w))
+        for i, w in enumerate(plan.outages):
+            sched.call_at(max(now, float(w.start)),
+                          lambda i=i, w=w: self._outage_start(i, w))
+            sched.call_at(max(now, float(w.end)),
+                          lambda i=i: self._outage_end(i))
+        for i, w in enumerate(plan.eclipses):
+            sched.call_at(max(now, float(w.start)),
+                          lambda i=i, w=w: self._eclipse_start(i, w))
+            sched.call_at(max(now, float(w.end)),
+                          lambda i=i: self._eclipse_end(i))
+        for i, w in enumerate(plan.waves):
+            # one scheduled (start, end) pair per expanded cycle — the
+            # batched half's wave_windows expansion, mirrored exactly
+            for s, e in wave_windows(w):
+                sched.call_at(max(now, float(s)),
+                              lambda i=i: self._wave_start(i))
+                sched.call_at(max(now, float(e)),
+                              lambda i=i: self._wave_end(i))
+
+    # -- the one cut predicate (all transitions and the link hook agree) --
+
+    def _is_dark(self, pid) -> bool:
+        return any(pid in dark for dark in self._dark.values())
+
+    def _is_cut(self, i: int, j: int) -> bool:
+        for w in self._partitions_live:
+            if i % w.components != j % w.components:
+                return True
+        for tgt in self._eclipse_targets.values():
+            if (tgt[i] != tgt[j]) and not (
+                    self.malicious[i] or self.malicious[j]):
+                return True
+        return self._is_dark(self.hosts[i].peer_id) \
+            or self._is_dark(self.hosts[j].peer_id)
+
+    # -- link hook (Host.send) --
+
+    def _link_fault(self, src, dst, has_data: bool = True) -> str:
+        i, j = self.index.get(src), self.index.get(dst)
+        if i is None or j is None:
+            return "ok"
+        if self._is_cut(i, j):
+            return "drop"             # cut/dark link: nothing crosses
+        # slow-link classes: a member edge's DATA plane opens only every
+        # period-th scheduler second ((tick + phase) % period == 0, the
+        # batched half's formula on the same symmetric edge hash) and
+        # drops with cl.drop even when open — control always flows
+        if self.plan.slowlinks and has_data:
+            tick = int(self.network.scheduler.now())
+            for ci, cl in enumerate(self.plan.slowlinks):
+                h = _slow_edge_hash_host(
+                    i, j, _family_salt(self.plan.seed, "slowlink", ci))
+                if h >= _thr32(cl.fraction):
+                    continue
+                if (tick + h % cl.period) % cl.period != 0:
+                    return "drop_data"
+                if cl.drop > 0.0 and self.rng.random() < cl.drop:
+                    return "drop_data"
+        # lossy links shed the DATA plane only (batched-half parity:
+        # forward_tick masks link_ok into data_ok, control still flows),
+        # so the drop draw is only spent on data-bearing frames
+        if self.plan.link_drop_prob > 0.0 and has_data \
+                and self.rng.random() < self.plan.link_drop_prob:
+            return "drop_data"
+        # duplication likewise only models retransmitted DATA frames (the
+        # batched dup_offer re-offers recent deliveries on mesh edges);
+        # doubling a control frame (GRAFT handled twice) would be a fault
+        # class the batched half cannot mirror
+        if self.plan.link_dup_prob > 0.0 and has_data \
+                and self.rng.random() < self.plan.link_dup_prob:
+            return "dup"
+        return "ok"
+
+    # -- window transitions --
+
+    def _sever_cut(self) -> None:
+        """Disconnect every currently-connected pair the cut predicate now
+        covers (called after a window opens)."""
+        for a in self.hosts:
+            ia = self.index[a.peer_id]
+            for pid in list(a.conns):
+                ib = self.index.get(pid)
+                if ib is not None and self._is_cut(ia, ib):
+                    a.disconnect(pid)
+                    self._severed.append((a, self.hosts[ib]))
+
+    def _reknit(self) -> None:
+        """Reconnect severed pairs no longer covered by ANY active window
+        (called after a window closes); pairs another window still cuts
+        stay severed until that window too ends — matching the batched
+        half's per-window heal_mask & ~want_down semantics."""
+        keep = []
+        for a, b in self._severed:
+            if self._is_cut(self.index[a.peer_id], self.index[b.peer_id]):
+                keep.append((a, b))
+            else:
+                a.connect(b)
+        self._severed = keep
+
+    def _partition_start(self, w: PartitionWindow) -> None:
+        self._partitions_live.append(w)
+        self._sever_cut()
+
+    def _partition_end(self, w: PartitionWindow) -> None:
+        if w in self._partitions_live:
+            self._partitions_live.remove(w)
+        self._reknit()
+
+    def _outage_start(self, widx: int, w: OutageWindow) -> None:
+        dark_mask = outage_peers_host(len(self.hosts), widx, self.plan)
+        self._dark[("outage", widx)] = \
+            {h.peer_id for h, d in zip(self.hosts, dark_mask) if d}
+        self._sever_cut()
+
+    def _outage_end(self, widx: int) -> None:
+        self._dark.pop(("outage", widx), None)
+        self._reknit()
+
+    def _eclipse_start(self, widx: int, w: EclipseWindow) -> None:
+        self._eclipse_targets[widx] = eclipse_targets_host(
+            len(self.hosts), widx, self.plan, malicious=self.malicious)
+        self._sever_cut()
+
+    def _eclipse_end(self, widx: int) -> None:
+        self._eclipse_targets.pop(widx, None)
+        self._reknit()
+
+    def _wave_start(self, widx: int) -> None:
+        dark_mask = wave_peers_host(len(self.hosts), widx, self.plan)
+        self._dark[("wave", widx)] = \
+            {h.peer_id for h, d in zip(self.hosts, dark_mask) if d}
+        self._sever_cut()
+
+    def _wave_end(self, widx: int) -> None:
+        self._dark.pop(("wave", widx), None)
+        self._reknit()

@@ -3,7 +3,8 @@
 A copy of the JAX package's ``sim/topology.py`` builders, array-equal for
 the same arguments: ``sparse``/``dense`` (floodsub_test.go:75-91),
 ``full`` (connectAll, floodsub_test.go:93-100), ``star``
-(gossipsub_test.go:1044-1127), and the frontier-scale underlays
+(gossipsub_test.go:1044-1127), ``from_hosts`` (the functional runtime's
+live connections, net/network.py), and the frontier-scale underlays
 ``sparse_fast``, ``sparse_hash`` and ``powerlaw`` (the last two
 shard-constructible through ``rows=(start, count)``), with the power-law
 graph's degree-bucket partition (``powerlaw_buckets``,
@@ -493,6 +494,30 @@ def full(n: int, k: int) -> Topology:
     adj = [set(range(n)) - {i} for i in range(n)]
     dialed = {(i, j) for i in range(n) for j in range(i + 1, n)}
     return _finalize(n, k, adj, dialed)
+
+
+def from_hosts(hosts, k: int) -> tuple[Topology, dict]:
+    """Topology mirroring a functional-runtime network's live connections
+    (net/network.py Host.conns), plus the peer-id -> index map.
+
+    Slot assignment matches ``_finalize`` (sorted neighbor ids), so a trace
+    replayed into this topology addresses the same (peer, slot) cells the
+    live routers mutated. Dial direction comes from the substrate's
+    "outbound"/"inbound" conn tags (gossipsub.go:467-476 feeds Dout).
+    """
+    n = len(hosts)
+    peer_index = {h.peer_id: i for i, h in enumerate(hosts)}
+    adj: list[set[int]] = [set() for _ in range(n)]
+    dialed: set[tuple[int, int]] = set()
+    for i, h in enumerate(hosts):
+        for pid, direction in h.conns.items():
+            j = peer_index.get(pid)
+            if j is None:
+                continue
+            adj[i].add(j)
+            if direction == "outbound":
+                dialed.add((i, j))
+    return _finalize(n, k, adj, dialed), peer_index
 
 
 def star(n: int, k: int) -> Topology:

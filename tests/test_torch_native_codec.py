@@ -7,7 +7,9 @@ tensorizer and health encoder, on the CPU.
   of tests/test_native_codec.py: a trace of the reference's router runtime
   with and without ``t_end``, the window overflow, a malformed stream, a
   truncated varint, empty input, and the golden bytes of
-  tests/test_trace_golden.py;
+  tests/test_trace_golden.py; and the port's own runtime's trace, written
+  by the port's ``PBTracer``, byte-equal to the reference's and read into
+  the reference tensorizer's feed;
 - processes that build the library at once all load a whole library, and
   the build leaves one library and no temporary file in its directory;
 - ``encode_health_json`` parses equal to the Python encoder, non-finite
@@ -42,6 +44,7 @@ from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
 from go_libp2p_pubsub_tpu_torch.sim.trace_export import run_traced
 from go_libp2p_pubsub_tpu_torch.trace import PBTracer, native
 
+from test_torch_runtime import load_test_module
 from test_trace_golden import A, B, TOPIC as GTOPIC, build_golden
 from test_trace_replay import DUP_WINDOW, T_END, TOPIC, run_traced_network
 
@@ -80,6 +83,36 @@ def traced():
     mem = run_traced_network(n=10, degree=5, publishes=6)
     hosts = mem[2]
     return mem[3].events, {h.peer_id: i for i, h in enumerate(hosts)}
+
+
+@pytest.fixture(scope="module")
+def port_traced():
+    """The ``traced`` network on the port's own runtime and ``PBTracer``:
+    its events and the bytes of its trace file."""
+    _, _, hosts, mem = load_test_module(
+        "test_trace_replay", "go_libp2p_pubsub_tpu_torch").run_traced_network(
+            n=10, degree=5, publishes=6)
+    return mem.events, {h.peer_id: i for i, h in enumerate(hosts)}
+
+
+def test_port_runtime_trace_feed_equals_the_reference_runtime_s(
+        traced, port_traced, tmp_path):
+    """The port's runtime traced through the port's ``PBTracer`` into a
+    file, tensorized natively: the feed the reference's tensorizer makes
+    of the reference runtime's events."""
+    jevents, jindex = traced
+    events, peer_index = port_traced
+    assert events == jevents and peer_index == jindex
+    path = tmp_path / "port.pb"
+    pb = PBTracer(str(path))
+    for e in events:
+        pb.trace(e)
+    pb.close()
+    assert path.read_bytes() == _stream(jevents)
+    kw = dict(msg_window=64, decay_interval=1.0, dup_window=[DUP_WINDOW],
+              t_end=T_END)
+    _same_feed(native.tensorize_file(str(path), peer_index, {TOPIC: 0}, **kw),
+               jreplay.tensorize_trace(jevents, jindex, {TOPIC: 0}, **kw))
 
 
 def test_the_library_builds_here():

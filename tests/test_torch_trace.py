@@ -10,8 +10,9 @@ package's on the CPU.
   and out of range), on out-of-range op codes (``lax.switch``'s clamp),
   on a mixed stream, and on a trace recorded by the reference's
   pure-Python router runtime (tests/test_trace_replay.py's network,
-  tensorized by both packages' ``tensorize_trace``); every field exact,
-  and the input state unchanged;
+  tensorized by both packages' ``tensorize_trace``) and by the port's
+  own runtime on its own ``from_hosts`` underlay (the same events, the
+  same feed); every field exact, and the input state unchanged;
 - ``run_traced``'s events and health rows against the reference's at 128
   peers (4 ticks, ``single_topic_1k`` with provenance; ``score_mean`` to
   rtol 1e-5, the column sim/telemetry.py settles as not exact), its final
@@ -40,9 +41,10 @@ from go_libp2p_pubsub_tpu_torch.ops.score_ops import decay_counters
 from go_libp2p_pubsub_tpu_torch.sim import (SimConfig, TopicParams,
                                             scenarios, state_from_reference,
                                             state_to_numpy)
-from go_libp2p_pubsub_tpu_torch.sim.topology import Topology
+from go_libp2p_pubsub_tpu_torch.sim.topology import Topology, from_hosts
 from go_libp2p_pubsub_tpu_torch.sim.trace_export import run_traced
 
+from test_torch_runtime import load_test_module
 from test_trace_replay import DUP_WINDOW, T_END, TOPIC, TSP, run_traced_network
 
 # the modules (each package's trace/__init__ re-exports the function
@@ -192,6 +194,41 @@ def router_trace():
     _, nodes, hosts, mem = run_traced_network()
     topo, peer_index = jtopology.from_hosts(hosts, 16)
     return mem.events, topo, peer_index
+
+
+@pytest.fixture(scope="module")
+def port_router_trace():
+    """The same network on the port's own runtime (go_libp2p_pubsub_tpu_torch
+    api/net/routers), its events, and the port's ``from_hosts`` underlay."""
+    _, nodes, hosts, mem = load_test_module(
+        "test_trace_replay", "go_libp2p_pubsub_tpu_torch").run_traced_network()
+    assert type(nodes[0]).__module__.startswith("go_libp2p_pubsub_tpu_torch.")
+    topo, peer_index = from_hosts(hosts, 16)
+    return mem.events, topo, peer_index
+
+
+def test_port_router_trace_feed_equals_reference(router_trace,
+                                                 port_router_trace):
+    """The port's runtime records the reference runtime's events, its
+    ``from_hosts`` builds the same underlay, and the port's tensorizer
+    makes the same feed of them as the reference's of the reference's."""
+    jevents, jtopo, jindex = router_trace
+    events, topo, peer_index = port_router_trace
+    assert events == jevents and peer_index == jindex
+    for f in jtopo._fields:
+        np.testing.assert_array_equal(getattr(topo, f), getattr(jtopo, f))
+    kw = dict(msg_window=64, decay_interval=1.0, dup_window=[DUP_WINDOW],
+              t_end=T_END)
+    jfeed = jreplay_mod.tensorize_trace(jevents, jindex, {TOPIC: 0}, **kw)
+    feed = replay_mod.tensorize_trace(events, peer_index, {TOPIC: 0}, **kw)
+    for f in ("op", "a", "b", "c"):
+        np.testing.assert_array_equal(getattr(feed, f), getattr(jfeed, f))
+    assert feed.mid_slot == jfeed.mid_slot
+
+
+def test_replay_port_router_trace(port_router_trace):
+    """The port's trace leg of :func:`test_replay_router_trace`."""
+    test_replay_router_trace(port_router_trace)
 
 
 def test_replay_router_trace(router_trace):
