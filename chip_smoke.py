@@ -299,9 +299,11 @@ from __future__ import annotations
 import json
 import multiprocessing as mp
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1070,6 +1072,147 @@ def parity_bands(deg_f, deg_b, frac_f, lat_f):
     return ks
 
 
+# ---- phase 12: the RPC wire codec, the probe and the operator tools --------
+RPC_SEED = 12
+RPC_STREAM_BYTES = 25 << 20      # 12b: the seeded stream's size
+RPC_PREFIX_FRAMES = 2000         # 12b: the refusals run on this prefix
+SEQNO_EDGES = (0, 1, (1 << 63) - 1, 1 << 63, (1 << 63) + 1, (1 << 64) - 1)
+# 12c: the kernels the drill's config (single_topic_1k at 128 peers under
+# the sort exchanges) runs, and those it must not
+SMOKE_KERNELS = ({"hop", "iwant_resolve", "emit"},
+                 {"edge_table", "gather_words", "permutation_gather",
+                  "take_words"})
+# 12d: the operator tools in a child that cannot import JAX or the JAX
+# package, each run as ``python -m`` runs it
+JAX_FREE_TOOLS = r"""
+import contextlib, io, json, runpy, sys
+sys.modules["jax"] = None
+sys.modules["go_libp2p_pubsub_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+journal, stream, copy, scen = sys.argv[2:6]
+
+def tool(name, argv):
+    sys.argv = [name] + argv
+    out = io.StringIO()
+    rc = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module("go_libp2p_pubsub_tpu_torch." + name,
+                             run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue()
+
+rc_dash, snap = tool("dashboard", [journal, "--once", "--json"])
+rc_copy, _ = tool("directive_producer", ["--stream", stream, "--out", copy])
+rc_scen, _ = tool("directive_producer", ["--scenario", "eclipse_censor",
+                                         "--out", scen])
+leaked = sorted(n for n, m in sys.modules.items() if m is not None and (
+    n == "jax" or n.startswith("jax.") or n == "go_libp2p_pubsub_tpu"
+    or n.startswith("go_libp2p_pubsub_tpu.")))
+print(json.dumps({"rc": [rc_dash, rc_copy, rc_scen],
+                  "snapshot": json.loads(snap), "leaked": leaked}))
+"""
+
+
+def rpc_stream(seed: int, target: int) -> bytes:
+    """A seeded uvarint-framed RPC stream of at least ``target`` bytes with
+    every frame kind: subscriptions, publishes with and without ``from``,
+    ``seqno``, ``key`` and ``signature`` (seqnos over the whole 64-bit
+    range, the edge values among them, and short ones), IHAVE/IWANT, GRAFT,
+    PRUNE with PX records (signed or not) and backoff, and publishes with
+    an empty topic."""
+    import random
+
+    from go_libp2p_pubsub_tpu_torch.core import types as T
+    from go_libp2p_pubsub_tpu_torch.pb import codec
+    gen = random.Random(seed)
+    topics = [f"topic-{i}" for i in range(24)]
+    mids = [gen.randbytes(20).decode("latin-1") for _ in range(512)]
+    out = bytearray()
+    edges = list(SEQNO_EDGES)
+    while len(out) < target:
+        rpc = T.RPC()
+        for _ in range(gen.randrange(4)):
+            rpc.subscriptions.append(T.SubOpts(gen.random() < 0.6,
+                                               gen.choice(topics)))
+        for _ in range(gen.randrange(5)):
+            m = T.Message(data=gen.randbytes(gen.randrange(1024)),
+                          topic=gen.choice(topics)
+                          if gen.random() < 0.95 else "")
+            if gen.random() < 0.8:
+                m.from_peer = f"12D3KooW{gen.randrange(1 << 30):x}"
+            r = gen.random()
+            if edges:
+                m.seqno = edges.pop().to_bytes(8, "big")
+            elif r < 0.8:
+                m.seqno = gen.getrandbits(64).to_bytes(8, "big")
+            elif r < 0.9:
+                m.seqno = gen.randbytes(gen.randrange(1, 8))
+            if gen.random() < 0.5:
+                m.signature = gen.randbytes(64)
+            if gen.random() < 0.3:
+                m.key = gen.randbytes(36)
+            rpc.publish.append(m)
+        if gen.random() < 0.7:
+            c = T.ControlMessage()
+            for _ in range(gen.randrange(3)):
+                c.ihave.append(T.ControlIHave(
+                    topic=gen.choice(topics),
+                    message_ids=gen.sample(mids, gen.randrange(12))))
+            for _ in range(gen.randrange(2)):
+                c.iwant.append(T.ControlIWant(
+                    message_ids=gen.sample(mids, gen.randrange(1, 8))))
+            for _ in range(gen.randrange(3)):
+                c.graft.append(T.ControlGraft(topic=gen.choice(topics)))
+            for _ in range(gen.randrange(2)):
+                pr = T.ControlPrune(topic=gen.choice(topics),
+                                    backoff=float(gen.randrange(1, 120)))
+                for _ in range(gen.randrange(4)):
+                    pr.peers.append(T.PeerInfo(
+                        peer_id=f"px{gen.randrange(1 << 20)}",
+                        signed_peer_record=gen.randbytes(48)
+                        if gen.random() < 0.5 else None))
+                c.prune.append(pr)
+            if not c.is_empty():
+                rpc.control = c
+        out += codec.frame_rpc(rpc)
+    return bytes(out)
+
+
+def _phase12_cpu(conn, work):
+    """Child process: phase 12's CPU half. The seeded RPC stream written to
+    ``work``, ``read_frames`` of it re-framed against it, and the
+    supervisor drill on the CPU (its stage lines and the fingerprints of
+    its final states)."""
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(2)
+    from go_libp2p_pubsub_tpu_torch import supervisor_smoke
+    from go_libp2p_pubsub_tpu_torch.pb import codec
+    from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+    t0 = time.perf_counter()
+    data = rpc_stream(RPC_SEED, RPC_STREAM_BYTES)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(work, "rpc_stream.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    t0 = time.perf_counter()
+    rpcs = codec.read_frames(data)
+    reframed = b"".join(codec.frame_rpc(r) for r in rpcs) == data
+    roundtrip_s = time.perf_counter() - t0
+    lines, finals = [], {}
+    rc = supervisor_smoke.run_smoke(os.path.join(work, "smoke_cpu"),
+                                    emit=lines.append, device="cpu",
+                                    finals=finals)
+    conn.send({"stream": path, "frames": len(rpcs), "gen_s": gen_s,
+               "reframed": reframed, "roundtrip_s": roundtrip_s,
+               "smoke_rc": rc, "smoke_lines": lines,
+               "finals": {k: _fingerprint(state_to_numpy(v))
+                          for k, v in finals.items()}})
+    conn.close()
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -1081,6 +1224,9 @@ class Smoke:
         # label -> (cfg, tp, state): the paths phase 5 captures, each held
         # from its own phase
         self.capture_paths = {}
+        # files one phase leaves for a later one (removed by main)
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.phase7c = None
 
     # ---- helpers ---------------------------------------------------------
     def sync(self):
@@ -3548,6 +3694,24 @@ class Smoke:
                                      f"equal: {rows == want_rows})")
             verdicts = [(n["contract_kind"], n["status"], n["tick"])
                         for n in notes if n["kind"] == "contract_verdict"]
+            # phase 12d renders this journal and copies this stream again
+            keep = os.path.join(self.work, "phase7c")
+            os.makedirs(keep, exist_ok=True)
+            latest = {}
+            for n in notes:
+                if n["kind"] == "contract_verdict" and (
+                        n["contract"] not in latest or n["seq"] >=
+                        latest[n["contract"]]["seq"]):
+                    latest[n["contract"]] = n
+            self.phase7c = {
+                "journal": shutil.copy(os.path.join(tmp, "j.ndjson"), keep),
+                "stream": shutil.copy(src, keep),
+                "contracts": [{"kind": n.get("contract_kind"),
+                               "status": n.get("status"),
+                               "detail": n.get("detail"),
+                               "tick": n.get("tick")}
+                              for _c, n in sorted(latest.items())],
+                "fault_flags": journal["rows"][-1]["fault_flags"]}
             # kill after chunk 1, resume from the sidecar's offset
             ck = os.path.join(tmp, "ck2")
 
@@ -4680,6 +4844,248 @@ class Smoke:
               f"cuts through peer_index equal the card's down slots; "
               f"fault_flags 0x{flags:08x}; {self.smi_line()}", flush=True)
 
+    # ---- phase 12: the RPC wire codec, the probe and the operator tools ---
+    def phase_operator_tools(self, cpu):
+        """12a-12d; the probe and its CPU-mesh child run on threads beside
+        12b-12d, and are read last."""
+        from concurrent.futures import ThreadPoolExecutor
+        from go_libp2p_pubsub_tpu_torch.utils import platform_probe
+
+        def probe():
+            t0 = time.perf_counter()
+            info = platform_probe.probe_default_platform_info()
+            return info, time.perf_counter() - t0
+
+        def cpu_mesh_child():
+            code = ("import sys; sys.path.insert(0, %r); import torch\n"
+                    "from go_libp2p_pubsub_tpu_torch.utils.platform_probe "
+                    "import forced_cpu_device_count\n"
+                    "print(torch.cuda.is_available(), torch.cuda."
+                    "device_count(), forced_cpu_device_count())\n") % REPO
+            res = subprocess.run(
+                [sys.executable, "-c", code], capture_output=True, text=True,
+                timeout=300, env=platform_probe.cpu_mesh_env(os.environ, 2))
+            return res.returncode, res.stdout.split(), res.stderr[-800:]
+
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            fut_probe = ex.submit(probe)
+            fut_mesh = ex.submit(cpu_mesh_child)
+            t0 = time.perf_counter()
+            self.phase_rpc_codec(cpu)
+            print(f"phase 12b: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            self.phase_supervisor_drill(cpu)
+            print(f"phase 12c: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            self.phase_tools_without_jax()
+            print(f"phase 12d: {time.perf_counter() - t0:.1f} s", flush=True)
+            (alive, n, platform), probe_s = fut_probe.result()
+            rc, mesh, err = fut_mesh.result()
+        if (alive, n, platform) != (True, 1, "gpu"):
+            raise AssertionError(f"phase 12a: the probe gave "
+                                 f"{(alive, n, platform)}")
+        if rc != 0 or mesh != ["False", "0", "2"]:
+            raise AssertionError(f"phase 12a: the cpu_mesh_env child saw "
+                                 f"{mesh} (rc {rc}): {err}")
+        print(f"phase 12a [platform probe]: probe_default_platform_info() = "
+              f"{(alive, n, platform)} in {probe_s:.3f} s (a child process: "
+              f"import torch, one op on cuda checked on the host), on "
+              f"{self.smi_line()}; a child under cpu_mesh_env(env, 2) saw "
+              f"cuda available {mesh[0]}, {mesh[1]} devices, "
+              f"forced_cpu_device_count() {mesh[2]}", flush=True)
+
+    def phase_rpc_codec(self, cpu):
+        """12b: the native RPC scanner built by g++ on the card's host, its
+        scan of the child's seeded stream equal to ``scan_bytes_python``
+        array for array, both refusing a truncated tail and an oversize
+        frame; the child's ``read_frames`` re-framed to the same bytes."""
+        import numpy as np
+        from go_libp2p_pubsub_tpu_torch.pb import codec, native_rpc
+        t0 = time.perf_counter()
+        built = native_rpc.available()
+        build_s = time.perf_counter() - t0
+        lib = native_rpc.lib_path()
+        if not built or os.path.dirname(lib) != os.path.join(
+                REPO, "go_libp2p_pubsub_tpu_torch", "_build"):
+            raise AssertionError(f"phase 12b: csrc/rpc_codec.cpp did not "
+                                 f"build into _build/ ({lib})")
+        with open(cpu["stream"], "rb") as f:
+            data = f.read()
+        native_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = native_rpc.scan_bytes(data)
+            native_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = native_rpc.scan_bytes_python(data)
+        plain_s = time.perf_counter() - t0
+        for name, g, w in zip(("stats", "msgs"), got, want):
+            if g.dtype != np.int64 or not np.array_equal(g, w):
+                raise AssertionError(f"phase 12b: native {name} differs "
+                                     f"from scan_bytes_python")
+        if got[2] != want[2]:
+            raise AssertionError("phase 12b: native topics differ")
+        stats, msgs, topics = got
+        seqnos = msgs[:, 3]
+        if stats.shape[0] != cpu["frames"] or (stats.sum(axis=0) == 0).any() \
+                or not (msgs[:, 1] == -1).any() or not (seqnos < 0).any() \
+                or seqnos.min() != -(1 << 63) or not cpu["reframed"]:
+            raise AssertionError(
+                f"phase 12b: the stream lacks a frame kind or did not "
+                f"round-trip: frames {stats.shape[0]}/{cpu['frames']}, "
+                f"column sums {stats.sum(axis=0).tolist()}, re-framed "
+                f"{cpu['reframed']}")
+        # the refusals, on a prefix of whole frames
+        pos = 0
+        sizes = []
+        for _ in range(RPC_PREFIX_FRAMES):
+            ln, body = codec.read_uvarint(data, pos)
+            pos = body + ln
+            sizes.append(ln)
+        prefix = data[:pos]
+        refused = []
+        for label, bad, max_frame in (("truncated tail", prefix[:-3], 0),
+                                      ("oversize", prefix, max(sizes) - 1)):
+            for scan in (native_rpc.scan_bytes, native_rpc.scan_bytes_python):
+                try:
+                    scan(bad, max_frame)
+                except ValueError:
+                    continue
+                raise AssertionError(f"phase 12b: {scan.__name__} took a "
+                                     f"{label} stream")
+            refused.append(label)
+        mb = len(data) / 1e6
+        print(f"phase 12b [RPC codec]: g++ built {os.path.basename(lib)} in "
+              f"{build_s:.2f} s; a {len(data)}-byte seeded stream "
+              f"({stats.shape[0]} frames, {msgs.shape[0]} publishes, "
+              f"{len(topics)} topics, {int((seqnos < 0).sum())} seqnos "
+              f"over 2^63 - 1 stored wrapped) made in {cpu['gen_s']:.2f} s "
+              f"by the child; native scan {min(native_s):.4f} s = "
+              f"{mb / min(native_s):.1f} MB/s, scan_bytes_python "
+              f"{plain_s:.3f} s = {mb / plain_s:.2f} MB/s (host CPU), "
+              f"arrays equal; read_frames re-framed byte-equal "
+              f"({cpu['roundtrip_s']:.2f} s in the child); refused by both "
+              f"scans: {refused}", flush=True)
+
+    def phase_supervisor_drill(self, cpu):
+        """12c: ``supervisor_smoke.run_smoke(device="cuda")``, every stage
+        passing, the chunk rung on the card, the kernels counted, and the
+        final states equal to the child's CPU drill field by field."""
+        from go_libp2p_pubsub_tpu_torch import supervisor_smoke
+        from go_libp2p_pubsub_tpu_torch.ops import cudalib
+        from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+        from go_libp2p_pubsub_tpu_torch.sim import state_to_numpy
+        lines, finals = [], {}
+        compile_plan.clear_caches()
+        cudalib.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        rc = supervisor_smoke.run_smoke(os.path.join(self.work, "smoke"),
+                                        emit=lines.append, device=self.dev,
+                                        finals=finals)
+        self.sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cudalib.LAUNCHES)
+        print(f"phase 12c [supervisor drill] launches: "
+              f"{json.dumps(launches)}", flush=True)
+        stages = [json.loads(ln) for ln in lines]
+        for st in stages:
+            print(f"phase 12c stage: {json.dumps(st)}", flush=True)
+        names = [st["stage"] for st in stages]
+        if rc != 0 or cpu["smoke_rc"] != 0 or names != [
+                json.loads(ln)["stage"] for ln in cpu["smoke_lines"]] or \
+                len(names) != 4:
+            raise AssertionError(f"phase 12c: the drill failed on the card "
+                                 f"(rc {rc}: {names}) or on the CPU (rc "
+                                 f"{cpu['smoke_rc']})")
+        first = stages[0]
+        if (first["device"], first["rung"]) != ("cuda", "chunk"):
+            raise AssertionError(f"phase 12c: the card's degraded rung: "
+                                 f"{first}")
+        must, must_not = SMOKE_KERNELS
+        zero = sorted(k for k in must if launches[k] == 0)
+        stray = sorted(k for k in must_not if launches[k] != 0)
+        if zero or stray:
+            raise AssertionError(f"phase 12c: kernels never launched "
+                                 f"{zero}, launched outside the path "
+                                 f"{stray}")
+        if sorted(finals) != sorted(cpu["finals"]):
+            raise AssertionError(f"phase 12c: final states {sorted(finals)}"
+                                 f" against {sorted(cpu['finals'])}")
+        for name, st in finals.items():
+            _same_fingerprint(f"phase 12c {name}",
+                              _fingerprint(state_to_numpy(st)),
+                              cpu["finals"][name])
+        compile_plan.clear_caches()
+        print(f"phase 12c [supervisor drill]: every stage ok on the card in "
+              f"{secs:.2f} s (deadline {first['deadline_s']} s from the "
+              f"plain run; the {first['rung']} rung: {first['degrades']}; "
+              f"retries {first['retries']}); final states of "
+              f"{sorted(finals)} equal to the CPU drill's field by field",
+              flush=True)
+
+    def phase_tools_without_jax(self):
+        """12d: in a child where neither JAX nor the JAX package can be
+        imported, the dashboard renders phase 7c's journal (flags by name,
+        the contract verdicts 7c read), the producer copies 7c's stream
+        line for line and writes the eclipse_censor scenario as
+        ``write_stream`` does here."""
+        from go_libp2p_pubsub_tpu_torch import directive_producer
+        from go_libp2p_pubsub_tpu_torch.sim import commands, invariants
+        p7 = self.phase7c
+        if p7 is None:
+            raise AssertionError("phase 12d: phase 7c left no journal")
+        copy = os.path.join(self.work, "copy.ndjson")
+        scen = os.path.join(self.work, "scenario.ndjson")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", JAX_FREE_TOOLS, REPO, p7["journal"],
+             p7["stream"], copy, scen], capture_output=True, text=True,
+            timeout=300)
+        secs = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"phase 12d: the child failed: "
+                                 f"{res.stderr[-1500:]}")
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        snap = out["snapshot"]
+        names = snap.get("fault_flag_names") or []
+        want_names = invariants.decode_flags(int(p7["fault_flags"]))
+        contracts = [{k: c.get(k) for k in ("kind", "status", "detail",
+                                            "tick")}
+                     for c in snap.get("contracts", [])]
+        if out["rc"] != [0, 0, 0] or out["leaked"]:
+            raise AssertionError(f"phase 12d: exit codes {out['rc']}, "
+                                 f"imported {out['leaked']}")
+        if not p7["fault_flags"] or names != want_names or any(
+                n.startswith("0x") for n in names):
+            raise AssertionError(f"phase 12d: flags {p7['fault_flags']} "
+                                 f"rendered as {names}")
+        if contracts != p7["contracts"] or any(
+                c.get("source") != "journal"
+                for c in snap.get("contracts", [])):
+            raise AssertionError(f"phase 12d: verdicts {contracts} against "
+                                 f"7c's {p7['contracts']}")
+        with open(p7["stream"]) as a, open(copy) as b:
+            src_lines, copy_lines = a.readlines(), b.readlines()
+        want_scen = os.path.join(self.work, "scenario_want.ndjson")
+        commands.write_stream(
+            want_scen, directive_producer.scenario_directives(
+                "eclipse_censor", at=4, region=8, attackers=8, bursts=3))
+        with open(scen) as a, open(want_scen) as b:
+            scen_lines, want_lines = a.readlines(), b.readlines()
+        if copy_lines != src_lines or scen_lines != want_lines:
+            raise AssertionError("phase 12d: the producer's copy or "
+                                 "scenario stream differs")
+        kinds = [(c["kind"], c["status"]) for c in contracts]
+        print(f"phase 12d [tools without JAX]: python -m "
+              f"go_libp2p_pubsub_tpu_torch.dashboard on 7c's journal --once "
+              f"--json: tick {snap.get('tick')}, flags {snap['fault_flags']}"
+              f" = {names}, verdicts {kinds} as 7c read them; "
+              f"directive_producer --stream copied "
+              f"{len(copy_lines)} lines, --scenario eclipse_censor wrote "
+              f"{len(scen_lines)} lines equal to write_stream's; the child "
+              f"imported nothing of JAX; {secs:.2f} s", flush=True)
+
     def kernels_line(self):
         rows = []
         for name, cases in self.results.items():
@@ -4771,6 +5177,17 @@ def main() -> int:
     cpu11_proc = ctx.Process(target=_phase11_cpu, args=(child,), daemon=True)
     cpu11_proc.start()
     child.close()
+    # phase 12's stream and CPU drill, beside the builds
+    cpu12_parent, child = ctx.Pipe(duplex=False)
+    cpu12_proc = ctx.Process(target=_phase12_cpu, args=(child, smoke.work),
+                             daemon=True)
+    cpu12_proc.start()
+    child.close()
+
+    def phase12_cpu():
+        out = cpu12_parent.recv()
+        cpu12_proc.join()
+        return out
 
     def phase11_cpu():
         out = cpu11_parent.recv()
@@ -4914,6 +5331,8 @@ def main() -> int:
         for case in FORMULATION_CASES:
             timed(f"4e (formulation trajectory, {case})",
                   smoke.phase_trajectory, phase4_cpu(), case)
+        timed("12 (RPC codec, probe, operator tools)",
+              lambda: smoke.phase_operator_tools(phase12_cpu()))
         print(smoke.kernels_line(), flush=True)
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4921,10 +5340,11 @@ def main() -> int:
         for proc in [p for _, p in topo_jobs.values()] + [
                 p for _, p in powerlaw_jobs.values()] + [
                     cpu4_proc, cpu7_proc, cpu8_proc, cpu10_proc,
-                    cpu11_proc]:
+                    cpu11_proc, cpu12_proc]:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()
+        shutil.rmtree(smoke.work, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,40 @@
-"""The TraceEvent half of the pubsub wire codec (port of pb/codec.py).
+"""The pubsub wire codec (port of pb/codec.py).
 
-A hand-rolled proto2 codec for go-libp2p-pubsub's trace schema,
-TraceEvent{type=1, peerID=2, timestamp=3, <payload>=4..16} with its
-payload messages and RPCMeta (pb/trace.proto:5-150), and the
-uvarint-delimited framing of a PBTracer file (tracer.go:132-181). The
-copy is the reference's, field for field: ``Leave.topic`` is field 2, and
-an integer ``timestamp_ns`` round-trips UnixNano values above 2**53
-exactly. Message ids travel latin-1 and peer ids through
-``surrogateescape``, so arbitrary id bytes survive.
+A hand-rolled proto2 codec for go-libp2p-pubsub's schemas, field for field
+the JAX package's copy, so frames interoperate with go-libp2p-pubsub:
 
-The RPC half of the reference's module (the RPC, Message and control
-frames of the host runtime) is not part of the port.
+- RPC{subscriptions=1, publish=2, control=3} with SubOpts{subscribe=1,
+  topicid=2}, ControlMessage{ihave=1, iwant=2, graft=3, prune=4},
+  ControlIHave{topicID=1, messageIDs=2}, ControlIWant{messageIDs=1},
+  ControlGraft{topicID=1}, ControlPrune{topicID=1, peers=2, backoff=3},
+  PeerInfo{peerID=1, signedPeerRecord=2} (pb/rpc.proto:5-57), over the
+  port's ``core/types.py``; the prune backoff travels as uint64 seconds;
+- Message{from=1, data=2, seqno=3, topic=4, signature=5, key=6}, and the
+  legacy compat Message with repeated topicIDs=4 (compat/compat.proto:5-12);
+- TraceEvent{type=1, peerID=2, timestamp=3, <payload>=4..16} with its
+  payload messages and RPCMeta (pb/trace.proto:5-150). ``Leave.topic`` is
+  field 2, and an integer ``timestamp_ns`` round-trips UnixNano values
+  above 2**53 exactly.
+
+Frames between hosts and PBTracer files are uvarint-length-delimited
+(comm.go:64,157-171; tracer.go:132-181). Message ids travel latin-1 and
+peer ids through ``surrogateescape``, so arbitrary id bytes survive (the
+"string" ids are not valid utf8, pb/rpc.proto:35).
 """
 
 from __future__ import annotations
+
+from ..core.types import (
+    RPC,
+    ControlGraft,
+    ControlIHave,
+    ControlIWant,
+    ControlMessage,
+    ControlPrune,
+    Message,
+    PeerInfo,
+    SubOpts,
+)
 
 # --- varint + field primitives ---
 
@@ -88,6 +109,211 @@ def _iter_fields(buf: bytes):
         else:
             raise ValueError(f"unsupported wire type {wire}")
         yield field, wire, val
+
+
+# --- Message ---
+
+
+def encode_message(m: Message) -> bytes:
+    out = bytearray()
+    if m.from_peer is not None:
+        out += _bytes_field(1, m.from_peer.encode("utf-8"))
+    if m.data:
+        out += _bytes_field(2, m.data)
+    if m.seqno is not None:
+        out += _bytes_field(3, m.seqno)
+    if m.topic:
+        out += _str_field(4, m.topic)
+    if m.signature is not None:
+        out += _bytes_field(5, m.signature)
+    if m.key is not None:
+        out += _bytes_field(6, m.key)
+    return bytes(out)
+
+
+def decode_message(buf: bytes) -> Message:
+    m = Message()
+    for field, _, val in _iter_fields(buf):
+        if field == 1:
+            m.from_peer = val.decode("utf-8", "surrogateescape")
+        elif field == 2:
+            m.data = val
+        elif field == 3:
+            m.seqno = val
+        elif field == 4:
+            m.topic = val.decode("utf-8")
+        elif field == 5:
+            m.signature = val
+        elif field == 6:
+            m.key = val
+    return m
+
+
+# --- legacy compat Message (repeated topicIDs=4, compat/compat.proto) ---
+
+
+def encode_compat_message(m: Message, topics: list[str] | None = None) -> bytes:
+    out = bytearray()
+    if m.from_peer is not None:
+        out += _bytes_field(1, m.from_peer.encode("utf-8"))
+    if m.data:
+        out += _bytes_field(2, m.data)
+    if m.seqno is not None:
+        out += _bytes_field(3, m.seqno)
+    for t in (topics if topics is not None else ([m.topic] if m.topic else [])):
+        out += _str_field(4, t)
+    if m.signature is not None:
+        out += _bytes_field(5, m.signature)
+    if m.key is not None:
+        out += _bytes_field(6, m.key)
+    return bytes(out)
+
+
+def decode_compat_message(buf: bytes) -> tuple[Message, list[str]]:
+    m = Message()
+    topics: list[str] = []
+    for field, _, val in _iter_fields(buf):
+        if field == 1:
+            m.from_peer = val.decode("utf-8", "surrogateescape")
+        elif field == 2:
+            m.data = val
+        elif field == 3:
+            m.seqno = val
+        elif field == 4:
+            topics.append(val.decode("utf-8"))
+        elif field == 5:
+            m.signature = val
+        elif field == 6:
+            m.key = val
+    if topics:
+        m.topic = topics[0]
+    return m, topics
+
+
+# --- control messages ---
+
+
+def _encode_control(c: ControlMessage) -> bytes:
+    out = bytearray()
+    for ih in c.ihave:
+        body = bytearray()
+        if ih.topic:
+            body += _str_field(1, ih.topic)
+        for mid in ih.message_ids:
+            body += _mid_field(2, mid)
+        out += _bytes_field(1, bytes(body))
+    for iw in c.iwant:
+        body = bytearray()
+        for mid in iw.message_ids:
+            body += _mid_field(1, mid)
+        out += _bytes_field(2, bytes(body))
+    for g in c.graft:
+        body = _str_field(1, g.topic) if g.topic else b""
+        out += _bytes_field(3, bytes(body))
+    for pr in c.prune:
+        body = bytearray()
+        if pr.topic:
+            body += _str_field(1, pr.topic)
+        for pi in pr.peers:
+            pibody = _bytes_field(1, pi.peer_id.encode("utf-8"))
+            if pi.signed_peer_record is not None:
+                pibody += _bytes_field(2, pi.signed_peer_record)
+            body += _bytes_field(2, pibody)
+        if pr.backoff:
+            body += _varint_field(3, int(pr.backoff))
+        out += _bytes_field(4, bytes(body))
+    return bytes(out)
+
+
+def _decode_control(buf: bytes) -> ControlMessage:
+    c = ControlMessage()
+    for field, _, val in _iter_fields(buf):
+        if field == 1:
+            ih = ControlIHave()
+            for f2, _, v2 in _iter_fields(val):
+                if f2 == 1:
+                    ih.topic = v2.decode("utf-8")
+                elif f2 == 2:
+                    ih.message_ids.append(v2.decode("latin-1"))
+            c.ihave.append(ih)
+        elif field == 2:
+            iw = ControlIWant()
+            for f2, _, v2 in _iter_fields(val):
+                if f2 == 1:
+                    iw.message_ids.append(v2.decode("latin-1"))
+            c.iwant.append(iw)
+        elif field == 3:
+            g = ControlGraft()
+            for f2, _, v2 in _iter_fields(val):
+                if f2 == 1:
+                    g.topic = v2.decode("utf-8")
+            c.graft.append(g)
+        elif field == 4:
+            pr = ControlPrune()
+            for f2, _, v2 in _iter_fields(val):
+                if f2 == 1:
+                    pr.topic = v2.decode("utf-8")
+                elif f2 == 2:
+                    pi = PeerInfo()
+                    for f3, _, v3 in _iter_fields(v2):
+                        if f3 == 1:
+                            pi.peer_id = v3.decode("utf-8", "surrogateescape")
+                        elif f3 == 2:
+                            pi.signed_peer_record = v3
+                    pr.peers.append(pi)
+                elif f2 == 3:
+                    pr.backoff = float(v2)
+            c.prune.append(pr)
+    return c
+
+
+# --- RPC ---
+
+
+def encode_rpc(rpc: RPC) -> bytes:
+    out = bytearray()
+    for sub in rpc.subscriptions:
+        body = _varint_field(1, 1 if sub.subscribe else 0) + _str_field(2, sub.topicid)
+        out += _bytes_field(1, body)
+    for msg in rpc.publish:
+        out += _bytes_field(2, encode_message(msg))
+    if rpc.control is not None and not rpc.control.is_empty():
+        out += _bytes_field(3, _encode_control(rpc.control))
+    return bytes(out)
+
+
+def decode_rpc(buf: bytes) -> RPC:
+    rpc = RPC()
+    for field, wire, val in _iter_fields(buf):
+        if field == 1:
+            sub = SubOpts()
+            for f2, _, v2 in _iter_fields(val):
+                if f2 == 1:
+                    sub.subscribe = bool(v2)
+                elif f2 == 2:
+                    sub.topicid = v2.decode("utf-8")
+            rpc.subscriptions.append(sub)
+        elif field == 2:
+            rpc.publish.append(decode_message(val))
+        elif field == 3:
+            rpc.control = _decode_control(val)
+    return rpc
+
+
+def frame_rpc(rpc: RPC) -> bytes:
+    """uvarint-length-delimited frame (comm.go:157-171)."""
+    payload = encode_rpc(rpc)
+    return write_uvarint(len(payload)) + payload
+
+
+def read_frames(buf: bytes) -> list[RPC]:
+    out = []
+    pos = 0
+    while pos < len(buf):
+        ln, pos = read_uvarint(buf, pos)
+        out.append(decode_rpc(buf[pos:pos + ln]))
+        pos += ln
+    return out
 
 
 # --- TraceEvent (pb/trace.proto) ---

@@ -26,11 +26,12 @@ ride ``sim.faults``' ``FaultPlan`` families:
   last.
 
 **Contracts** are declarative and JSON-serialisable (journal headers; the
-reference's scripts/dashboard.py reads them from a port journal), and are
-evaluated from the per-tick telemetry rows (sim/telemetry.py): in a batch
-(:func:`evaluate_contracts`, :func:`run_with_contracts`) or folded one row
-at a time by :class:`ContractMonitors` (the supervisor's live verdicts),
-bit-exact against the batch at every prefix of a tick-monotone stream.
+port's dashboard, ``python -m go_libp2p_pubsub_tpu_torch.dashboard``, reads
+them from a journal of either package), and are evaluated from the per-tick
+telemetry rows (sim/telemetry.py): in a batch (:func:`evaluate_contracts`,
+:func:`run_with_contracts`) or folded one row at a time by
+:class:`ContractMonitors` (the supervisor's live verdicts), bit-exact
+against the batch at every prefix of a tick-monotone stream.
 The contracts and monitors are host code, copied from the reference.
 
 The builders take the port's ``device=`` (cuda unless the caller passes

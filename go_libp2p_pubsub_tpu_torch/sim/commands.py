@@ -548,8 +548,9 @@ class CommandQueue:
         COASTING banner surfaces this verbatim): at a stall the consumed
         offset equals the producer's durable progress — the queue only
         reports a stall once it has drained every written byte."""
-        return (f"python scripts/directive_producer.py --stream <input> "
-                f"--out {self.source} --from-offset {offset}")
+        return (f"python -m go_libp2p_pubsub_tpu_torch.directive_producer "
+                f"--stream <input> --out {self.source} "
+                f"--from-offset {offset}")
 
     # ---- chaos hooks (parallel/resilience.ChaosPlan) ----------------------
 

@@ -3,35 +3,27 @@
 ``csrc/trace_codec.cpp`` is host C++, not a CUDA kernel: the trace
 tensorizer (a uvarint-delimited TraceEvent file straight to a
 :class:`~.replay.ReplayFeed`, with no Python object per event) and the
-health journal's NDJSON row encoder (sim/telemetry.py). It is compiled at
-first use, never at import, by ``g++ -O2 -shared -fPIC -std=c++17`` into
-``go_libp2p_pubsub_tpu_torch/_build/`` under a name that carries the hash
-of the source, as ``ops/cudalib.py`` names the kernels' libraries, so an
-edited source rebuilds and an unchanged one loads as is.
-
-The build is safe across processes: each process that builds compiles to a
-name of its own in ``_build/`` and ``os.replace``s it into place, so
-processes that build at once each load a whole library (the last rename
-wins; every candidate is the same build of the same source). Where no
-compiler is found :func:`load` returns None and the callers take the
-Python paths (``replay.tensorize_trace``, ``telemetry.encode_rows_py``).
+health journal's NDJSON row encoder (sim/telemetry.py). It is built at
+first use, never at import, into ``go_libp2p_pubsub_tpu_torch/_build/``
+by ``hostlib.build`` (a name carrying the source's hash, safe across
+processes that build at once). Where no compiler is found :func:`load`
+returns None and the callers take the Python paths
+(``replay.tensorize_trace``, ``telemetry.encode_rows_py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from .. import hostlib
 from .replay import ReplayFeed
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "trace_codec.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SRC = os.path.join(hostlib.CSRC, "trace_codec.cpp")
+BUILD_DIR = hostlib.BUILD_DIR
 
 _lock = threading.Lock()
 _lib = None
@@ -40,27 +32,7 @@ _tried = False
 
 def lib_path() -> str:
     """The library's path, named by the hash of its source."""
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libtracecodec-{digest}.so")
-
-
-def _build(out: str) -> bool:
-    """Compile the source to a temporary name beside ``out`` and rename it
-    into place; False where no compiler runs or the build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    try:
-        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", SRC,
-                        "-o", tmp], check=True, capture_output=True,
-                       timeout=300)
-        os.replace(tmp, out)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        return False
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    return hostlib.lib_path(SRC, "libtracecodec", BUILD_DIR)
 
 
 def load():
@@ -72,7 +44,7 @@ def load():
             return _lib
         _tried = True
         path = lib_path()
-        if not os.path.exists(path) and not _build(path):
+        if not os.path.exists(path) and not hostlib.build(SRC, path):
             return None
         lib = ctypes.CDLL(path)
         lib.trace_codec_tensorize.restype = ctypes.c_int

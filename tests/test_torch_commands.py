@@ -250,8 +250,13 @@ def test_queue_coasts_through_silence_and_resumes(tmp_path):
         assert [k for k, _m in f0.notes] == ["ingest_stalled"]
         meta = dict(f0.notes)["ingest_stalled"]
         assert meta["offset"] == os.path.getsize(src)
+        # the reference's command, naming the port's producer
         assert meta["resume_cmd"] == _mkq(jcmds, src).resume_cmd(
-            meta["offset"])
+            meta["offset"]).replace(
+                "python scripts/directive_producer.py",
+                "python -m go_libp2p_pubsub_tpu_torch.directive_producer")
+        assert meta["resume_cmd"].startswith(
+            "python -m go_libp2p_pubsub_tpu_torch.directive_producer ")
         f1 = q.frame_for(2, 2)
         assert f1.coasting and not f1.notes
         with open(src, "a") as fh:

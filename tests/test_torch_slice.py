@@ -153,10 +153,13 @@ def test_port_imports_no_jax():
     churn path, a fault plan with flood publish, randomsub, subscription
     churn on the beacon network, chunked ``run_window`` under the fold_in
     schedule, a frontier config under its ``sort`` exchanges, the
-    dispatch table's ``resolved_formulations``), and neither it nor
-    chip_smoke.py imports the JAX package."""
+    dispatch table's ``resolved_formulations``; an RPC framed, decoded
+    and scanned by both scans, the probe's environment helpers, a journal
+    rendered by ``dashboard --once``), and neither it nor chip_smoke.py
+    imports the JAX package."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.path.insert(0, %r)\n"
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['go_libp2p_pubsub_tpu'] = None; sys.path.insert(0, %r)\n"
         "import pkgutil, importlib, go_libp2p_pubsub_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -200,6 +203,40 @@ def test_port_imports_no_jax():
         "assert dispatch.resolved_formulations(cfg)['edge_packed'] == 'sort'\n"
         "assert int(run(st, cfg, tp, rng.PRNGKey(0, device='cpu'), 2, "
         "device='cpu').tick) == 2\n"
+        "from go_libp2p_pubsub_tpu_torch.core import types as T\n"
+        "from go_libp2p_pubsub_tpu_torch.pb import codec, native_rpc\n"
+        "rpc = T.RPC(subscriptions=[T.SubOpts(True, 't')], publish=[T.Message("
+        "from_peer='p', data=b'd', seqno=(1 << 63).to_bytes(8, 'big'), "
+        "topic='t')], control=T.ControlMessage(prune=[T.ControlPrune(topic="
+        "'t', peers=[T.PeerInfo(peer_id='x')], backoff=60.0)]))\n"
+        "buf = codec.frame_rpc(rpc)\n"
+        "assert codec.encode_rpc(codec.read_frames(buf)[0]) == "
+        "codec.encode_rpc(rpc)\n"
+        "assert native_rpc.available()\n"
+        "for scan in (native_rpc.scan_bytes, native_rpc.scan_bytes_python):\n"
+        "    s, m, t = scan(buf)\n"
+        "    assert s.tolist() == [[1, 1, 1, 0, 0, 0, 1, 1]] and t == ['t']\n"
+        "    assert m.tolist() == [[0, 0, 1, -(1 << 63)]]\n"
+        "from go_libp2p_pubsub_tpu_torch.utils import platform_probe as pp\n"
+        "env = pp.cpu_mesh_env({'A': '1'}, 2)\n"
+        "assert env['CUDA_VISIBLE_DEVICES'] == '' and "
+        "pp.forced_cpu_device_count(env) == 2\n"
+        "import contextlib, io, tempfile\n"
+        "from go_libp2p_pubsub_tpu_torch import dashboard\n"
+        "from go_libp2p_pubsub_tpu_torch.sim import telemetry\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    path = d + '/h.jsonl'\n"
+        "    with telemetry.HealthJournal(path, prefer_native=False) as hj:\n"
+        "        hj.note('run', n_peers=8, n_topics=1, scenario='x', "
+        "invariant_mode='record')\n"
+        "        hj.append_dicts([{'tick': 0, 'member': -1, "
+        "'delivery_frac_t0': 0.5, 'fault_flags': 1 | (1 << 16)}])\n"
+        "    out = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        assert dashboard.main([path, '--once']) == 0\n"
+        "    text = out.getvalue()\n"
+        "    assert 'graft telemetry :: x' in text, text\n"
+        "    assert 'link_drop VIOLATION:nonfinite_counter' in text, text\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'go_libp2p_pubsub_tpu.'))"
         " or n == 'go_libp2p_pubsub_tpu' for n in sys.modules if sys.modules[n])\n"
         "print('ok')\n") % REPO

@@ -688,6 +688,16 @@ def test_lifted_hooks_equal_the_reference(plain, tmp_path, name):
         assert port_snap.get("verdict_abort") == ref_snap.get(
             "verdict_abort")
         assert "delivery_floor" in render(port_snap)
+        # and the port's dashboard reads both journals as the reference's
+        from go_libp2p_pubsub_tpu_torch import dashboard
+        ported = {who: dashboard.snapshot(str(tmp_path / who / "h.ndjson"))
+                  for who in ("port", "ref")}
+        assert ported["port"]["contracts"] == ported["ref"]["contracts"]
+        assert ported["port"].get("verdict_abort") == ported["ref"].get(
+            "verdict_abort")
+        assert "delivery_floor" in dashboard.render(ported["port"])
+        assert ported["port"] == port_snap and ported["ref"] == ref_snap
+        assert dashboard.render(ported["port"]) == render(port_snap)
     if hook.get("verdict_policy") == "abort":
         assert "verdict_policy='abort'" in g_abort
     if hook.get("commands"):
