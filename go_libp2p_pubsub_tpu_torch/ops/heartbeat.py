@@ -28,6 +28,7 @@ from .. import rng
 from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
+from ..spans import span
 from .bits import I32, pack_bool, prefix_count, to_i32
 from .permgather import (_edge_table_mxu, edge_sort_key, edge_table,
                          permutation_gather, resolve_edge_packed_mode,
@@ -184,11 +185,13 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     ks = rng.split(key, 8)
     sel = cfg.selection_mode
 
-    state = advance_active_latch(state, tp)
-    scores_all = compute_scores(state, cfg, tp, mask_disconnected=False,
-                                apply_decay=True)
-    zero = torch.zeros((), dtype=torch.float32, device=scores_all.device)
-    scores = torch.where(state.connected, scores_all, zero)   # [N, K]
+    with span("heartbeat.score"):
+        state = advance_active_latch(state, tp)
+        scores_all = compute_scores(state, cfg, tp, mask_disconnected=False,
+                                    apply_decay=True)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=scores_all.device)
+        scores = torch.where(state.connected, scores_all, zero)   # [N, K]
     s = scores[:, None, :]
     sb = s.expand(n, t, k)
     joined = state.subscribed[:, :, None]
@@ -212,25 +215,31 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     n_mesh = mesh1.sum(-1)
     need = torch.where(n_mesh < cfg.dlo, cfg.d - n_mesh, 0)
     # rows with need 0 or no candidate select nothing
-    graft1 = select_random(candidate, need, ks[0], max_count=cfg.d, mode=sel)
+    with span("heartbeat.select"):
+        graft1 = select_random(candidate, need, ks[0], max_count=cfg.d,
+                               mode=sel)
     mesh2 = mesh1 | graft1
 
     # 3. oversubscribed: keep top-Dscore by score + random rest to D, then
     # bubble up to Dout outbound among the kept (gossipsub.go:1430-1490)
     n2 = mesh2.sum(-1)
     over = (n2 > cfg.dhi)[..., None]
-    protected = select_top(sb, mesh2, cfg.dscore, max_count=cfg.dscore,
-                           mode=sel)
+    with span("heartbeat.select"):
+        protected = select_top(sb, mesh2, cfg.dscore, max_count=cfg.dscore,
+                               mode=sel)
     rest = mesh2 & ~protected
-    keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1],
-                              max_count=cfg.d - cfg.dscore, mode=sel)
+    with span("heartbeat.select"):
+        keep_rand = select_random(rest, cfg.d - cfg.dscore, ks[1],
+                                  max_count=cfg.d - cfg.dscore, mode=sel)
     kept = protected | keep_rand
     n_out_kept = (kept & out3).sum(-1)
     deficit_out = torch.clamp(cfg.dout - n_out_kept, min=0)
-    add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2],
-                            max_count=cfg.dout, mode=sel)
-    remove_nonout = select_random(keep_rand & ~out3, add_out.sum(-1),
-                                  ks[3], max_count=cfg.dout, mode=sel)
+    with span("heartbeat.select"):
+        add_out = select_random(mesh2 & ~kept & out3, deficit_out, ks[2],
+                                max_count=cfg.dout, mode=sel)
+    with span("heartbeat.select"):
+        remove_nonout = select_random(keep_rand & ~out3, add_out.sum(-1),
+                                      ks[3], max_count=cfg.dout, mode=sel)
     kept = (kept | add_out) & ~remove_nonout
     # rows that are not over keep mesh2
     mesh3 = torch.where(over, kept, mesh2)
@@ -242,29 +251,34 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     need_out = torch.where((n3 >= cfg.dlo) & ~over[..., 0] & (n_out < cfg.dout),
                            cfg.dout - n_out, 0)
     out_cand = candidate & out3 & ~mesh3
-    graft_out = select_random(out_cand, need_out, ks[4], max_count=cfg.dout,
-                              mode=sel)
+    with span("heartbeat.select"):
+        graft_out = select_random(out_cand, need_out, ks[4],
+                                  max_count=cfg.dout, mode=sel)
     mesh4 = mesh3 | graft_out
 
     # 5. opportunistic grafting every OpportunisticGraftTicks when the median
     # mesh score sags below the threshold (gossipsub.go:1521-1552); off
     # the graft tick every row's count is 0
     og_tick = (tick % cfg.opportunistic_graft_ticks) == 0
-    med = masked_median(sb, mesh4)                            # [N, T]
+    with span("heartbeat.select"):
+        med = masked_median(sb, mesh4)                        # [N, T]
     og_cond = (mesh4.sum(-1) > 1) & (med < cfg.opportunistic_graft_threshold) \
         & og_tick
     og_need = torch.where(og_cond, cfg.opportunistic_graft_peers, 0)
-    og_sel = select_random(candidate & (sb > med[..., None]) & ~mesh4,
-                           og_need, ks[5],
-                           max_count=cfg.opportunistic_graft_peers, mode=sel)
+    with span("heartbeat.select"):
+        og_sel = select_random(candidate & (sb > med[..., None]) & ~mesh4,
+                               og_need, ks[5],
+                               max_count=cfg.opportunistic_graft_peers,
+                               mode=sel)
     mesh5 = mesh4 | og_sel
 
     grafts = graft1 | graft_out | og_sel
     prunes = prune_neg | prune_over
 
     # --- cross-peer exchange, all against pre-round state ---
-    (inc_graft, inc_prune), _ = edge_gather_packed([grafts, prunes], state,
-                                                  cfg.edge_gather_mode)
+    with span("heartbeat.exchange"):
+        (inc_graft, inc_prune), _ = edge_gather_packed(
+            [grafts, prunes], state, cfg.edge_gather_mode)
 
     # receiver-side GRAFT vetting (gossipsub.go:741-837), capacity-budgeted
     # lowest-slot-first against the growing mesh (heartbeat.py:345-375)
@@ -289,8 +303,9 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
                                 cfg.behaviour_penalty_decay,
                                 cfg.decay_to_zero) + bp_add
 
-    (refused_back,), _ = edge_gather_packed([refuse], state,
-                                            cfg.edge_gather_mode)
+    with span("heartbeat.exchange"):
+        (refused_back,), _ = edge_gather_packed([refuse], state,
+                                                cfg.edge_gather_mode)
 
     new_mesh = ((mesh5 | accept) & ~inc_prune & ~refused_back) & joined
     pruned_any = prunes | inc_prune | refused_back | (refuse & joined)
@@ -311,10 +326,11 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
         (s >= cfg.publish_threshold) & fa3
     need_f = torch.where(fanout_alive,
                          torch.clamp(cfg.d - keep_f.sum(-1), min=0), 0)
-    add_f = select_random(
-        conn & nbr_sub & ~keep_f & ~direct3
-        & (s >= cfg.publish_threshold) & fa3,
-        need_f, ks[7], max_count=cfg.d, mode=sel)
+    with span("heartbeat.select"):
+        add_f = select_random(
+            conn & nbr_sub & ~keep_f & ~direct3
+            & (s >= cfg.publish_threshold) & fa3,
+            need_f, ks[7], max_count=cfg.d, mode=sel)
     new_fanout = keep_f | add_f
     fanout_lastpub = torch.where(fanout_alive, state.fanout_lastpub,
                                  torch.full_like(state.fanout_lastpub, NEVER))
@@ -342,15 +358,17 @@ def heartbeat(state: SimState, cfg: SimConfig, tp: TopicParams,
     # (heartbeat.py:460-465)
     gossip_bound = max(cfg.dlazy, int(np.floor(
         np.float32(cfg.gossip_factor) * np.float32(k))))
-    gossip_sel = select_random(gossip_cand, target, ks[6],
-                               max_count=gossip_bound, mode=sel)
+    with span("heartbeat.select"):
+        gossip_sel = select_random(gossip_cand, target, ks[6],
+                                   max_count=gossip_bound, mode=sel)
 
     # one shared exchange hands forward_tick its receiver views: who gossips
     # to me, and whose eager forwarding reaches me (gossipsub.go:1020-1035)
     send = new_mesh | (new_fanout & ~state.subscribed[:, :, None])
-    (inc_gossip, fwd_send), extras = edge_gather_packed(
-        [gossip_sel, send], st, cfg.edge_gather_mode,
-        extra_words=extra_words or ())
+    with span("heartbeat.exchange"):
+        (inc_gossip, fwd_send), extras = edge_gather_packed(
+            [gossip_sel, send], st, cfg.edge_gather_mode,
+            extra_words=extra_words or ())
 
     return HeartbeatOut(state=st, scores=scores, scores_all=scores_all,
                         inc_gossip=inc_gossip, fwd_send=fwd_send,

@@ -26,8 +26,16 @@ the graph decodes at each tick's entry and encodes at its exit, and its
 static buffers hold the stored layout.
 
 Each is cached per (schedule, config, chunk length, key dtype, telemetry,
-donation, device), as the reference's ``_ENGINE_AOT``: the same key gives
-the same object, a tail chunk its own entry.
+donation, stage timing, device), as the reference's ``_ENGINE_AOT``: the
+same key gives the same object, a tail chunk its own entry.
+:func:`is_cached` asks whether a request would find its executable built.
+
+Stage timing. ``stage_timing=True`` captures the chunk with a
+``spans.StageTimer`` installed, so every span of the ticks (spans.NAMES)
+records a timing event at its entry and exit into the graph; after a
+replay has been synchronized, :meth:`EngineExecutable.stage_ms` gives
+the device milliseconds of each span name over the chunk's ticks. The
+default captures no event: that executable is what runs chunks.
 
 Donation. ``donate=True``: the executable consumes the caller's state;
 the graph writes the final state back into its static input buffers and
@@ -77,10 +85,12 @@ they are the yardstick the replays are held to.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 
+from .. import spans
 from ..ops import cudalib, selection
 from ..sim.config import SimConfig, TopicParams
 from ..sim.engine import _folded, _plain, _rows, _ticks, check_slice
@@ -98,11 +108,12 @@ class EngineExecutable:
     """C ticks of the engine as one callable: a replayed CUDA graph on the
     card, the eager ticks on the CPU. ``launches`` holds the kernel
     launches recorded into the graph (counted at capture time, once;
-    every replay repeats them), empty on the CPU."""
+    every replay repeats them), empty on the CPU. ``capture_s`` is the
+    warm-up and capture's host seconds (0 on the CPU)."""
 
     def __init__(self, schedule: str, cfg: SimConfig, state: SimState,
                  tp: TopicParams, keys: torch.Tensor, n_ticks: int,
-                 telemetry: bool, donate: bool):
+                 telemetry: bool, donate: bool, stage_timing: bool = False):
         self.schedule = schedule              # "engine" or "window"
         self.cfg = cfg
         self.n_ticks = n_ticks
@@ -113,6 +124,7 @@ class EngineExecutable:
         self.calls = 0
         self.graph = None
         self.capture_s = 0.0
+        self._timer = spans.StageTimer() if stage_timing else None
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             self._capture(state, tp, keys)
@@ -130,6 +142,16 @@ class EngineExecutable:
         graph's static state (a donated CUDA executable), else None."""
         return (self, self.calls) if self.donate and self.graph is not None \
             else None
+
+    def stage_ms(self) -> dict:
+        """Device milliseconds of each span name (spans.NAMES) over the
+        chunk's ticks in the last replay, read once that replay has been
+        synchronized: nested spans keep their own names. Only a
+        ``stage_timing=True`` executable on the card records them."""
+        if self._timer is None or self.graph is None:
+            raise ValueError("stage_ms needs a captured executable built "
+                             "with stage_timing=True")
+        return self._timer.stage_ms()
 
     def _key_of(self, keys: torch.Tensor):
         return _rows(keys) if self.schedule == "engine" else _folded(keys)
@@ -170,8 +192,11 @@ class EngineExecutable:
         torch.cuda.empty_cache()
         before = dict(cudalib.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        timing = spans.timing(self._timer) if self._timer is not None \
+            else contextlib.nullcontext()
         with torch.cuda.graph(graph):
-            out = self._ticks(self._state, self._tp, self._keys)
+            with timing:
+                out = self._ticks(self._state, self._tp, self._keys)
             if self.telemetry:
                 out, self._records = out
             _check_no_partial_alias(out, self._state)
@@ -238,9 +263,30 @@ def _check_no_partial_alias(out: SimState, static: SimState) -> None:
                                "a static input buffer")
 
 
+def _cache_key(schedule: str, exec_cfg: SimConfig, state: SimState,
+               keys: torch.Tensor, n_ticks: int, telemetry: bool,
+               donate: bool, stage_timing: bool) -> tuple:
+    return (schedule, exec_cfg, int(n_ticks), str(keys.dtype), telemetry,
+            donate, stage_timing, str(state.tick.device))
+
+
+def is_cached(exec_cfg: SimConfig, state: SimState, keys: torch.Tensor,
+              n_ticks: int | None = None, *, telemetry: bool = False,
+              donate: bool = False, stage_timing: bool = False) -> bool:
+    """Whether :func:`engine_chunk` (``n_ticks`` None: ``keys`` is the
+    ``[C, 2]`` rows) or :func:`engine_window` (``keys`` the master key)
+    with these arguments finds its executable built, so the call captures
+    nothing."""
+    schedule = "engine" if n_ticks is None else "window"
+    n = keys.shape[0] if n_ticks is None else n_ticks
+    return _cache_key(schedule, exec_cfg, state, keys, n, telemetry, donate,
+                      stage_timing) in _ENGINE_PLANS
+
+
 def _plan(schedule: str, exec_cfg: SimConfig, state: SimState,
           tp: TopicParams, keys: torch.Tensor, n_ticks: int,
-          telemetry: bool, donate: bool) -> EngineExecutable:
+          telemetry: bool, donate: bool,
+          stage_timing: bool) -> EngineExecutable:
     what = "engine_chunk" if schedule == "engine" else "engine_window"
     _plain(exec_cfg, what)
     if selection.CHECK_COUNT_BOUND:
@@ -250,35 +296,37 @@ def _plan(schedule: str, exec_cfg: SimConfig, state: SimState,
             "which a captured chunk cannot do; run the eager entry points "
             "with it")
     check_slice(exec_cfg)
-    cache_key = (schedule, exec_cfg, int(n_ticks), str(keys.dtype),
-                 telemetry, donate, str(state.tick.device))
+    cache_key = _cache_key(schedule, exec_cfg, state, keys, n_ticks,
+                           telemetry, donate, stage_timing)
     exe = _ENGINE_PLANS.get(cache_key)
     if exe is None:
         exe = EngineExecutable(schedule, exec_cfg, state, tp, keys,
-                               int(n_ticks), telemetry, donate)
+                               int(n_ticks), telemetry, donate, stage_timing)
         _ENGINE_PLANS[cache_key] = exe
     return exe
 
 
 def engine_chunk(exec_cfg: SimConfig, state: SimState, tp: TopicParams,
                  keys_chunk: torch.Tensor, *, telemetry: bool = False,
-                 donate: bool = False) -> EngineExecutable:
+                 donate: bool = False,
+                 stage_timing: bool = False) -> EngineExecutable:
     """The executable of one chunk of ``run_keys``: one tick per row of
     ``keys_chunk`` ([C, 2]). Call as ``exe(state, tp, keys_chunk)``;
     ``donate=True`` consumes ``state``; ``telemetry=True`` returns
-    ``(state, HealthRecord)``."""
+    ``(state, HealthRecord)``; ``stage_timing=True`` records the spans'
+    timing events into the graph (``exe.stage_ms()``)."""
     return _plan("engine", exec_cfg, state, tp, keys_chunk,
-                 keys_chunk.shape[0], telemetry, donate)
+                 keys_chunk.shape[0], telemetry, donate, stage_timing)
 
 
 def engine_window(exec_cfg: SimConfig, state: SimState, tp: TopicParams,
                   key: torch.Tensor, n_ticks: int, *,
-                  telemetry: bool = False,
-                  donate: bool = False) -> EngineExecutable:
+                  telemetry: bool = False, donate: bool = False,
+                  stage_timing: bool = False) -> EngineExecutable:
     """The executable of one chunk of ``run_window``: ``n_ticks`` ticks
     under ``fold_in(key, state.tick)``. Call as ``exe(state, tp, key)``."""
     return _plan("window", exec_cfg, state, tp, key, n_ticks, telemetry,
-                 donate)
+                 donate, stage_timing)
 
 
 class FleetExecutable:

@@ -13,11 +13,13 @@ default, run with ``hop_mode="xla"`` and ``edge_gather_mode=--gather``) or
 the frontier (``scenarios.frontier(n)``, n=1048576 by default, its own
 ``sort`` exchanges) on cuda, warms up two ticks, then
 
-1. times each stage of ``engine.step`` (publishers + publish, the gater's
-   decay, heartbeat, forward_tick, connection churn, invariant flags) on
-   the host clock with a device sync after each stage, over ``--ticks``
-   ticks, and takes each stage's peak device memory above what was
-   allocated when it began (``max_memory_allocated`` after a reset);
+1. runs ``--ticks`` ticks of ``step`` under ``torch.profiler`` and reads
+   the engine's own spans (``spans.NAMES``: ``engine.publish``,
+   ``engine.heartbeat``, ``heartbeat.select``, ...): the device time of
+   the kernels launched inside each span, per tick, and each span's peak
+   device memory above what was allocated when it opened
+   (``max_memory_allocated`` after a reset at its entry, read on the host
+   at its exit: no sync);
 2. keeps a copy of the state and runs ``--ticks`` more ticks of ``step``
    as a user would (no added syncs), timed by CUDA events around the
    window and on the host clock, with ``torch.cuda.set_sync_debug_mode(
@@ -39,7 +41,10 @@ the frontier (``scenarios.frontier(n)``, n=1048576 by default, its own
    from the copy with the same keys, equal in every field to the timed
    window of 2; then replayed again, chained on its own result, timed by
    CUDA events, and once more under the profiler (busy share, sync
-   calls); peak device memory of the build and replays.
+   calls); peak device memory of the build and replays; then the same
+   chunk captured with ``stage_timing=True``, replayed from the copy,
+   equal to the eager window, and its device ms per span name per tick
+   (``EngineExecutable.stage_ms``).
 
 The device-busy share is the device time of 3 over the event-timed wall
 of 2: the same work, so the profiler's own host cost, which stretches its
@@ -102,14 +107,9 @@ def main(argv=None) -> int:
         return 1
     import dataclasses
 
-    from . import rng
-    from .ops.churn import churn_edges
-    from .ops.gater import gater_decay
-    from .ops.heartbeat import heartbeat
-    from .ops.propagate import forward_tick, publish
+    from . import rng, spans
     from .sim import build_headline, scenarios, topology
-    from .sim.engine import _iwant_answer_extras, choose_publishers, step
-    from .sim.invariants import record_flags
+    from .sim.engine import step
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -140,51 +140,24 @@ def main(argv=None) -> int:
         st = step(st, cfg, tp, keys[i])
     torch.cuda.synchronize()
 
-    # 1. stage wall times (host clock, device sync after each stage) and
-    # peak device memory above the stage's start
-    stages = defaultdict(list)
-    peaks = defaultdict(int)
-    tick_s = []
-
-    def timed(name, fn):
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        out = fn()
+    # 1. the engine's spans over eager ticks: device time of the kernels
+    # launched inside each, and each span's peak memory above its start
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    peaks = _SpanPeaks()
+    with spans.timing(peaks), torch.profiler.profile(activities=act) as prof:
+        for i in range(warm, warm + args.ticks):
+            st = step(st, cfg, tp, keys[i])
         torch.cuda.synchronize()
-        stages[name].append(time.perf_counter() - t)
-        peaks[name] = max(peaks[name],
-                          torch.cuda.max_memory_allocated() - base)
-        return out
-
-    for i in range(warm, warm + args.ticks):
-        t_tick = time.perf_counter()
-        # engine.step's stages, in its order
-        k_pub, k_hb, k_fwd, k_churn, k_ign, _ = rng.split(keys[i], 6)
-        st = timed("publish", lambda: publish(
-            st, cfg, *choose_publishers(st, cfg, k_pub), k_ign))
-        if cfg.gater_enabled:
-            st = timed("gater_decay", lambda: gater_decay(st, cfg))
-        hb = timed("heartbeat", lambda: heartbeat(
-            st, cfg, tp, k_hb, extra_words=_iwant_answer_extras(st, cfg)))
-        st = timed("forward_tick", lambda: forward_tick(
-            hb.state, cfg, tp, hb.inc_gossip, hb.scores, k_fwd,
-            fwd_send=hb.fwd_send,
-            answers_k=hb.extra_routed[0] if hb.extra_routed else None))
-        if cfg.churn_disconnect_prob > 0.0:
-            st = timed("churn_edges", lambda: churn_edges(
-                st, cfg, tp, k_churn, scores_all=hb.scores_all))
-        st = timed("record_flags", lambda: record_flags(st, cfg))
-        st = st._replace(tick=st.tick + 1)
-        tick_s.append(time.perf_counter() - t_tick)
-    stage_ms = {k: 1e3 * sum(v) / len(v) for k, v in stages.items()}
-    print("stage ms per tick (host clock, synced): "
+    stage_ms = {k: v / 1e3 / args.ticks
+                for k, v in span_device_us(_trace_events(prof)).items()}
+    print("span device ms per tick (profiler): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()),
           flush=True)
-    print(f"stage peak device memory above its start, MiB (state "
+    print(f"span peak device memory above its start, MiB (state "
           f"{sum(x.numel() * x.element_size() for x in st) / 2 ** 20:.1f} "
           f"MiB): " + ", ".join(f"{k} {v / 2 ** 20:.1f}"
-                                for k, v in peaks.items()), flush=True)
+                                for k, v in peaks.peaks.items()), flush=True)
 
     # 2. the window as a user runs it; the kernels update some state
     # tensors in place, so each run starts from its own copy
@@ -216,8 +189,6 @@ def main(argv=None) -> int:
     sync_warnings = sum(SYNC_WARNING in str(w.message) for w in caught)
 
     # 3. the same ticks under the profiler
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
     traced = copy(snapshot)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=act) as prof:
@@ -252,9 +223,9 @@ def main(argv=None) -> int:
         print(f"  {us / 1e3:9.3f} ms  {calls[name]:6d} x  {name[:110]}")
     result = dict(scenario=args.scenario, n=n,
                   edge_gather_mode=cfg.edge_gather_mode, ticks=args.ticks,
-                  device=smi,
-                  tick_ms=[1e3 * s for s in tick_s], stage_ms=stage_ms,
-                  stage_peak_mib={k: v / 2 ** 20 for k, v in peaks.items()},
+                  device=smi, stage_ms=stage_ms,
+                  stage_peak_mib={k: v / 2 ** 20
+                                  for k, v in peaks.peaks.items()},
                   window_wall_ms=wall_ms, window_host_ms=host_ms,
                   device_kernel_ms=device_ms,
                   busy_share=device_ms / wall_ms, host_syncs=syncs,
@@ -276,6 +247,80 @@ def main(argv=None) -> int:
     return 0
 
 
+class _SpanPeaks:
+    """A span recorder (``spans.timing``): each span name's largest peak
+    of allocated device memory above what was allocated when the span
+    opened. The allocator's peak is reset at each entry; an enclosing span
+    keeps the larger of its own peak and its inner spans'. Allocator
+    statistics are host-side: no sync."""
+
+    def __init__(self):
+        import torch
+        self._cuda = torch.cuda
+        self.peaks: dict = defaultdict(int)
+        self._open: list = []       # [allocated at entry, peak so far]
+
+    def open(self):
+        top = self._cuda.max_memory_allocated()
+        if self._open:
+            self._open[-1][1] = max(self._open[-1][1], top)
+        self._cuda.reset_peak_memory_stats()
+        frame = [self._cuda.memory_allocated(), 0]
+        self._open.append(frame)
+        return frame
+
+    def close(self, name: str, frame) -> None:
+        top = self._cuda.max_memory_allocated()
+        self._open.pop()
+        self.peaks[name] = max(self.peaks[name], max(frame[1], top) - frame[0])
+        if self._open:
+            self._open[-1][1] = max(self._open[-1][1], top)
+
+
+def _trace_events(prof) -> list:
+    """The complete events of a finished profile's Chrome trace."""
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        os.remove(path)
+    return [e for e in data.get("traceEvents", [])
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def span_device_us(events) -> dict:
+    """Device microseconds of the kernels, copies and sets launched inside
+    each span of ``spans.NAMES``, from a Chrome trace's events: a device
+    event belongs to every span of its launching thread that was open at
+    its launch (found by the runtime call's correlation id), so a nested
+    span's time also counts in the span around it."""
+    from .spans import NAMES
+    opened: dict = defaultdict(list)          # tid -> [(name, a, b)]
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in NAMES:
+            a = float(e["ts"])
+            opened[e.get("tid")].append((e["name"], a, a + float(e["dur"])))
+    launch = {e["args"]["correlation"]: (e.get("tid"), float(e["ts"]))
+              for e in events if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    out: dict = defaultdict(float)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        at = launch.get(e.get("args", {}).get("correlation"))
+        if at is None:
+            continue
+        for name, a, b in opened.get(at[0], ()):
+            if a <= at[1] < b:
+                out[name] += float(e["dur"])
+    return dict(out)
+
+
 def _harness_syncs(act) -> int:
     """The synchronizing runtime calls of a profiled window that holds
     nothing but its closing synchronize (the profiler's own and the
@@ -290,7 +335,9 @@ def _tally(prof):
     """(device us by kernel name, calls by name, host reads, synchronizing
     runtime calls, full launch queues). CUPTI's "Command Buffer Full"
     records carry the time the host waited on a full launch queue, not
-    device work: they are counted apart."""
+    device work: they are counted apart. The spans' ranges carry their
+    kernels' device time again, so they are left out."""
+    from .spans import NAMES
     by_name = defaultdict(float)
     calls = defaultdict(int)
     syncs = sync_calls = queue_full = 0
@@ -302,10 +349,21 @@ def _tally(prof):
             sync_calls += e.count
         if e.key == QUEUE_FULL:
             queue_full += e.count
-        elif us > 0 and not e.key.startswith("aten::"):
+        elif us > 0 and not e.key.startswith("aten::") \
+                and e.key not in NAMES:
             by_name[e.key] += us
             calls[e.key] += e.count
     return by_name, calls, syncs, sync_calls, queue_full
+
+
+def _same_state(want, got, what: str) -> None:
+    import torch
+    for f, a, b in zip(want._fields, want, got):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs from the eager window "
+                                 f"in {f}")
 
 
 def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
@@ -324,12 +382,7 @@ def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     got = exe(snapshot, tp, keys)
-    for f, a, b in zip(plain._fields, plain, got):
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            raise AssertionError(f"the replayed chunk differs from the "
-                                 f"eager window in {f}")
+    _same_state(plain, got, "the replayed chunk")
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -345,6 +398,11 @@ def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
     sync_calls -= base_calls
     device_ms = sum(by_name.values()) / 1e3
     peak = torch.cuda.max_memory_allocated() - base
+    staged = compile_plan.engine_chunk(cfg, snapshot, tp, keys,
+                                       stage_timing=True)
+    _same_state(plain, staged(snapshot, tp, keys), "the stage-timed replay")
+    torch.cuda.synchronize()
+    graph_ms = {k: v / n_ticks for k, v in staged.stage_ms().items()}
     out = dict(build_s=build_s, wall_ms=wall_ms,
                hbs=n_ticks / wall_ms * 1e3, eager_hbs=n_ticks / eager_ms * 1e3,
                device_kernel_ms=device_ms,
@@ -352,7 +410,7 @@ def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
                host_syncs=syncs, sync_calls=sync_calls, queue_full=queue_full,
                peak_gib=peak / 2 ** 30,
                reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
-               launches=exe.launches)
+               launches=exe.launches, graph_stage_ms=graph_ms)
     busy = (f"{100 * device_ms / wall_ms:.2f}% busy" if device_ms > 0
             else "busy share not measured (no device time in the trace)")
     print(f"captured: engine_chunk of {n_ticks} ticks built in {build_s:.3f} "
@@ -364,6 +422,8 @@ def _captured(cfg, tp, snapshot, plain, keys, eager_ms, act,
           f"above the start, {out['reserved_gib']:.3f} GiB reserved; "
           f"launches recorded at capture {json.dumps(exe.launches)}",
           flush=True)
+    print("captured with stage timing, device ms per tick: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in graph_ms.items()), flush=True)
     compile_plan.clear_caches()
     return out
 

@@ -53,6 +53,7 @@ import torch
 from .. import rng
 from ..parallel import kernel_context as kc
 from ..device import check_on
+from ..spans import span
 from ..ops.bits import pack_words, popcount
 from ..ops.churn import churn_edges, churn_subscriptions
 from ..ops.dispatch import resolved_formulations
@@ -135,82 +136,100 @@ def _step(state: SimState, cfg: SimConfig, tp: TopicParams,
           key: torch.Tensor) -> tuple[SimState, torch.Tensor | None]:
     """One tick of a stored state (engine.py:103-192): decoded at entry,
     :func:`_tick`, encoded at exit (both identities under ``"f32"``)."""
-    state, flags = _tick(decode_state(state, cfg), cfg, tp, key)
-    return encode_state(state, cfg), flags
+    with span("engine.codec"):
+        state = decode_state(state, cfg)
+    state, flags = _tick(state, cfg, tp, key)
+    with span("engine.codec"):
+        state = encode_state(state, cfg)
+    return state, flags
 
 
 def _tick(state: SimState, cfg: SimConfig, tp: TopicParams,
           key: torch.Tensor) -> tuple[SimState, torch.Tensor | None]:
     """One tick in the compute layout: the next state and this tick's flag
-    word (violation | injected bits; None under ``invariant_mode="off"``)."""
+    word (violation | injected bits; None under ``invariant_mode="off"``).
+    Each stage runs inside its span (spans.NAMES); the stage functions are
+    looked up as this module's globals at call time, so a wrapper set on
+    the module (port_bench/tracing.py's eager spans) sees every call."""
     if cfg.fault_plan is not None:
         # the fault pass opens the tick; its key split exists only under a
         # plan, so plan-free configs keep their exact stream
-        key, k_fault = rng.split(key, 2)
-        state, fault = apply_faults(state, cfg, tp, k_fault)
+        with span("engine.faults"):
+            key, k_fault = rng.split(key, 2)
+            state, fault = apply_faults(state, cfg, tp, k_fault)
     else:
         fault = None
     k_pub, k_hb, k_fwd, k_churn, k_ign, k_sub = rng.split(key, 6)
     if cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0:
-        state = churn_subscriptions(state, cfg, tp, k_sub)
-    peers, topics = choose_publishers(state, cfg, k_pub)
-    if fault is not None and fault.corrupt is not None:
-        # effective corruption: a draw on a malicious publisher corrupts
-        # nothing (its message is invalid already)
-        corrupt = fault.corrupt & ~kc.owner_rows(state.malicious, peers)
-        fault = fault._replace(corrupt=corrupt, injected=fault.injected | (
-            corrupt.any().to(torch.int32) * FAULT_CORRUPT))
-    state = publish(state, cfg, peers, topics, k_ign,
-                    corrupt=fault.corrupt if fault is not None else None)
-    # the censor mask reads msg_publisher, so it follows publish
-    censor_bits = censor_word_mask(state, cfg)
+        with span("engine.sub_churn"):
+            state = churn_subscriptions(state, cfg, tp, k_sub)
+    with span("engine.publish"):
+        peers, topics = choose_publishers(state, cfg, k_pub)
+        if fault is not None and fault.corrupt is not None:
+            # effective corruption: a draw on a malicious publisher
+            # corrupts nothing (its message is invalid already)
+            corrupt = fault.corrupt & ~kc.owner_rows(state.malicious, peers)
+            fault = fault._replace(corrupt=corrupt, injected=fault.injected | (
+                corrupt.any().to(torch.int32) * FAULT_CORRUPT))
+        state = publish(state, cfg, peers, topics, k_ign,
+                        corrupt=fault.corrupt if fault is not None else None)
+        # the censor mask reads msg_publisher, so it follows publish
+        censor_bits = censor_word_mask(state, cfg)
     if cfg.gater_enabled:
-        state = gater_decay(state, cfg)
+        with span("engine.gater"):
+            state = gater_decay(state, cfg)
     gossipsub = cfg.router == "gossipsub"
-    if gossipsub:
-        hb = heartbeat(state, cfg, tp, k_hb,
-                       extra_words=_iwant_answer_extras(state, cfg,
-                                                        censor_bits))
-    else:
-        # floodsub and randomsub run no heartbeat: no mesh, no gossip, no
-        # scoring (engine.py:147-161)
-        n, t, k = state.mesh.shape
-        dev = state.mesh.device
-        zf = torch.zeros((n, k), dtype=torch.float32, device=dev)
-        zb = torch.zeros((n, t, k), dtype=torch.bool, device=dev)
-        hb = HeartbeatOut(state=state, scores=zf, scores_all=zf,
-                          inc_gossip=zb, fwd_send=zb)
-    state = forward_tick(hb.state, cfg, tp, hb.inc_gossip, hb.scores, k_fwd,
-                         fwd_send=hb.fwd_send if gossipsub else None,
-                         answers_k=hb.extra_routed[0] if hb.extra_routed
-                         else None,
-                         link_ok=fault.link_ok if fault is not None else None,
-                         dup_edges=fault.dup_edges if fault is not None
-                         else None,
-                         censor_bits=censor_bits)
+    with span("engine.heartbeat"):
+        if gossipsub:
+            hb = heartbeat(state, cfg, tp, k_hb,
+                           extra_words=_iwant_answer_extras(state, cfg,
+                                                            censor_bits))
+        else:
+            # floodsub and randomsub run no heartbeat: no mesh, no gossip,
+            # no scoring (engine.py:147-161)
+            n, t, k = state.mesh.shape
+            dev = state.mesh.device
+            zf = torch.zeros((n, k), dtype=torch.float32, device=dev)
+            zb = torch.zeros((n, t, k), dtype=torch.bool, device=dev)
+            hb = HeartbeatOut(state=state, scores=zf, scores_all=zf,
+                              inc_gossip=zb, fwd_send=zb)
+    with span("engine.forward"):
+        state = forward_tick(hb.state, cfg, tp, hb.inc_gossip, hb.scores,
+                             k_fwd,
+                             fwd_send=hb.fwd_send if gossipsub else None,
+                             answers_k=hb.extra_routed[0] if hb.extra_routed
+                             else None,
+                             link_ok=fault.link_ok if fault is not None
+                             else None,
+                             dup_edges=fault.dup_edges if fault is not None
+                             else None,
+                             censor_bits=censor_bits)
     if cfg.churn_disconnect_prob > 0.0:
         # connection churn closes the tick, reusing the heartbeat's
         # unmasked score cache for the PX reconnect gate; plan-cut edges
         # stay down
-        state = churn_edges(state, cfg, tp, k_churn,
-                            scores_all=hb.scores_all,
-                            forbid_up=fault.want_down if fault is not None
-                            else None)
-    notes = kc.drain_halo_overflow()
-    if notes:
-        # halo-route bucket overflows this tick (parallel/halo.py capacity
-        # rule, engine.py:177-183): a poisoned run identifies itself
-        state = state._replace(halo_overflow=state.halo_overflow
-                               + sum(notes))
-    flags = None
-    if cfg.invariant_mode != "off":
-        # the sentinel closes the tick: injected-fault bits and invariant
-        # violations OR into the sticky flag word (inside a peer group
-        # every rank's bits)
-        flags = kc.por(tick_flags(
-            state, cfg, injected=fault.injected if fault is not None
-            else None, n_global=kc.global_rows(state.mesh.shape[0])))
-        state = state._replace(fault_flags=state.fault_flags | flags)
+        with span("engine.churn"):
+            state = churn_edges(state, cfg, tp, k_churn,
+                                scores_all=hb.scores_all,
+                                forbid_up=fault.want_down if fault is not None
+                                else None)
+    with span("engine.flags"):
+        notes = kc.drain_halo_overflow()
+        if notes:
+            # halo-route bucket overflows this tick (parallel/halo.py
+            # capacity rule, engine.py:177-183): a poisoned run identifies
+            # itself
+            state = state._replace(halo_overflow=state.halo_overflow
+                                   + sum(notes))
+        flags = None
+        if cfg.invariant_mode != "off":
+            # the sentinel closes the tick: injected-fault bits and
+            # invariant violations OR into the sticky flag word (inside a
+            # peer group every rank's bits)
+            flags = kc.por(tick_flags(
+                state, cfg, injected=fault.injected if fault is not None
+                else None, n_global=kc.global_rows(state.mesh.shape[0])))
+            state = state._replace(fault_flags=state.fault_flags | flags)
     return state._replace(tick=state.tick + 1), flags
 
 
@@ -242,7 +261,8 @@ def _ticks(state: SimState, cfg: SimConfig, tp: TopicParams, n_ticks: int,
             if viol:
                 raise InvariantViolation(viol, int(state.tick) - 1)
         if telemetry:
-            records.append(health_record(state, cfg, tp))
+            with span("engine.telemetry"):
+                records.append(health_record(state, cfg, tp))
     return (state, stack_records(records)) if telemetry else state
 
 

@@ -79,6 +79,12 @@ is chunked, checkpointed, resumed, retried or degraded.
   ``sim/trace_export.run_traced`` on the run's own keys, host-stepped and
   synchronous; ``events_out``/``health_out`` collect the confirmed
   chunks' events and rows.
+- **Timing.** Each phase runs inside its span (``spans.NAMES``:
+  ``supervisor.setup``, ``.dispatch``, ``.capture``, ``.launch``,
+  ``.confirm``, ``.process``, ``.boundary``, ``.drain``; ``writer.task``
+  on the writer thread), and ``SupervisorReport.timing``
+  (:class:`SupervisorTiming`) keeps each phase's host-clock total and
+  longest stretch, always on.
 
 Env knobs (``SupervisorConfig.from_env``): ``GRAFT_CHUNK_TICKS``,
 ``GRAFT_DEADLINE_S``, ``GRAFT_CRASH_DIR``, ``GRAFT_CHECKPOINT_DIR``,
@@ -118,6 +124,7 @@ import torch
 
 from .. import rng
 from ..device import check_on
+from ..spans import span
 from . import checkpoint
 from .config import SimConfig, TopicParams
 from .hostio import fetch_local as _fetch_scalar
@@ -250,12 +257,90 @@ class SupervisorConfig:
         return SupervisorConfig(**kw)
 
 
+# one lock for every SupervisorTiming: a report stays picklable, and a
+# thread the watchdog abandoned may still add its launch time
+_TIMING_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class SupervisorTiming:
+    """Host-clock time of a supervised run by phase, in ms: a running
+    total (``<phase>_ms``) and the longest single stretch
+    (``<phase>_max_ms``) of each, so a run of any length keeps the same
+    few numbers.
+
+    - ``chunks``: chunks confirmed; ``capture_s``: the seconds of the
+      captures this run's dispatches made (``EngineExecutable.capture_s``
+      of each first use);
+    - ``launch``: the executable's call on the dispatching thread (input
+      loads, ``graph.replay()``, output clones), inside ``dispatch``;
+    - ``dispatch``: the main thread in a chunk's whole dispatch, the
+      deadline thread's spawn and join included;
+    - ``wait``: the main thread blocked until a chunk's event completes;
+    - ``process``: the main thread folding a confirmed chunk in;
+      ``boundary`` (the boundaries' anchor and checkpoint hand-off, the
+      sum of the ``boundary`` events' ``pause_ms``) and ``writer_blocked``
+      (submitting to a full writer queue) fall inside it;
+    - ``writer``: the writer thread busy with tasks and journal flushes
+      (where the writer runs inline, inside ``process``)."""
+
+    chunks: int = 0
+    capture_s: float = 0.0
+    launch_ms: float = 0.0
+    launch_max_ms: float = 0.0
+    dispatch_ms: float = 0.0
+    dispatch_max_ms: float = 0.0
+    wait_ms: float = 0.0
+    wait_max_ms: float = 0.0
+    process_ms: float = 0.0
+    process_max_ms: float = 0.0
+    boundary_ms: float = 0.0
+    boundary_max_ms: float = 0.0
+    writer_ms: float = 0.0
+    writer_max_ms: float = 0.0
+    writer_blocked_ms: float = 0.0
+    writer_blocked_max_ms: float = 0.0
+
+    def add(self, phase: str, ms: float) -> None:
+        """Add one stretch of ``ms`` to ``phase``'s total and maximum."""
+        with _TIMING_LOCK:
+            total, top = phase + "_ms", phase + "_max_ms"
+            setattr(self, total, getattr(self, total) + ms)
+            if ms > getattr(self, top):
+                setattr(self, top, ms)
+
+
+class _phase:
+    """``with _phase(timing, "launch"):`` the block inside the span
+    ``supervisor.launch``, its host time added to ``timing`` (when one is
+    given) under ``launch``."""
+
+    __slots__ = ("timing", "phase", "_span", "_t0")
+
+    def __init__(self, timing: SupervisorTiming | None, phase: str,
+                 name: str | None = None):
+        self.timing, self.phase = timing, phase
+        self._span = span(name or "supervisor." + phase)
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        ms = (time.perf_counter() - self._t0) * 1e3
+        self._span.__exit__(*exc)
+        if self.timing is not None:
+            self.timing.add(self.phase, ms)
+        return False
+
+
 @dataclasses.dataclass
 class SupervisorReport:
     """What the supervised run did: chunk counts, the retry/degrade trail,
-    checkpoint/resume provenance, and the crash dump path (set only when
+    checkpoint/resume provenance, the crash dump path (set only when
     :class:`SupervisorCrash` was raised; reach it via the exception's
-    ``report``)."""
+    ``report``) and the host time by phase (``timing``)."""
 
     chunks_run: int = 0
     ticks_run: int = 0
@@ -266,6 +351,8 @@ class SupervisorReport:
     resumed_tick: int | None = None
     crash_dump: str | None = None
     events: list = dataclasses.field(default_factory=list)
+    timing: SupervisorTiming = dataclasses.field(
+        default_factory=SupervisorTiming)
 
     def log(self, event: str, **info) -> None:
         self.events.append({"event": event, **info})
@@ -508,11 +595,16 @@ class _Writer:
     "raise"``) executes every task inline at submit. The queue bound is
     backpressure, not loss. ``flush`` (the journal's batched fsync) fires
     whenever the queue runs dry and at every :meth:`drain`. The first
-    task error is stored and re-raised at the next submit or drain."""
+    task error is stored and re-raised at the next submit or drain.
+    ``timing`` (a :class:`SupervisorTiming`) takes the tasks' busy time
+    (``writer``) and the submitter's time blocked on a full queue
+    (``writer_blocked``)."""
 
-    def __init__(self, maxsize: int = 4, flush=None, threaded: bool = True):
+    def __init__(self, maxsize: int = 4, flush=None, threaded: bool = True,
+                 timing: SupervisorTiming | None = None):
         self._flush = flush
         self._threaded = threaded
+        self._timing = timing
         self._err: BaseException | None = None
         self._thread = None
         if threaded:
@@ -528,9 +620,10 @@ class _Writer:
                 if task is None:
                     return
                 if self._err is None:   # first error wins; skip the rest
-                    task()
-                    if self._q.empty() and self._flush is not None:
-                        self._flush()
+                    with _phase(self._timing, "writer", "writer.task"):
+                        task()
+                        if self._q.empty() and self._flush is not None:
+                            self._flush()
             except BaseException as e:
                 self._err = e
             finally:
@@ -544,17 +637,24 @@ class _Writer:
         if self._err is not None:
             self._reraise()
         if not self._threaded:
-            task()
-            if self._flush is not None:
-                self._flush()
+            with _phase(self._timing, "writer", "writer.task"):
+                task()
+                if self._flush is not None:
+                    self._flush()
             return
-        while True:     # interruptible bounded put (backpressure point)
-            try:
-                self._q.put(task, timeout=0.2)
-                return
-            except queue.Full:
-                if self._err is not None:
-                    self._reraise()
+        try:
+            self._q.put_nowait(task)
+            return
+        except queue.Full:
+            pass
+        with _phase(self._timing, "writer_blocked"):
+            while True:     # interruptible bounded put (backpressure point)
+                try:
+                    self._q.put(task, timeout=0.2)
+                    return
+                except queue.Full:
+                    if self._err is not None:
+                        self._reraise()
 
     def drain(self, raise_errors: bool = True) -> None:
         """Barrier: every submitted task has fully executed, and the
@@ -650,16 +750,31 @@ class _Pending:
     dispatched_at: float        # monotonic stamp at dispatch-complete
 
 
+def _first_use(build, timing: SupervisorTiming | None):
+    """``build()``, a lookup that captures, inside the span
+    ``supervisor.capture``; the executable's capture seconds go to
+    ``timing``."""
+    with span("supervisor.capture"):
+        exe = build()
+    if timing is not None:
+        with _TIMING_LOCK:
+            timing.capture_s += exe.capture_s
+    return exe
+
+
 def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
                     keys_chunk, master_key, sup: SupervisorConfig,
                     traced: bool, hook, info: dict, *, donate: bool = False,
-                    src_stamp=None) -> _Pending:
+                    src_stamp=None,
+                    timing: SupervisorTiming | None = None) -> _Pending:
     """Dispatch one chunk attempt WITHOUT waiting for the card: build its
     executable (under the compile deadline: a capture on the card), run
     the fault-injection hook and the enqueue under the run deadline, and
     fence the result. ``keys_chunk is None`` selects the ``"fold_in"``
     window executable; ``donate=True`` the donated flavour. ``traced``
-    runs the chunk through ``trace_export.run_traced`` (host-stepped)."""
+    runs the chunk through ``trace_export.run_traced`` (host-stepped).
+    ``timing`` takes the chunk's call (``launch``) and the seconds of a
+    capture it makes."""
     from ..parallel import compile_plan
     from .engine import run_checked_keys
 
@@ -669,18 +784,27 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
     if exec_cfg.invariant_mode != "raise" and not traced \
             and sup.run_fn is None:
         if keys_chunk is None:
-            exe = _with_deadline(
-                lambda: compile_plan.engine_window(
-                    exec_cfg, state, tp, master_key,
-                    int(info["chunk_ticks"]),
-                    telemetry=telemetry, donate=donate),
-                sup.compile_deadline_s, "compile", info, dev)
+            n = int(info["chunk_ticks"])
+            cached = compile_plan.is_cached(exec_cfg, state, master_key, n,
+                                            telemetry=telemetry,
+                                            donate=donate)
+
+            def build():
+                return compile_plan.engine_window(
+                    exec_cfg, state, tp, master_key, n,
+                    telemetry=telemetry, donate=donate)
         else:
-            exe = _with_deadline(
-                lambda: compile_plan.engine_chunk(
+            cached = compile_plan.is_cached(exec_cfg, state, keys_chunk,
+                                            telemetry=telemetry,
+                                            donate=donate)
+
+            def build():
+                return compile_plan.engine_chunk(
                     exec_cfg, state, tp, keys_chunk,
-                    telemetry=telemetry, donate=donate),
-                sup.compile_deadline_s, "compile", info, dev)
+                    telemetry=telemetry, donate=donate)
+        exe = _with_deadline(
+            build if cached else lambda: _first_use(build, timing),
+            sup.compile_deadline_s, "compile", info, dev)
 
     cancelled = threading.Event()
     events: list = []
@@ -696,26 +820,29 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
         rec = None
         if traced:
             from .trace_export import run_traced
-            out, evs = run_traced(state, exec_cfg, tp, None, 0,
-                                  health_out=health, keys=keys_chunk,
-                                  device=dev)
+            with _phase(timing, "launch"):
+                out, evs = run_traced(state, exec_cfg, tp, None, 0,
+                                      health_out=health, keys=keys_chunk,
+                                      device=dev)
             events.extend(evs)
             return out, None, _Fence(out.tick, None)
         if sup.run_fn is not None:
             # the caller's chunk runner (the sharded chunk); a telemetry
             # runner returns (state, HealthRecord). The EXACT tuple check:
             # SimState is a tuple subclass
-            out = sup.run_fn(state, exec_cfg, tp, keys_chunk)
+            with _phase(timing, "launch"):
+                out = sup.run_fn(state, exec_cfg, tp, keys_chunk)
             if type(out) is tuple:
                 out, rec = out
             return out, None, _Fence(out.tick, rec)
-        if exe is not None:
-            out = exe(state, tp, master_key if keys_chunk is None
-                      else keys_chunk)
-        else:
-            # "raise" mode: the tick's violation bits read on the host
-            out = run_checked_keys(state, exec_cfg, tp, keys_chunk,
-                                   telemetry=telemetry, device=dev)
+        with _phase(timing, "launch"):
+            if exe is not None:
+                out = exe(state, tp, master_key if keys_chunk is None
+                          else keys_chunk)
+            else:
+                # "raise" mode: the tick's violation bits read on the host
+                out = run_checked_keys(state, exec_cfg, tp, keys_chunk,
+                                       telemetry=telemetry, device=dev)
         if telemetry:
             out, rec = out
         stamp = exe.stamp() if exe is not None else None
@@ -737,16 +864,18 @@ def _dispatch_chunk(state: SimState, exec_cfg: SimConfig, tp: TopicParams,
 
 
 def _confirm(pend: _Pending, sup: SupervisorConfig,
-             scale: float = 1.0) -> None:
+             scale: float = 1.0,
+             timing: SupervisorTiming | None = None) -> None:
     """Block until the chunk's result is real, under the chunk's budget
     RE-ANCHORED to its dispatch-complete time (floored at
-    ``_CONFIRM_GRACE_S``)."""
+    ``_CONFIRM_GRACE_S``); the wait goes to ``timing`` (``wait``)."""
     deadline = None
     if sup.deadline_s is not None:
         deadline = max(_CONFIRM_GRACE_S, sup.deadline_s * scale
                        - (time.monotonic() - pend.dispatched_at))
-    _with_deadline(pend.fence.wait, deadline, "chunk", pend.info,
-                   pend.out.tick.device)
+    with _phase(timing, "wait", "supervisor.confirm"):
+        _with_deadline(pend.fence.wait, deadline, "chunk", pend.info,
+                       pend.out.tick.device)
 
 
 def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
@@ -783,98 +912,100 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         raise ValueError("supervised_run: traced=True steps the state "
                          "itself and cannot honour a run_fn")
     report = SupervisorReport()
-    start_tick = int(_fetch_scalar(state.tick))
-    fold = cfg.key_schedule == "fold_in"
-    key = key.to(state.tick.device)
-    on_card = state.tick.device.type == "cuda"
-    # "host": ONE master pre-split, run's exact discipline. "fold_in": the
-    # keys fold on the card; crash dumps and "raise" chunks materialize
-    # their windows through engine.window_keys
-    all_keys = None if fold else rng.split(key, n_ticks)
-    # traced and checkified chunks are host-blocking: synchronous, the
-    # writer inline, no speculation
-    pipelined = bool(sup.async_chunks) and not traced \
-        and cfg.invariant_mode != "raise"
+    timing = report.timing
+    with span("supervisor.setup"):
+        start_tick = int(_fetch_scalar(state.tick))
+        fold = cfg.key_schedule == "fold_in"
+        key = key.to(state.tick.device)
+        on_card = state.tick.device.type == "cuda"
+        # "host": ONE master pre-split, run's exact discipline. "fold_in": the
+        # keys fold on the card; crash dumps and "raise" chunks materialize
+        # their windows through engine.window_keys
+        all_keys = None if fold else rng.split(key, n_ticks)
+        # traced and checkified chunks are host-blocking: synchronous, the
+        # writer inline, no speculation
+        pipelined = bool(sup.async_chunks) and not traced \
+            and cfg.invariant_mode != "raise"
 
-    done = 0
-    if sup.checkpoint_dir:
-        state, done = _try_resume(sup, cfg, state, start_tick, n_ticks,
-                                  report)
+        done = 0
+        if sup.checkpoint_dir:
+            state, done = _try_resume(sup, cfg, state, start_tick, n_ticks,
+                                      report)
 
-    # the command plane: tail the stream from the stamped offset, the
-    # exactly-once cursor a resumed run replays ingestion from
-    ingest = sup.commands
-    if ingest is not None:
-        ing_off = 0
-        if report.resumed_from:
-            try:
-                ing_off = int(checkpoint.sidecar_meta(report.resumed_from)
-                              .get("stream_offset") or 0)
-            except Exception:
-                ing_off = 0
-        ingest.start(ing_off)
-        report.log("ingest_start", offset=ing_off)
+        # the command plane: tail the stream from the stamped offset, the
+        # exactly-once cursor a resumed run replays ingestion from
+        ingest = sup.commands
+        if ingest is not None:
+            ing_off = 0
+            if report.resumed_from:
+                try:
+                    ing_off = int(checkpoint.sidecar_meta(report.resumed_from)
+                                  .get("stream_offset") or 0)
+                except Exception:
+                    ing_off = 0
+            ingest.start(ing_off)
+            report.log("ingest_start", offset=ing_off)
 
-    # live verdicts: the monitors resume from the sidecar's token, so a
-    # relaunch re-derives only the verdicts not yet checkpointed
-    monitors = None
-    if sup.contracts:
-        from .adversary import ContractMonitors
-        if sup.verdict_policy not in ("journal", "snapshot", "abort"):
-            raise ValueError(
-                f"verdict_policy {sup.verdict_policy!r} unknown "
-                "(supported: 'journal', 'snapshot', 'abort')")
-        if sup.health_path is None and not traced:
-            raise ValueError(
-                "live contracts need the telemetry lane: set health_path "
-                "(GRAFT_HEALTH_STREAM) so chunks carry the rows the "
-                "monitors fold")
-        monitors = ContractMonitors(tuple(sup.contracts))
-        if report.resumed_from:
-            tok = checkpoint.sidecar_meta(report.resumed_from) \
-                .get("monitors")
-            if tok:
-                # a contract-set mismatch is refused (from_token), never a
-                # silent verdict reset
-                monitors = ContractMonitors.from_token(
-                    tok, tuple(sup.contracts))
-                report.log("verdict_resume",
-                           statuses=list(monitors.statuses))
+        # live verdicts: the monitors resume from the sidecar's token, so a
+        # relaunch re-derives only the verdicts not yet checkpointed
+        monitors = None
+        if sup.contracts:
+            from .adversary import ContractMonitors
+            if sup.verdict_policy not in ("journal", "snapshot", "abort"):
+                raise ValueError(
+                    f"verdict_policy {sup.verdict_policy!r} unknown "
+                    "(supported: 'journal', 'snapshot', 'abort')")
+            if sup.health_path is None and not traced:
+                raise ValueError(
+                    "live contracts need the telemetry lane: set health_path "
+                    "(GRAFT_HEALTH_STREAM) so chunks carry the rows the "
+                    "monitors fold")
+            monitors = ContractMonitors(tuple(sup.contracts))
+            if report.resumed_from:
+                tok = checkpoint.sidecar_meta(report.resumed_from) \
+                    .get("monitors")
+                if tok:
+                    # a contract-set mismatch is refused (from_token), never a
+                    # silent verdict reset
+                    monitors = ContractMonitors.from_token(
+                        tok, tuple(sup.contracts))
+                    report.log("verdict_resume",
+                               statuses=list(monitors.statuses))
 
-    journal = None
-    if sup.health_path and sup.write_files:
-        from .telemetry import HealthJournal
-        # pipelined: ONE fsync per writer-queue drain instead of one per
-        # line (the torn-tail-tolerant reader copes either way)
-        journal = HealthJournal(sup.health_path,
-                                sync_every_write=not pipelined)
-        journal.header(cfg, scenario=sup.scenario, start_tick=start_tick,
-                       n_ticks=n_ticks, resumed_tick=report.resumed_tick,
-                       traced=traced, **(sup.health_meta or {}))
+        journal = None
+        if sup.health_path and sup.write_files:
+            from .telemetry import HealthJournal
+            # pipelined: ONE fsync per writer-queue drain instead of one per
+            # line (the torn-tail-tolerant reader copes either way)
+            journal = HealthJournal(sup.health_path,
+                                    sync_every_write=not pipelined)
+            journal.header(cfg, scenario=sup.scenario, start_tick=start_tick,
+                           n_ticks=n_ticks, resumed_tick=report.resumed_tick,
+                           traced=traced, **(sup.health_meta or {}))
 
-    writer = _Writer(maxsize=sup.writer_queue,
-                     flush=journal.sync if journal is not None else None,
-                     threaded=pipelined)
+        writer = _Writer(maxsize=sup.writer_queue,
+                         flush=journal.sync if journal is not None else None,
+                         threaded=pipelined, timing=timing)
 
-    exec_cfg = cfg
-    chunk_ticks = max(1, int(sup.chunk_ticks))
-    for _ in range(max(0, int(sup.initial_degrade))):
-        exec_cfg, chunk_ticks = _degrade(exec_cfg, chunk_ticks, sup, report,
-                                         modes=True)
-    every = sup.checkpoint_every_ticks or chunk_ticks
-    next_ckpt = done + every
-    failures = 0            # consecutive; reset on every successful chunk
-    # retry/dump anchor: the newest confirmed boundary state, owned (never
-    # a view of a graph's buffers), and the progress offset it holds
-    anchor_state, anchor_done = state, done
-    # multi-process: the newest whole copy and the progress offset it was
-    # gathered at, refreshed at every checkpoint-cadence boundary on the
-    # main thread (state_to_host is a collective: never in the error
-    # path, where one rank alone would enter it); the crash path dumps it
-    last_host_state, last_host_done = None, done
-    if sup.state_to_host is not None:
-        last_host_state = sup.state_to_host(state)
-    multiproc = sup.run_fn is not None and checkpoint._process_count() > 1
+        exec_cfg = cfg
+        chunk_ticks = max(1, int(sup.chunk_ticks))
+        for _ in range(max(0, int(sup.initial_degrade))):
+            exec_cfg, chunk_ticks = _degrade(exec_cfg, chunk_ticks, sup,
+                                             report, modes=True)
+        every = sup.checkpoint_every_ticks or chunk_ticks
+        next_ckpt = done + every
+        failures = 0            # consecutive; reset on every successful chunk
+        # retry/dump anchor: the newest confirmed boundary state, owned (never
+        # a view of a graph's buffers), and the progress offset it holds
+        anchor_state, anchor_done = state, done
+        # multi-process: the newest whole copy and the progress offset it was
+        # gathered at, refreshed at every checkpoint-cadence boundary on the
+        # main thread (state_to_host is a collective: never in the error
+        # path, where one rank alone would enter it); the crash path dumps it
+        last_host_state, last_host_done = None, done
+        if sup.state_to_host is not None:
+            last_host_state = sup.state_to_host(state)
+        multiproc = sup.run_fn is not None and checkpoint._process_count() > 1
 
     def beat(tick: int, chunk: int) -> None:
         # liveness progress stamp: a shared-filesystem hiccup never fails
@@ -895,6 +1026,12 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
 
     def dispatch(src, src_stamp, c_done: int, ticks: int, info: dict,
                  donate: bool, hook=_chunk_hook) -> _Pending:
+        with _phase(timing, "dispatch"):
+            return _dispatch(src, src_stamp, c_done, ticks, info, donate,
+                             hook)
+
+    def _dispatch(src, src_stamp, c_done: int, ticks: int, info: dict,
+                  donate: bool, hook) -> _Pending:
         anchor_src = src
         frame = None
         if ingest is not None and not info.get("catchup"):
@@ -911,7 +1048,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
             keys_chunk = chunk_keys(c_done, c_done + ticks)
         p = _dispatch_chunk(src, exec_cfg, tp, keys_chunk, key, sup,
                             traced, hook, info, donate=donate,
-                            src_stamp=src_stamp)
+                            src_stamp=src_stamp, timing=timing)
         if frame is not None:
             # a retry resets the carry to the recorded input and
             # re-applies the cached frame: the PRE-apply state, or the
@@ -982,6 +1119,10 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
     window_end_hit = False
 
     def process(p: _Pending) -> None:
+        with _phase(timing, "process"):
+            _process(p)
+
+    def _process(p: _Pending) -> None:
         """Fold a CONFIRMED chunk into the run: counters, journal rows
         (through the writer), the boundary anchor and checkpoint, window
         accounting. Main thread only."""
@@ -995,6 +1136,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         carry, carry_stamp, carry_done = p.out, p.out_stamp, done
         report.chunks_run += 1
         report.ticks_run += p.ticks
+        timing.chunks += 1
         report.log("chunk_ok", **p.info)
         beat(start_tick + done, report.chunks_run)
         if events_out is not None:
@@ -1095,47 +1237,49 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
         # a window end is ALWAYS a boundary: "stop cleanly (checkpoint
         # written if a dir is set)"
         if done >= next_ckpt or done >= n_ticks or window_end or force_ckpt:
-            pause_t0 = time.perf_counter()
-            if sup.state_to_host is not None:
-                # collective on EVERY rank at the checkpoint cadence, even
-                # with no checkpoint_dir: the crash dump's freshness
-                last_host_state = sup.state_to_host(p.out)
-                last_host_done = done
-            if sup.checkpoint_dir and sup.write_files:
-                to_save = _to_host(p.out, p.fence.event) \
-                    if sup.state_to_host is None else last_host_state
-                path = _ckpt_path(sup.checkpoint_dir, start_tick + done)
-                report.checkpoints.append(path)
-                report.log("checkpoint", tick=start_tick + done, path=path)
-                # exactly-once stamps: the consumed stream offset as of
-                # this chunk's frame and the monitors after this chunk's
-                # fold (a whitespace-free token: sidecar_meta splits on
-                # whitespace)
-                extra = {}
-                if fr is not None:
-                    extra["stream_offset"] = fr.offset
-                if monitors is not None:
-                    extra["monitors"] = monitors.state_token()
+            with span("supervisor.boundary"):
+                pause_t0 = time.perf_counter()
+                if sup.state_to_host is not None:
+                    # collective on EVERY rank at the checkpoint cadence, even
+                    # with no checkpoint_dir: the crash dump's freshness
+                    last_host_state = sup.state_to_host(p.out)
+                    last_host_done = done
+                if sup.checkpoint_dir and sup.write_files:
+                    to_save = _to_host(p.out, p.fence.event) \
+                        if sup.state_to_host is None else last_host_state
+                    path = _ckpt_path(sup.checkpoint_dir, start_tick + done)
+                    report.checkpoints.append(path)
+                    report.log("checkpoint", tick=start_tick + done, path=path)
+                    # exactly-once stamps: the consumed stream offset as of
+                    # this chunk's frame and the monitors after this chunk's
+                    # fold (a whitespace-free token: sidecar_meta splits on
+                    # whitespace)
+                    extra = {}
+                    if fr is not None:
+                        extra["stream_offset"] = fr.offset
+                    if monitors is not None:
+                        extra["monitors"] = monitors.state_token()
 
-                def save(to_save=to_save, path=path, extra=extra or None):
-                    os.makedirs(sup.checkpoint_dir, exist_ok=True)
-                    checkpoint.save(path, to_save, cfg=cfg,
-                                    extra=extra)    # crash-atomic
-                    _prune_checkpoints(sup.checkpoint_dir,
-                                       sup.keep_checkpoints)
-                writer.submit(save)
-                if journal is not None:
-                    writer.submit(lambda t=start_tick + done, pth=path:
-                                  journal.note("checkpoint", tick=t,
-                                               path=pth))
-            # the anchor, and the carry from here, own their tensors
-            anchor_state, anchor_done = _owned(p.out, p.out_stamp), done
-            carry, carry_stamp = anchor_state, None
-            next_ckpt = done + every
-            # the main-thread stall this boundary cost
-            report.log("boundary", tick=start_tick + done,
-                       pause_ms=round((time.perf_counter() - pause_t0)
-                                      * 1e3, 3))
+                    def save(to_save=to_save, path=path, extra=extra or None):
+                        os.makedirs(sup.checkpoint_dir, exist_ok=True)
+                        checkpoint.save(path, to_save, cfg=cfg,
+                                        extra=extra)    # crash-atomic
+                        _prune_checkpoints(sup.checkpoint_dir,
+                                           sup.keep_checkpoints)
+                    writer.submit(save)
+                    if journal is not None:
+                        writer.submit(lambda t=start_tick + done, pth=path:
+                                      journal.note("checkpoint", tick=t,
+                                                   path=pth))
+                # the anchor, and the carry from here, own their tensors
+                anchor_state, anchor_done = _owned(p.out, p.out_stamp), done
+                carry, carry_stamp = anchor_state, None
+                next_ckpt = done + every
+                # the main-thread stall this boundary cost
+                pause_ms = (time.perf_counter() - pause_t0) * 1e3
+                timing.add("boundary", pause_ms)
+                report.log("boundary", tick=start_tick + done,
+                           pause_ms=round(pause_ms, 3))
         if window_end:
             # the caller resumes the same (key, n_ticks) schedule later:
             # the per-tick keys are a function of both
@@ -1196,7 +1340,8 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
                                       done - carry_done, cu_info,
                                       donate=False, hook=None)
                         _confirm(cu, sup, scale=max(
-                            1.0, (done - carry_done) / chunk_ticks))
+                            1.0, (done - carry_done) / chunk_ticks),
+                            timing=timing)
                     except Exception as e:
                         handle_failure(e, cu_info, carry_done,
                                        done - carry_done, carry,
@@ -1248,7 +1393,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
                     # and checkpoint through the writer so a kill resumes
                     # from the last DRAINED checkpoint
                     try:
-                        _confirm(pend, sup)
+                        _confirm(pend, sup, timing=timing)
                         process(pend)
                         writer.drain(raise_errors=False)
                     except Exception:
@@ -1257,7 +1402,7 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
 
             # ---- confirm chunk k (re-anchored deadline) and fold it in
             try:
-                _confirm(pend, sup)
+                _confirm(pend, sup, timing=timing)
             except Exception as e:
                 if spec is not None or spec_exc is not None:
                     # the in-flight k+1 consumed a poisoned input: its
@@ -1285,29 +1430,33 @@ def supervised_run(state: SimState, cfg: SimConfig, tp: TopicParams,
                 continue
             pend = spec
 
-        if journal is not None:
-            # terminal marker: a bounded-window stop (max_chunks) is a
-            # PAUSE the caller resumes; only true completion is "run_end"
-            ing_meta = {}
-            if ingest is not None:
-                ing_meta = {
-                    "commands_applied": int(
-                        getattr(ingest, "applied_total", 0)),
-                    "commands_shed": int(getattr(ingest, "shed_total", 0)),
-                    "commands_refused": int(
-                        getattr(ingest, "refused_total", 0)),
-                    "ingest_offset": int(
-                        getattr(ingest, "consumed_offset", 0))}
-            writer.submit(lambda: journal.note(
-                "window_end" if done < n_ticks else "run_end",
-                tick=start_tick + done, chunks=report.chunks_run,
-                retries=report.retries,
-                degrade_level=report.degrade_level, **ing_meta))
-        # drain barrier: every checkpoint is durable and the journal
-        # fsync'd before the caller sees the final state
-        writer.drain()
+        with span("supervisor.drain"):
+            if journal is not None:
+                # terminal marker: a bounded-window stop (max_chunks) is a
+                # PAUSE the caller resumes; only true completion is
+                # "run_end"
+                ing_meta = {}
+                if ingest is not None:
+                    ing_meta = {
+                        "commands_applied": int(
+                            getattr(ingest, "applied_total", 0)),
+                        "commands_shed": int(
+                            getattr(ingest, "shed_total", 0)),
+                        "commands_refused": int(
+                            getattr(ingest, "refused_total", 0)),
+                        "ingest_offset": int(
+                            getattr(ingest, "consumed_offset", 0))}
+                writer.submit(lambda: journal.note(
+                    "window_end" if done < n_ticks else "run_end",
+                    tick=start_tick + done, chunks=report.chunks_run,
+                    retries=report.retries,
+                    degrade_level=report.degrade_level, **ing_meta))
+            # drain barrier: every checkpoint is durable and the journal
+            # fsync'd before the caller sees the final state
+            writer.drain()
     finally:
-        writer.close()
-        if journal is not None:
-            journal.close()
+        with span("supervisor.drain"):
+            writer.close()
+            if journal is not None:
+                journal.close()
     return _owned(carry, carry_stamp), report

@@ -693,6 +693,77 @@ def test_captured_chunks_equal_eager(case, schedule, donate):
         compile_plan.clear_caches()
 
 
+@pytest.mark.parametrize("case", ["headline", "churn, pallas"])
+def test_stage_timed_chunk_equals_plain_and_times_its_spans(case,
+                                                           monkeypatch):
+    """A chunk of 4 ticks at 8192 peers captured with ``stage_timing=True``
+    replays bit-equal to the plain capture; the plain capture makes no
+    event and the timed one two per span; every span's device time is
+    positive; the tick's own spans (``engine.*``) sum to within 5% of the
+    graph's replay time by CUDA events; the heartbeat's parts sum to no
+    more than ``engine.heartbeat``."""
+    _need_card()
+    import dataclasses
+    from go_libp2p_pubsub_tpu_torch import spans
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (build_headline, scenarios,
+                                                state_to_numpy, topology)
+    n = 8192
+    topo = topology.sparse_fast(n, K, degree=12, seed=scenarios.SEED)
+    if case == "headline":
+        cfg, tp, st = build_headline(n, device="cuda", topo=topo)
+    else:
+        cfg, tp, st = scenarios.churn_50k(n, device="cuda", topo=topo)
+        cfg = dataclasses.replace(cfg, hop_mode="xla",
+                                  edge_gather_mode="pallas")
+    keys = rng.split(rng.PRNGKey(11, device="cuda"), 4)
+    made = []
+    base = torch.cuda.Event
+
+    class Counted(base):
+        def __new__(cls, *a, **k):
+            made.append(k.get("external", False))
+            return super().__new__(cls, *a, **k)
+
+    try:
+        monkeypatch.setattr(torch.cuda, "Event", Counted)
+        plain = compile_plan.engine_chunk(cfg, st, tp, keys, telemetry=True)
+        assert made == []
+        timed = compile_plan.engine_chunk(cfg, st, tp, keys, telemetry=True,
+                                          stage_timing=True)
+        monkeypatch.setattr(torch.cuda, "Event", base)
+        assert made and all(made)
+        assert len(made) == 2 * len(timed._timer.marks)
+        want, want_rec = plain(st, tp, keys)
+        got, got_rec = timed(st, tp, keys)
+        want, got = state_to_numpy(want), state_to_numpy(got)
+        for f, a in want.items():
+            np.testing.assert_array_equal(got[f], a, err_msg=f)
+        for f, a, b in zip(want_rec._fields, want_rec, got_rec):
+            assert torch.equal(a, b), f
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        timed.graph.replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        replay_ms = ev0.elapsed_time(ev1)
+        ms = timed.stage_ms()
+        assert all(v > 0 for v in ms.values()), ms
+        ticks = sum(v for k, v in ms.items() if k.startswith("engine."))
+        assert abs(ticks - replay_ms) <= 0.05 * replay_ms, (ms, replay_ms)
+        parts = sum(v for k, v in ms.items() if k.startswith("heartbeat."))
+        assert 0 < parts <= ms["engine.heartbeat"], ms
+        assert {"engine.publish", "engine.heartbeat", "engine.forward",
+                "engine.flags", "engine.telemetry", "heartbeat.score",
+                "heartbeat.select", "heartbeat.exchange"} <= set(ms)
+        assert ("engine.churn" in ms) == (case != "headline")
+        assert ("engine.gater" in ms) == cfg.gater_enabled
+        assert set(ms) <= set(spans.NAMES)
+    finally:
+        compile_plan.clear_caches()
+
+
 # --- the supervised and fleet planes (sim/supervisor.py, sim/fleet.py) -----
 
 @pytest.mark.parametrize("b", [1, 3])
