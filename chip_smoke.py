@@ -17,7 +17,11 @@ Phases, each printing its own lines and its seconds:
    of 1024; the words gather also at K = 383, 384, 512 and 1000 slots, one
    and several staged chunks of nbr, at N=8192, W=2; the payload permute
    also at an N*K that is no multiple of 4 and with jn, rk and out 4 bytes
-   past a 16-byte boundary). Beside each words gather and
+   past a 16-byte boundary); the selections' ``select_rows`` in each mode
+   (random, noise, top, median) at [102400, 1, 32] and [51200, 4, 32]
+   against ``select_random_plain``, ``select_top_plain`` and
+   ``masked_median_plain``, and random also with counts on 10% of rows,
+   as most heartbeat calls see them. Beside each words gather and
    take, on its print line only: the 32-byte L2 sectors that one lookup's
    table row spans, computed from the indices and the row width (not
    measured), and that sector traffic over the measured time. Equality is
@@ -207,15 +211,16 @@ Phases, each printing its own lines and its seconds:
    bucket) for 8 ticks under each ``bucketed_rng``, every array of ``g``,
    of every bucket and of ``rev`` after every tick equal to a CPU run of
    the port (float32 rtol 1e-6, the rest exact; the CPU side runs in a
-   child process started with the underlay builds), no hand kernel
-   launched; 8b ``powerlaw_1m`` at 1,048,576 peers (its own config:
-   compact, ``"bucket"`` draws) on its power-law underlay: stored bytes
-   equal to ``state_nbytes``, one warm tick, then 4 ticks timed by CUDA
-   events (eager hb/s), the peak device memory above the start, the
-   underlay's ``degree_stats``, delivery and ``fault_flags`` (no
-   violation), kernels 1-7 launched 0 times, and one more tick under sync
-   debug "error"; 8c ``heavytail_eclipse`` at 131,072 peers for 10 ticks
-   (the window is [3, 8): the eclipse bit must be set), then under
+   child process started with the underlay builds), no hand kernel but
+   the selections' ``select_rows`` launched; 8b ``powerlaw_1m`` at
+   1,048,576 peers (its own config: compact, ``"bucket"`` draws) on its
+   power-law underlay: stored bytes equal to ``state_nbytes``, one warm
+   tick, then 4 ticks timed by CUDA events (eager hb/s), the peak device
+   memory above the start, the underlay's ``degree_stats``, delivery and
+   ``fault_flags`` (no violation), kernels 1-7 launched 0 times and
+   ``select_rows`` some, and one more tick under sync debug "error"; 8c
+   ``heavytail_eclipse`` at 131,072 peers for 10 ticks (the window is
+   [3, 8): the eclipse bit must be set), then under
    ``bucketed_rng="dense"`` and f32 the densified state after 4 ticks
    equal in every field to the dense ``run`` on the same graph on the
    card, which runs kernels 1-4 (their launches printed). The two
@@ -312,13 +317,18 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # INT32 lanes x 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67
 # TFLOP/s fp32 counts an FMA as two operations on 128 fp32 lanes per SM).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer instructions of one threefry-2x32 draw and its float
+# assembly (csrc/select_rows.cu threefry_bits, counted in the SASS of
+# sm_90a: 17 IMAD.IADD, 10 IADD3, 20 SHF, 20 LOP3, 1 LEA.HI; and one FADD)
+DRAW_OPS = 68
 SECTOR = 32                      # bytes of an L2 sector
 N_FULL, K, M = 102400, 32, 64
 N_CHURN = 51200                  # churn_50k at its 128-friendly size
 REPS = 20
 SLOW_CALL_MS = 2.0               # time_ms: a longer call is timed singly
 
-# TPU kernel each port replaces (function definition, file:line)
+# TPU kernel each port replaces (function definition, file:line); select_rows
+# replaces no Pallas kernel but the reference's jnp selections
 REPLACES = {
     "edge_table": "go_libp2p_pubsub_tpu/ops/permgather.py:230",
     "iwant_resolve": "go_libp2p_pubsub_tpu/ops/hopkernel.py:255",
@@ -327,11 +337,14 @@ REPLACES = {
     "gather_words": "go_libp2p_pubsub_tpu/ops/permgather.py:196",
     "permutation_gather": "go_libp2p_pubsub_tpu/ops/permgather.py:161",
     "take_words": "go_libp2p_pubsub_tpu/ops/mxutake.py:119",
+    "select_rows": "none: go_libp2p_pubsub_tpu/ops/selection.py:140, :167, "
+                   ":184 (jnp select_random, select_top, masked_median)",
 }
-LIBRARY_NOTE = ("library_ms is null for edge_table, hop, iwant_resolve and "
-                "emit: no single PyTorch call computes a bit-table edge "
-                "exchange, a fused hop, an IWANT resolve or a budgeted IHAVE "
-                "chooser")
+LIBRARY_NOTE = ("library_ms is null for edge_table, hop, iwant_resolve, emit "
+                "and select_rows: no single PyTorch call computes a "
+                "bit-table edge exchange, a fused hop, an IWANT resolve, a "
+                "budgeted IHAVE chooser or a masked top-count selection with "
+                "a count a row")
 # kernels each path must launch (and, for the churn runs, must not)
 PATH_KERNELS = {
     "headline": ({"edge_table", "hop", "iwant_resolve", "emit"}, set()),
@@ -405,7 +418,8 @@ PATH_KERNELS = {
     # validation queue cap runs the non-fused words gathers)
     "score sweep": ({"edge_table", "hop", "iwant_resolve", "emit",
                      "gather_words", "permutation_gather"}, {"take_words"}),
-    # phase 8: the degree-bucketed engine runs no hand kernel; the dense
+    # phase 8: the degree-bucketed engine runs no hand kernel but
+    # select_rows (added below, as on every path with a heartbeat); the dense
     # engine on the heavy-tailed graph runs kernels 1-4 (and churn's
     # payload permute)
     "powerlaw_1m": (set(), set(REPLACES)),
@@ -419,6 +433,11 @@ PATH_KERNELS = {
     "injector": ({"edge_table", "hop", "iwant_resolve", "emit"},
                  {"gather_words", "take_words"}),
 }
+# the heartbeat's selections run on select_rows on every path with a
+# heartbeat, the bucketed engine's included; floodsub has none
+for _path, (_must, _must_not) in PATH_KERNELS.items():
+    _must_not.discard("select_rows")
+    (_must_not if _path == "floodsub" else _must).add("select_rows")
 N_OUTAGE = 10240                 # outage_10k at its 128-friendly size
 N_BEACON, K_BEACON = 10240, 48   # beacon_10k at its 128-friendly size
 # the beacon network's attestation-subnet rotation: a stress rate, not the
@@ -1520,6 +1539,76 @@ class Smoke:
                 continue
             self.check_take_words(f"{case},[{rows},{cols}],R={r}",
                                   self.rand_words(gen, rows, cols), idx)
+
+    def phase_select_kernels(self):
+        """``select_rows``, the heartbeat's selections, in each mode against
+        its plain twin at the main path's [102400, 1, 32] and the churn
+        path's [51200, 4, 32]: mask density 0.5, counts from -2 to K + 2,
+        the score and the median's values a [N, 1, K] plane broadcast over
+        the topics (as the heartbeat passes ``sb``) in quarters, so rows
+        hold ties; at the main shape random also with counts on 10% of
+        rows. The bound counts what a launch needs: every count and output
+        byte, the mask of each row with a count, the values of each row it
+        does not skip (the plane's rows once), and in random mode
+        DRAW_OPS integer ops for each masked slot of those rows."""
+        torch = self.torch
+        from go_libp2p_pubsub_tpu_torch import rng
+        from go_libp2p_pubsub_tpu_torch.ops import selection as sel
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(0)
+        key = rng.PRNGKey(7, device=self.dev)
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=gen, device=self.dev)
+
+        for n, t in ((self.n, 1), (N_CHURN, 4)):
+            mask = rand(n, t, K) < 0.5
+            count = torch.randint(-2, K + 3, (n, t), generator=gen,
+                                  device=self.dev)
+            sparse = torch.where(rand(n, t) < 0.1, count.abs() + 1, 0)
+            noise = rand(n, t, K)
+            plane = torch.randint(-8, 9, (n, 1, K), generator=gen,
+                                  device=self.dev).float() / 4
+            r = n * t
+            for mode, cnt in (("random", count), ("random", sparse),
+                              ("noise", count), ("top", count),
+                              ("median", None)):
+                has = mask.any(-1) if cnt is None else cnt > 0
+                live = has & mask.any(-1)
+                nbytes = (r * K + 4 * r if mode == "median"
+                          else 8 * r + r * K + int(has.sum()) * K)
+                if mode == "noise":
+                    nbytes += 4 * K * int(live.sum())
+                elif mode in ("top", "median"):
+                    nbytes += 4 * K * int(live.any(-1).sum())
+                ops = (DRAW_OPS * int((mask & live[..., None]).sum())
+                       if mode == "random" else 0)
+                case = (f"{mode},[{n},{t},{K}]"
+                        + (",counts on 10% of rows" if cnt is sparse else ""))
+                if mode == "random":
+                    fns = (lambda m, c, k: sel.select_random(m, c, k),
+                           lambda m, c, k: sel.select_random_plain(m, c, k))
+                    inputs = [mask, cnt, key]
+                elif mode == "noise":
+                    fns = (lambda m, c, z: sel.select_random(m, c, None,
+                                                             noise=z),
+                           lambda m, c, z: sel.select_random_plain(
+                               m, c, None, noise=z))
+                    inputs = [mask, cnt, noise]
+                elif mode == "top":
+                    fns = (lambda m, c, p: sel.select_top(
+                               p.expand(m.shape), m, c),
+                           lambda m, c, p: sel.select_top_plain(
+                               p.expand(m.shape), m, c))
+                    inputs = [mask, cnt, plane]
+                else:
+                    fns = (lambda m, p: sel.masked_median(p.expand(m.shape),
+                                                          m),
+                           lambda m, p: sel.masked_median_plain(
+                               p.expand(m.shape), m))
+                    inputs = [mask, plane]
+                self.check_kernel("select_rows", case, *fns, inputs, nbytes,
+                                  ops)
 
     def check_permutation_edges(self, gen, n, k, index):
         """permutation_gather at an N*K that is no multiple of 4, and with
@@ -3816,11 +3905,13 @@ class Smoke:
             secs = time.perf_counter() - t0
             for i, (g, w) in enumerate(zip(got, want, strict=True)):
                 _same_fingerprint(f"phase 8a [{mode}] tick {i}", g, w)
-            launched = {k: v for k, v in cudalib.LAUNCHES.items() if v}
-            if launched:
+            launched = {k: v for k, v in cudalib.LAUNCHES.items()
+                        if v and k != "select_rows"}
+            if launched or not cudalib.LAUNCHES["select_rows"]:
                 raise AssertionError(f"phase 8a [{mode}]: hand kernels "
                                      f"launched on the bucketed path: "
-                                     f"{launched}")
+                                     f"{dict(cudalib.LAUNCHES)} (only its "
+                                     "selections' select_rows belongs)")
             if flags != want_flags or not flags & 0x80:
                 raise AssertionError(f"phase 8a [{mode}]: fault_flags "
                                      f"0x{flags:08x} against the CPU's "
@@ -3831,7 +3922,7 @@ class Smoke:
                   f"{secs:.3f} s (each tick fingerprinted), every array of "
                   f"g, the buckets and rev equal to the CPU run after every "
                   f"tick; fault_flags 0x{flags:08x}; no hand kernel "
-                  "launched", flush=True)
+                  "launched but select_rows", flush=True)
 
     def phase_powerlaw_1m(self, topo):
         """8b: ``powerlaw_1m`` at 1,048,576 peers, its own config (compact,
@@ -5258,6 +5349,7 @@ def main() -> int:
             print(f"build {name}: {r['ptxas']}", flush=True)
         timed("2 (fused kernels)", smoke.phase_kernels)
         timed("2 (gather kernels)", smoke.phase_gather_kernels)
+        timed("2 (select_rows)", smoke.phase_select_kernels)
         print(LIBRARY_NOTE, flush=True)
         # the 1024-peer fleet phases run while the underlays build
         timed("6b (fleet_256x1k)", smoke.phase_fleet)

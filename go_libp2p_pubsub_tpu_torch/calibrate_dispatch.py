@@ -15,7 +15,8 @@ its own label. On the card each call's device time is taken by CUDA
 events (one warm call first, then the median of ``repeats``, each call
 queued behind a spin kernel so that the host's enqueue time is hidden, as
 it is in a captured chunk), and each kernel formulation
-(``pallas``, ``mxu``, and the fused hop and emit) must raise its kernel's
+(``pallas``, ``mxu``, the fused hop and emit, and the ``ranks``
+selection) must raise its kernel's
 count in ``ops.cudalib.LAUNCHES`` while a plain one must leave it alone;
 if either fails the run fails, so a plain twin is never timed under a
 kernel's label. On the CPU the wrappers run their plain versions and the
@@ -58,6 +59,7 @@ KERNEL_OF = {
     ("hop", "pallas-mxu"): "hop",
     ("emit", "pallas"): "emit",
     ("emit", "pallas-mxu"): "emit",
+    ("selection", "ranks"): "select_rows",
 }
 # the kernel an op's plain formulations must not launch
 _OP_KERNELS = {
@@ -66,7 +68,7 @@ _OP_KERNELS = {
     "edge_packed": ("edge_table", "take_words"),
     "hop": ("hop",),
     "emit": ("emit",),
-    "selection": (),
+    "selection": ("select_rows",),
 }
 
 

@@ -44,6 +44,8 @@ KERNELS = {
     "permutation_gather": ("permutation_gather.cu",
                            "permutation_gather_launch", "p" * 4 + "i" * 3 + "p"),
     "take_words": ("take_words.cu", "take_words_launch", "p" * 3 + "i" * 4 + "p"),
+    "select_rows": ("select_rows.cu", "select_rows_launch",
+                    "p" * 5 + "i" * 6 + "p"),
 }
 
 # launches per kernel, counted only where a wrapper launches its kernel

@@ -74,7 +74,8 @@ QUEUE_FULL = "Command Buffer Full"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 OWN_KERNELS = ("edge_table_kernel", "hop_kernel", "iwant_resolve_kernel",
                "emit_kernel", "gather_words_kernel",
-               "permutation_gather_kernel", "take_words_kernel")
+               "permutation_gather_kernel", "take_words_kernel",
+               "select_rows_kernel")
 
 
 def _device_us(evt) -> float:

@@ -159,7 +159,8 @@ def _tick(state: SimState, cfg: SimConfig, tp: TopicParams,
             state, fault = apply_faults(state, cfg, tp, k_fault)
     else:
         fault = None
-    k_pub, k_hb, k_fwd, k_churn, k_ign, k_sub = rng.split(key, 6)
+    with span("engine.keys"):
+        k_pub, k_hb, k_fwd, k_churn, k_ign, k_sub = rng.split(key, 6)
     if cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0:
         with span("engine.sub_churn"):
             state = churn_subscriptions(state, cfg, tp, k_sub)

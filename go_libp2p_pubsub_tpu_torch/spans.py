@@ -43,6 +43,7 @@ NAMES = {
     "engine.codec": "decode_state at a tick's entry, encode_state at its "
                     "exit (identities under state_precision='f32')",
     "engine.faults": "apply_faults: the fault plan's cuts, heals and draws",
+    "engine.keys": "the tick key's split into its stages' keys",
     "engine.sub_churn": "churn_subscriptions: the topic Join/Leave round",
     "engine.publish": "choose_publishers, publish and the censor mask",
     "engine.gater": "gater_decay: the peer gater's counters decay",

@@ -161,7 +161,8 @@ def test_mode_resolution(ref_runs):
 def test_routes_name_only_their_kernels(monkeypatch, gather):
     """On the CPU every wrapper still asks cudalib.use_kernel for its route:
     the pallas formulation asks for the bit-table, words and payload
-    kernels, the mxu formulation for the flat take only."""
+    kernels, the mxu formulation for the flat take only, and both for the
+    heartbeat's selection kernel."""
     asked = []
     real = cudalib.use_kernel
 
@@ -175,7 +176,7 @@ def test_routes_name_only_their_kernels(monkeypatch, gather):
         device="cpu")
     want = {"edge_table", "gather_words", "permutation_gather"} \
         if gather == "pallas" else {"take_words"}
-    assert set(asked) == want
+    assert set(asked) == want | {"select_rows"}
 
 
 @pytest.fixture(scope="module")

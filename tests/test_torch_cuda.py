@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from go_libp2p_pubsub_tpu_torch import rng
+from go_libp2p_pubsub_tpu_torch.ops import cudalib
 from go_libp2p_pubsub_tpu_torch.ops import hopkernel as hk
 from go_libp2p_pubsub_tpu_torch.ops import mxutake as mt
 from go_libp2p_pubsub_tpu_torch.ops import permgather as pg
+from go_libp2p_pubsub_tpu_torch.ops import selection as sel
 from go_libp2p_pubsub_tpu_torch.ops.bits import pack_bool
+from go_libp2p_pubsub_tpu_torch.parallel import kernel_context as kc
 
 pytestmark = pytest.mark.cuda
 
@@ -288,6 +291,131 @@ def test_take_payload_kernel_equals_plain(dtype):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
+# --- the heartbeat's selections (csrc/select_rows.cu) -----------------------
+
+SELECT_K = [1, 5, 16, 31, 32, 33, 48, 64, 128, 1000]
+
+
+def _select_inputs(seed, lead, k):
+    """CUDA mask, count, noise, score and median values of ``lead + (k,)``:
+    the first row all masked, the second none; counts from -3 to K + 3,
+    the first rows' K, 3, -1, 0, K, K + 5; a row of tied noise; scores
+    from 4 values (ties in every row); NaN and signed zeros in the
+    values."""
+    r = np.random.default_rng(seed)
+    shape = tuple(lead) + (k,)
+    mask = r.random(shape) < 0.6
+    mask.reshape(-1, k)[0], mask.reshape(-1, k)[1] = True, False
+    count = r.integers(-3, k + 4, size=lead).astype(np.int64)
+    count.reshape(-1)[:6] = [k, 3, -1, 0, k, k + 5]
+    noise = r.random(shape, dtype=np.float32)
+    noise.reshape(-1, k)[2] = 0.5
+    score = (r.integers(0, 4, size=shape) / 4 * 10 - 5).astype(np.float32)
+    vals = score.copy()
+    vals.reshape(-1, k)[0, :3] = [np.nan, -0.0, 0.0][:k]
+    vals.reshape(-1, k)[3, ::2] = np.nan
+    vals.reshape(-1, k)[4] = -0.0
+    vals.reshape(-1, k)[5, ::3] = 0.0
+    return {name: torch.from_numpy(x).cuda() for name, x in
+            dict(mask=mask, count=count, noise=noise, score=score,
+                 vals=vals).items()}
+
+
+def _select_pairs(kind, d, key):
+    """(label, kernel call, plain twin) of one kind on inputs ``d``."""
+    m, c = d["mask"], d["count"]
+    sb = d["score"][..., :1, :].expand(m.shape)      # the heartbeat's sb
+    if kind == "random":
+        return [("counts", lambda: sel.select_random(m, c, key),
+                 lambda: sel.select_random_plain(m, c, key)),
+                ("static 3", lambda: sel.select_random(m, 3, key),
+                 lambda: sel.select_random_plain(m, 3, key))]
+    if kind == "noise":
+        nz = d["noise"]
+        return [("counts", lambda: sel.select_random(m, c, None, noise=nz),
+                 lambda: sel.select_random_plain(m, c, None, noise=nz))]
+    if kind == "top":
+        return [(f"{what}, {cn}", lambda s=s, cc=cc: sel.select_top(s, m, cc),
+                 lambda s=s, cc=cc: sel.select_top_plain(s, m, cc))
+                for what, s in (("score", d["score"]), ("broadcast", sb))
+                for cn, cc in (("counts", c), ("static 2", 2))]
+    return [(what, lambda v=v: sel.masked_median(v, m),
+             lambda v=v: sel.masked_median_plain(v, m))
+            for what, v in (("values", d["vals"]), ("broadcast", sb))]
+
+
+def _check_select(kind, d, key, what):
+    for label, kernel, plain in _select_pairs(kind, d, key):
+        before = cudalib.LAUNCHES["select_rows"]
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        assert cudalib.LAUNCHES["select_rows"] == before + 1, (what, label)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if kind == "median":
+            assert torch.equal(got.isnan(), want.isnan()), (what, label)
+            ok = got.isnan() | (got == want)
+            assert bool(ok.all()), (what, label)
+        else:
+            assert torch.equal(got, want), (what, label)
+
+
+@pytest.mark.parametrize("k", SELECT_K)
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("kind", ["random", "noise", "top", "median"])
+def test_select_rows_kernel_equals_plain(kind, t, k):
+    """Each mode of the kernel equals its plain twin at every K regime of
+    its slots per lane: counts below 0, at 0 and above K, all-masked and
+    empty rows, tied keys, the score broadcast over the topic axis, and
+    medians of NaN and signed zeros (values equal, NaN positions
+    equal)."""
+    _need_card()
+    n = max(64, 8192 // k)
+    d = _select_inputs(100 * k + t, (n, t), k)
+    _check_select(kind, d, rng.PRNGKey(2 ** 31 + k, device="cuda"),
+                  f"{kind} K={k} T={t}")
+
+
+def test_select_rows_kernel_fleet_shape_and_peer_group_rows(monkeypatch):
+    """A fleet's [B, N, T, K] in every mode, and a peer group's rows of the
+    draw at ``row0`` > 0 (the counter base's high half nonzero in the
+    second)."""
+    _need_card()
+    d = _select_inputs(9, (3, 256, 2), 40)
+    key = rng.PRNGKey(77, device="cuda")
+    for kind in ("random", "noise", "top", "median"):
+        _check_select(kind, d, key, f"fleet {kind}")
+    d = _select_inputs(10, (512, 2), 40)
+    for row0 in (5, (1 << 32) // 80 + 1):
+        monkeypatch.setattr(kc, "row0", lambda r=row0: r)
+        _check_select("random", d, key, f"row0={row0}")
+
+
+def test_captured_heartbeat_makes_ten_select_rows_launches_a_tick():
+    """A captured headline chunk at 1024 peers (net_100k's shape: K = 32,
+    one topic) records exactly 10 select_rows launches a tick (8 random,
+    1 top, 1 median) and equals the eager run."""
+    _need_card()
+    from go_libp2p_pubsub_tpu_torch.parallel import compile_plan
+    from go_libp2p_pubsub_tpu_torch.sim import (build_headline, run_keys,
+                                                scenarios, state_to_numpy,
+                                                topology)
+    topo = topology.sparse(1024, K, degree=12, seed=scenarios.SEED)
+    cfg, tp, st = build_headline(1024, device="cuda", topo=topo)
+    keys = rng.split(rng.PRNGKey(3, device="cuda"), 4)
+    try:
+        exe = compile_plan.engine_chunk(cfg, st, tp, keys)
+        got = state_to_numpy(exe(st, tp, keys))
+        assert exe.launches.get("select_rows") == 10 * 4, exe.launches
+        cudalib.reset_launches()
+        want = state_to_numpy(run_keys(st, cfg, tp, keys, device="cuda"))
+        assert cudalib.LAUNCHES["select_rows"] == 10 * 4
+        for f, a in want.items():
+            np.testing.assert_array_equal(got[f], a, err_msg=f)
+    finally:
+        compile_plan.clear_caches()
+
+
 @pytest.mark.parametrize("gather", ["pallas", "mxu"])
 def test_churn_trajectory_cuda_equals_cpu(gather):
     """4 ticks of churn_50k at 512 peers with the validation cap cut to 4
@@ -318,8 +446,8 @@ def test_wide_window_trajectory_cuda_equals_cpu():
     """The headline network at 512 peers with a 288-message window (W = 9,
     beyond the fused kernels' 8 words) and int32 counts, under the
     builder's ``hop_mode="pallas"``: on the card it runs the non-fused
-    path, launching no fused kernel, and after 4 ticks its state equals
-    the CPU's."""
+    path, launching no fused kernel (the heartbeat's selections launch
+    select_rows), and after 4 ticks its state equals the CPU's."""
     _need_card()
     import dataclasses
     from go_libp2p_pubsub_tpu_torch.ops import cudalib
@@ -336,7 +464,8 @@ def test_wide_window_trajectory_cuda_equals_cpu():
                                        4, device=dev)))
         if dev == "cuda":
             launched = {k for k, v in cudalib.LAUNCHES.items() if v}
-            assert launched == {"edge_table", "gather_words"}, launched
+            assert launched == {"edge_table", "gather_words",
+                                "select_rows"}, launched
     assert outs[0]["delivered_total"] > 0 and outs[0]["fault_flags"] == 0
     for f, a in outs[0].items():
         b = outs[1][f]
@@ -1136,7 +1265,8 @@ def _same_leaves(got: dict, want: dict):
 def test_bucketed_trajectory_cuda_equals_cpu(rng_mode):
     """6 ticks of the 1024-peer bucketed network: after every tick every
     array of ``g``, of every bucket and of ``rev`` on the card equals the
-    CPU's (float32 within rtol 1e-6), and no hand kernel launches."""
+    CPU's (float32 within rtol 1e-6), and no hand kernel launches but the
+    selections' select_rows."""
     _need_card()
     from go_libp2p_pubsub_tpu_torch.ops import cudalib
     from go_libp2p_pubsub_tpu_torch.sim import bucketed
@@ -1151,7 +1281,8 @@ def test_bucketed_trajectory_cuda_equals_cpu(rng_mode):
             ticks.append(bucketed.bucketed_state_to_numpy(bs))
         runs[dev] = ticks
         if dev == "cuda":
-            assert not any(cudalib.LAUNCHES.values()), cudalib.LAUNCHES
+            launched = {k for k, v in cudalib.LAUNCHES.items() if v}
+            assert launched == {"select_rows"}, cudalib.LAUNCHES
     for got, want in zip(runs["cuda"], runs["cpu"]):
         _same_leaves(got, want)
     assert int(runs["cuda"][-1]["g.fault_flags"]) & 0x80

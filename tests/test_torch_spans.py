@@ -83,6 +83,7 @@ def _tick_names(cfg, telemetry):
     names = ["engine.codec"]
     if cfg.fault_plan is not None:
         names.append("engine.faults")
+    names.append("engine.keys")
     if cfg.sub_leave_prob > 0.0 or cfg.sub_join_prob > 0.0:
         names.append("engine.sub_churn")
     names.append("engine.publish")
@@ -132,7 +133,7 @@ def test_fault_and_subscription_spans_open_the_tick(tmp_path):
     _same(plain, traced)
     got = [s[0] for s in _spans(prof, tmp_path)]
     assert got == _tick_names(cfg, False) * 2
-    assert got[1:4] == ["engine.faults", "engine.sub_churn",
+    assert got[1:5] == ["engine.faults", "engine.keys", "engine.sub_churn",
                         "engine.publish"]
 
 

@@ -157,8 +157,8 @@ def test_wide_window_trajectory_equals_reference(monkeypatch):
     """The headline network at 256 peers with a 288-message window (W = 9)
     and int32 counts, under the builder's ``hop_mode="pallas"``: the port
     routes the hop, resolve and emit to the non-fused path, asks for the
-    bit-table and words gathers only, and after 4 ticks equals the JAX
-    package in every field."""
+    bit-table and words gathers and the heartbeat's selection kernel only,
+    and after 4 ticks equals the JAX package in every field."""
     jcfg, jtp, jst = _build(256, 32, 12, msg_window=288)
     jcfg = dataclasses.replace(jcfg, hop_mode="xla", edge_gather_mode="pallas",
                                count_dtype="int32")
@@ -172,7 +172,7 @@ def test_wide_window_trajectory_equals_reference(monkeypatch):
     assert hk.resolve_hop_mode(cfg) == hk.resolve_emit_mode(cfg) == "xla"
     _assert_equal(_arrays(jst), state_to_numpy(st))
     out, asked = _run_asking(monkeypatch, st, cfg, tp, 4)
-    assert asked == {"edge_table", "gather_words"}
+    assert asked == {"edge_table", "gather_words", "select_rows"}
     ref = _arrays(jout)
     _assert_equal(ref, state_to_numpy(out))
     assert ref["delivered_total"] > 0 and ref["fault_flags"] == 0
@@ -189,7 +189,8 @@ def test_int32_counts_churn_equals_reference(monkeypatch):
     jout = jrun(jst, jcfg, jtp, jax.random.PRNGKey(0), 4)
     cfg, tp, st = _port(jcfg, jtp, jst)
     out, asked = _run_asking(monkeypatch, st, cfg, tp, 4)
-    assert asked == {"edge_table", "gather_words", "permutation_gather"}
+    assert asked == {"edge_table", "gather_words", "permutation_gather",
+                     "select_rows"}
     ref = _arrays(jout)
     _assert_equal(ref, state_to_numpy(out))
     assert ref["delivered_total"] > 0 and ref["gater_throttle"].sum() > 0
