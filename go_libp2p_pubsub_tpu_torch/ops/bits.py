@@ -6,7 +6,7 @@ JAX package stores those words as ``uint32``; PyTorch's ``uint32`` has no
 **int32 holding the same bits** (the CUDA kernels take them as
 ``uint32_t*``). Bit extraction ``(x >> i) & 1`` is exact under int32's
 arithmetic shift; a shift that must be logical goes through :func:`lsr`.
-Torch has no popcount, so :func:`popcount` is SWAR arithmetic on int64.
+Torch has no popcount, so :func:`popcount` is SWAR arithmetic on int32.
 
 Layouts are the reference's: ``pack_bool`` packs the last axis
 little-endian ([..., M] -> [..., W]); ``pack_words`` is word-major,
@@ -45,13 +45,17 @@ def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each 32-bit word (int32 in, int32 out): SWAR on int64."""
-    v = to_u32(x)
+    """Set bits of each 32-bit word (int32 in, int32 out): SWAR in int32
+    on the low 31 bits, where no step can overflow, plus the sign bit.
+    Every temporary is the input's size (an int64 SWAR doubles it)."""
+    x = x.to(I32)
+    v = x & 0x7FFFFFFF
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
-    v = (v * 0x01010101) & _M32
-    return (v >> 24).to(I32)
+    v = v + (v >> 8)
+    v = (v + (v >> 16)) & 0x3F
+    return v + (x < 0).to(I32)
 
 
 def _bit_weights(device) -> torch.Tensor:

@@ -29,7 +29,7 @@ from ..parallel import kernel_context as kc
 from ..sim.config import SimConfig, TopicParams
 from ..sim.state import NEVER, SimState
 from ..spans import span
-from .bits import I32, pack_bool, prefix_count, to_i32
+from .bits import I32, pack_bool, prefix_count
 from .permgather import (_edge_table_mxu, edge_sort_key, edge_table,
                          permutation_gather, resolve_edge_packed_mode,
                          sort_permutation)
@@ -73,15 +73,15 @@ def edge_gather(x: torch.Tensor, state: SimState, fill=False,
 def _plane_payloads(planes: torch.Tensor) -> list[torch.Tensor]:
     """[N, B, K] bool planes -> one [N, K] int32 payload per 32 planes, bit
     i of group g holding plane 32 g + i (heartbeat.py:146-151), built one
-    plane at a time: packing the slots' bits in place would widen every
-    slot to a 32-bit int64 row."""
+    plane at a time in int32 (bit 31 is the sign bit): packing the slots'
+    bits in place would widen every slot to a 32-bit int64 row."""
     n, b, k = planes.shape
     out = []
     for w0 in range(0, b, 32):
-        acc = torch.zeros((n, k), dtype=torch.int64, device=planes.device)
+        acc = torch.zeros((n, k), dtype=I32, device=planes.device)
         for i in range(min(32, b - w0)):
-            acc = acc | (planes[:, w0 + i, :].to(torch.int64) << i)
-        out.append(to_i32(acc))
+            acc = acc | (planes[:, w0 + i, :].to(I32) << i)
+        out.append(acc)
     return out
 
 
@@ -157,8 +157,8 @@ def edge_gather_packed(masks: list, state: SimState, mode: str = "auto",
     parts = []
     for w0, g in zip(range(0, b, 32), groups):
         nb = min(32, b - w0)
-        sh = torch.arange(nb, dtype=I32, device=g.device)[None, :, None]
-        parts.append(((g[:, None, :] >> sh) & 1).bool())
+        bit = 1 << torch.arange(nb, dtype=I32, device=g.device)[None, :, None]
+        parts.append((g[:, None, :] & bit) != 0)
     flat = torch.cat(parts, dim=1) & valid
     results = [flat[:, i * t:(i + 1) * t, :] for i in range(len(masks))]
     vmask = torch.where(valid[:, 0, :].T, -1, 0).to(I32)   # [K, N]

@@ -55,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import kernel_context as kc
+from ..spans import span
 from . import cudalib
 from .bits import I32
 
@@ -173,17 +174,32 @@ def edge_sort_key(neighbors: torch.Tensor, reverse_slot: torch.Tensor,
     return torch.where(valid, dest, own).reshape(-1)
 
 
+# sorts run by :func:`sort_permutation` and the keys they sorted, counted
+# where the Python runs (eager ticks, a chunk's warm-up and capture; a
+# replay repeats the captured ones), as cudalib.LAUNCHES counts launches
+SORTS = {"calls": 0, "keys": 0}
+
+
+def reset_sorts() -> None:
+    for name in SORTS:
+        SORTS[name] = 0
+
+
 def sort_permutation(sort_key: torch.Tensor) -> torch.Tensor:
     """The permutation one sort of the destination keys gives:
     ``out_flat[d] = in_flat[perm[d]]`` moves every source slot's value to
     its destination. The keys are distinct, so any sort gives this
-    order; the reference's ``lax.sort`` gives the same. Inside a peer
+    order; the reference's ``lax.sort`` gives the same. The sort runs in
+    the span ``exchange.sort`` and counts in :data:`SORTS`. Inside a peer
     group a rank's own destinations are its own slots, and the source of
     each is its n-major key (:func:`edge_sort_key`): no sort runs, and the
     payload the result indexes is the replicated one."""
     if kc.current_kernel_mesh() is not None:
         return sort_key.long()
-    return torch.sort(sort_key, stable=True).indices
+    SORTS["calls"] += 1
+    SORTS["keys"] += sort_key.numel()
+    with span("exchange.sort"):
+        return torch.sort(sort_key, stable=True).indices
 
 
 def _gather_sort(payload, sort_key):

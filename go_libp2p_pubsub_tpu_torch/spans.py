@@ -57,6 +57,10 @@ NAMES = {
     "heartbeat.score": "the active latch and compute_scores",
     "heartbeat.select": "each select_random, select_top and masked_median",
     "heartbeat.exchange": "each edge_gather_packed exchange",
+    # ops/permgather.py: inside whichever span calls it
+    "exchange.sort": "each sort_permutation's torch.sort under "
+                     "edge_gather_mode='sort' (one process; a peer group "
+                     "sorts nothing)",
     # sim/supervisor.py, the thread that calls supervised_run
     "supervisor.setup": "run start to the first dispatch: resume, journal "
                         "header, the writer thread",
